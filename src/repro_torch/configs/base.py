@@ -1,0 +1,158 @@
+"""Model / run configuration dataclasses (the port's own copy).
+
+A copy of ``repro.configs.base``: the port imports nothing of ``repro``,
+so these dataclasses are repeated here, field for field, and a parity
+test holds the two copies equal.  The layer stack is a *periodic
+pattern*: ``pattern`` is the tuple of block kinds inside one period and
+``n_periods`` repeats it, so ``n_layers == len(pattern) * n_periods``.
+This slice of the port runs only the dense ``("attn",)`` pattern; the
+other block kinds are listed so that configs describe them faithfully.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class LoRAConfig:
+    rank: int = 16
+    alpha: float = 32.0
+    # projection names inside attention blocks that receive adapters
+    targets: Tuple[str, ...] = ("wq", "wk", "wv", "wo")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | vlm | audio | hybrid | ssm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    # layer program -----------------------------------------------------
+    pattern: Tuple[str, ...] = ("attn",)
+    n_periods: int = 0               # 0 -> n_layers / len(pattern)
+    # attention ----------------------------------------------------------
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    rope_theta: float = 500000.0
+    sliding_window: int = 0          # 0 -> full attention
+    # extras ---------------------------------------------------------------
+    moe: Optional[MoEConfig] = None
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    conv_dim: int = 4
+    # vlm / enc-dec --------------------------------------------------------
+    n_vision_tokens: int = 0
+    encoder_layers: int = 0
+    encoder_len_ratio: int = 1
+    decoder_len_ratio: int = 1
+    # adapters / training --------------------------------------------------
+    lora: Optional[LoRAConfig] = LoRAConfig()
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    remat: bool = True
+    remat_policy: str = "full"
+    attn_block: int = 512
+    mlstm_chunk: int = 0
+    batched_vjp: bool = True
+    tensor_parallel: bool = True
+    # provenance -----------------------------------------------------------
+    source: str = ""
+    # capability flags -------------------------------------------------------
+    subquadratic: bool = False
+    is_encoder_decoder: bool = False
+
+    # ------------------------------------------------------------------ derived
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.n_periods == 0:
+            object.__setattr__(
+                self, "n_periods", max(1, self.n_layers // len(self.pattern)))
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def reduced(self, n_layers: int = 2, d_model: int = 256,
+                vocab: int = 512) -> "ModelConfig":
+        """A tiny same-family variant for CPU smoke tests.
+
+        It has ``n_heads == n_kv_heads`` for llama, i.e. no GQA: tests that
+        need grouped heads replace ``n_kv_heads`` afterwards.
+        """
+        pat = self.pattern
+        n_per = max(1, n_layers // len(pat))
+        n_heads = max(2, min(4, self.n_heads))
+        n_kv = max(1, min(n_heads, self.n_kv_heads))
+        if n_heads % n_kv:
+            n_kv = 1
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(self.moe,
+                                      n_experts=min(4, self.moe.n_experts),
+                                      top_k=min(2, self.moe.top_k))
+        return dataclasses.replace(
+            self, name=self.name + "-smoke", n_layers=n_per * len(pat),
+            n_periods=n_per, d_model=d_model, n_heads=n_heads,
+            n_kv_heads=n_kv, head_dim=d_model // n_heads,
+            d_ff=2 * d_model, vocab=vocab, moe=moe,
+            ssm_state=min(16, self.ssm_state) if self.ssm_state else 0,
+            n_vision_tokens=min(16, self.n_vision_tokens),
+            encoder_layers=min(2, self.encoder_layers),
+            sliding_window=min(128, self.sliding_window)
+            if self.sliding_window else 0,
+        )
+
+    def param_count(self) -> int:
+        """Parameters of the dense ``("attn",)`` stack, adapters excluded."""
+        if self.pattern != ("attn",):
+            raise NotImplementedError(
+                "param_count covers the dense pattern only in this slice")
+        d, hd = self.d_model, self.head_dim
+        q, kv = self.n_heads * hd, self.n_kv_heads * hd
+        per_layer = d * q + 2 * d * kv + q * d + 3 * d * self.d_ff + 2 * d
+        total = per_layer * self.n_periods + self.vocab * d + d
+        if not self.tie_embeddings:
+            total += self.vocab * d
+        return int(total)
+
+
+@dataclasses.dataclass(frozen=True)
+class FIRMConfig:
+    """Hyper-parameters of the paper's algorithm (Alg. 1 + App. A)."""
+    n_objectives: int = 2
+    n_clients: int = 8
+    rounds: int = 16
+    local_steps: int = 3             # K
+    batch_size: int = 16             # B prompts per local step
+    beta: float = 0.01               # MGDA regularization (T2)
+    preference: Optional[Tuple[float, ...]] = None   # p vector (Eq. 3)
+    participation: float = 1.0
+    client_preferences: Optional[Tuple[Tuple[float, ...], ...]] = None
+    client_local_steps: Optional[Tuple[int, ...]] = None
+    lambda_smoothing: bool = True    # eta_t smoothing (Alg. 2, Eq. 12)
+    eta0: float = 1.0
+    actor_lr: float = 6e-5
+    critic_lr: float = 1e-4
+    ppo_clip: float = 0.2
+    kl_target: float = 0.03
+    kl_coef_init: float = 0.1
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    trace_normalize: bool = True     # App. A Gram normalisation
+    solver: str = "pgd"              # pgd | closed_form_m2 | frank_wolfe
+    solver_iters: int = 100

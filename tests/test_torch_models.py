@@ -1,0 +1,275 @@
+"""The port's model against ``repro.models``, on the CPU at a tiny size.
+
+Both sides get the same numpy inputs and the same parameters: the JAX
+model's ``init_params`` with non-zero ``lora_B`` (so the LoRA path is
+exercised), carried over by ``repro_torch.bridge``.  The config is
+llama-3.2-1b reduced to 2 layers, d_model 64, vocab 256, with 4 query and
+2 KV heads (``reduced()`` alone gives no GQA).
+
+Tolerances: 1e-4 in f32.  In bf16, 2e-2 (``test_models.py``'s own) taken
+relative to the scale of the compared tensor, ``|got - want| <= 2e-2 *
+max(1, max|want|)``, because bf16 rounds in other places on the two
+sides: the JAX model's XLA attention rounds ``q * scale`` and the
+probabilities to bf16 where the port's attention, like the Pallas kernel,
+keeps them f32, and XLA's CPU compiler may keep excess precision across
+fused bf16 element-wise ops where PyTorch rounds after each op.  A few
+bf16 ulps of difference in the hidden state then reach every logit as an
+absolute error, whatever the logit's own size.
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro.models import transformer as jT  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import attention, common, transformer as T  # noqa: E402
+
+B, S = 2, 12
+F32 = dict(rtol=1e-4, atol=1e-4)
+JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _cfgs():
+    jcfg = dataclasses.replace(
+        jax_get_config("llama-3.2-1b").reduced(n_layers=2, d_model=64,
+                                               vocab=256), n_kv_heads=2)
+    tcfg = dataclasses.replace(
+        get_config("llama-3.2-1b").reduced(n_layers=2, d_model=64,
+                                           vocab=256), n_kv_heads=2)
+    return jcfg, tcfg
+
+
+def _with_lora_b(tree, rng):
+    if isinstance(tree, dict):
+        return {k: (rng.normal(0, 0.05, v.shape).astype(np.float32)
+                    if k == "lora_B" else _with_lora_b(v, rng))
+                for k, v in tree.items()}
+    return tree
+
+
+def _params(dt: str, seed: int = 0):
+    """(JAX tree, torch tree) holding the same values."""
+    jcfg, _ = _cfgs()
+    tree = jax.tree_util.tree_map(
+        np.asarray, jT.init_params(jcfg, jax.random.PRNGKey(seed),
+                                   dtype=JDT[dt]))
+    tree = _with_lora_b(tree, np.random.default_rng(seed))
+    return jax.tree_util.tree_map(jnp.asarray, tree), \
+        bridge.to_torch(tree, device="cpu")
+
+
+def _tokens(seed, shape):
+    return np.random.default_rng(seed).integers(0, 256, shape).astype(
+        np.int32)
+
+
+def _np(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _close(got, want, dt: str) -> None:
+    got, want = _np(got), _np(want)
+    if dt == "f32":
+        np.testing.assert_allclose(got, want, **F32)
+    else:
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2 * scale)
+
+
+def _x(seed, shape, dt):
+    x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return jnp.asarray(x).astype(JDT[dt]), torch.from_numpy(x).to(TDT[dt])
+
+
+# ----------------------------------------------------------------- configs
+def test_config_copy_matches_reference():
+    jfull, tfull = jax_get_config("llama-3.2-1b"), get_config("llama-3.2-1b")
+    assert dataclasses.asdict(jfull) == dataclasses.asdict(tfull)
+    assert tfull.param_count() == jfull.param_count()
+    jcfg, tcfg = _cfgs()
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert tcfg.q_per_kv == 2
+    from repro.configs.base import FIRMConfig as JFIRM
+    from repro_torch.configs import FIRMConfig
+    assert dataclasses.asdict(JFIRM()) == dataclasses.asdict(FIRMConfig())
+
+
+def test_init_params_layout_matches_reference():
+    """The port's own initialiser builds the reference's tree: same keys,
+    shapes and dtypes (values differ: the generators differ)."""
+    jcfg, tcfg = _cfgs()
+    jtree = jT.init_params(jcfg, jax.random.PRNGKey(0))
+    ttree = T.init_params(tcfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    jflat = {jax.tree_util.keystr(p): (tuple(x.shape), str(x.dtype))
+             for p, x in jax.tree_util.tree_flatten_with_path(jtree)[0]}
+
+    def walk(t, prefix=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from walk(v, f"{prefix}['{k}']")
+        else:
+            yield prefix, (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+
+    assert dict(walk(ttree)) == jflat
+    assert common.tree_size(ttree) == jcommon.tree_size(jtree)
+
+
+# -------------------------------------------------------------- primitives
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_linear_with_lora(dt):
+    jp, tp = _params(dt)
+    jw = jp["slots"]["0"]["attn"]["wq"]
+    tw = tp["slots"]["0"]["attn"]["wq"]
+    jw = jax.tree_util.tree_map(lambda a: a[1], jw)
+    tw = {k: v[1] for k, v in tw.items()}
+    assert float(np.abs(np.asarray(jw["lora_B"])).max()) > 0
+    jx, tx = _x(1, (B, 5, 64), dt)
+    got = common.linear(tw, tx)
+    assert got.dtype == TDT[dt]
+    _close(got, jcommon.linear(jw, jx), dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_swiglu_and_rms_norm(dt):
+    jp, tp = _params(dt)
+    jl = jax.tree_util.tree_map(lambda a: a[0], jp["slots"]["0"])
+    tl = T._layer(tp["slots"]["0"], 0)
+    jx, tx = _x(2, (B, 5, 64), dt)
+    _close(common.swiglu(tl["mlp"], tx), jcommon.swiglu(jl["mlp"], jx), dt)
+    g = np.random.default_rng(3).standard_normal(64, dtype=np.float32)
+    jg, tg = jnp.asarray(g).astype(JDT[dt]), torch.from_numpy(g).to(TDT[dt])
+    _close(common.rms_norm({"g": tg}, tx), jcommon.rms_norm({"g": jg}, jx),
+           dt)
+
+
+@pytest.mark.parametrize("batched_positions", [False, True])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_apply_rope_interleaved(batched_positions, dt):
+    jx, tx = _x(4, (B, 7, 4, 16), dt)
+    pos = np.arange(7, dtype=np.int32) + 3
+    if batched_positions:
+        pos = np.stack([pos, pos * 2])
+    got = common.apply_rope(tx, torch.from_numpy(pos), 500000.0)
+    want = jcommon.apply_rope(jx, jnp.asarray(pos), 500000.0)
+    assert got.dtype == tx.dtype
+    _close(got, want, dt)
+
+
+def test_split_merge_trainable():
+    _, tp = _params("f32")
+    train, frozen = common.split_trainable(tp)
+    lora = [t for t in common.tree_leaves(train)]
+    assert len(lora) == 8 and all(t.dtype == torch.float32 for t in lora)
+    assert train["embed"] is None and frozen["embed"] is tp["embed"]
+    assert frozen["slots"]["0"]["attn"]["wq"]["lora_A"] is None
+    merged = common.merge_trainable(train, frozen)
+    assert common.tree_size(merged) == common.tree_size(tp)
+    assert merged["slots"]["0"]["attn"]["wq"]["lora_B"] is \
+        tp["slots"]["0"]["attn"]["wq"]["lora_B"]
+
+
+# ---------------------------------------------------------------- attention
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_chunked_attention_matches_xla_twin(dt):
+    jq, tq = _x(5, (B, S, 4, 16), dt)
+    jk, tk = _x(6, (B, S, 2, 16), dt)
+    jv, tv = _x(7, (B, S, 2, 16), dt)
+    got = attention.chunked_attention(tq, tk, tv, causal=True)
+    want = jattn.chunked_attention(jq, jk, jv, causal=True, block=8)
+    _close(got, want, dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention(dt):
+    jq, tq = _x(8, (B, 1, 4, 16), dt)
+    jk, tk = _x(9, (B, 10, 2, 16), dt)
+    jv, tv = _x(10, (B, 10, 2, 16), dt)
+    got = attention.decode_attention(tq, tk, tv, 6)
+    want = jattn.decode_attention(jq, jk, jv, jnp.asarray(6))
+    assert got.dtype == tq.dtype
+    _close(got, want, dt)
+
+
+# -------------------------------------------------------------- the model
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_forward_seq(dt):
+    jcfg, tcfg = _cfgs()
+    jp, tp = _params(dt)
+    tok = _tokens(11, (B, S))
+    want = jT.forward_seq(jcfg, jp, jnp.asarray(tok), collect_kv=True)
+    got = T.forward_seq(tcfg, tp, torch.from_numpy(tok), collect_kv=True)
+    assert got["logits"].shape == (B, S, tcfg.vocab)
+    assert got["logits"].dtype == TDT[dt]
+    _close(got["logits"], want["logits"], dt)
+    _close(got["hidden"], want["hidden"], dt)
+    for name in ("k", "v"):
+        _close(got["kv"]["0"][name], want["kv"]["0"][name], dt)
+    last = T.forward_seq(tcfg, tp, torch.from_numpy(tok),
+                         last_logit_only=True)["logits"]
+    assert last.shape == (B, 1, tcfg.vocab)
+    np.testing.assert_allclose(_np(last), _np(got["logits"][:, -1:]),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_prefill_then_decode_step(dt):
+    """prefill(P) then two decode steps, cache and logits, against JAX."""
+    jcfg, tcfg = _cfgs()
+    jp, tp = _params(dt, seed=1)
+    tok = _tokens(12, (B, S))
+    p = S - 2
+    cdt = JDT[dt]
+    jlog, jcache = jT.prefill(jcfg, jp, jnp.asarray(tok[:, :p]),
+                              cache_len=S, cache_dtype=cdt)
+    tlog, tcache = T.prefill(tcfg, tp, torch.from_numpy(tok[:, :p]),
+                             cache_len=S, cache_dtype=TDT[dt])
+    _close(tlog, jlog, dt)
+    assert tcache["pos"] == int(jcache["pos"]) == p
+    for name in ("k", "v"):
+        assert tcache["slots"]["0"][name].shape == \
+            jcache["slots"]["0"][name].shape
+        _close(tcache["slots"]["0"][name], jcache["slots"]["0"][name], dt)
+    for t in range(p, S):
+        jl, jcache = jT.decode_step(jcfg, jp, jcache,
+                                    jnp.asarray(tok[:, t:t + 1]))
+        tl, tcache = T.decode_step(tcfg, tp, tcache,
+                                   torch.from_numpy(tok[:, t:t + 1]))
+        assert tl.shape == (B, tcfg.vocab)
+        _close(tl, jl, dt)
+    assert tcache["pos"] == S
+    _close(tcache["slots"]["0"]["k"], jcache["slots"]["0"]["k"], dt)
+
+
+def test_decode_matches_teacher_forced_forward():
+    """Within the port: decode after prefill(S) gives forward_seq's logits
+    at position S (f32 cache)."""
+    _, tcfg = _cfgs()
+    _, tp = _params("f32", seed=2)
+    tok = torch.from_numpy(_tokens(13, (B, S + 1)))
+    full = T.forward_seq(tcfg, tp, tok)["logits"]
+    _, cache = T.prefill(tcfg, tp, tok[:, :S], cache_len=S + 4,
+                         cache_dtype=torch.float32)
+    logits, _ = T.decode_step(tcfg, tp, cache, tok[:, S:])
+    np.testing.assert_allclose(_np(logits), _np(full[:, S]), **F32)
+
+
+def test_other_block_kinds_are_not_ported_yet():
+    _, tcfg = _cfgs()
+    moe = dataclasses.replace(tcfg, pattern=("moe",))
+    with pytest.raises(NotImplementedError, match="model-families slice"):
+        T.init_params(moe, generator=torch.Generator(), device="cpu")
