@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.trees import tree_leaves, tree_map, tree_size  # noqa: F401
 
 Param = dict  # nested dict of tensors
 
@@ -115,23 +116,6 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ------------------------------------------------------------------ trees
 LORA_KEYS = ("lora_A", "lora_B")
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict (None leaves stay None)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return None if tree is None else fn(tree)
-
-
-def tree_leaves(tree):
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [] if tree is None else [tree]
-
-
-def tree_size(tree) -> int:
-    return sum(t.numel() for t in tree_leaves(tree))
 
 
 def _split(tree, keep_lora: bool, under_lora: bool = False):

@@ -11,9 +11,12 @@ unchanged:
                              mlp.{w_gate,w_up,w_down})
   params['final_norm'], params['lm_head']
 
-The stacked layers run in a Python loop over periods, eagerly and under
-``torch.no_grad()``: this slice is forward-only, so nothing is
-rematerialised.  The decode cache is updated in place.
+The stacked layers run in a Python loop over periods, eagerly.
+``forward_seq`` records gradients (the PPO losses differentiate it; the
+kernels' backward runs through their ``autograd.Function``s) and keeps
+every activation: nothing is rematerialised, where the reference
+checkpoints each period (``cfg.remat``).  ``prefill`` and ``decode_step``
+run under ``torch.no_grad()``, and the decode cache is updated in place.
 """
 from __future__ import annotations
 
@@ -99,14 +102,15 @@ def block_seq(p, cfg: ModelConfig, x, positions, use_kernel: bool = True):
     return x + common.swiglu(p["mlp"], h2), kv
 
 
-@torch.no_grad()
 def forward_seq(cfg: ModelConfig, params, tokens: torch.Tensor, *,
                 collect_kv: bool = False, last_logit_only: bool = False,
                 use_kernel: bool = True):
-    """tokens: (B, S) -> dict(logits, hidden [, kv]).
+    """tokens: (B, S) -> dict(logits, hidden, aux_loss [, kv]).
 
     ``kv`` is ``{'0': {'k', 'v'}}`` with (n_periods, B, S, Hkv, Dh) leaves.
-    last_logit_only: logits for the final position only.
+    last_logit_only: logits for the final position only.  ``aux_loss`` is
+    the f32 zero of the dense model (the MoE router loss of other
+    families).
     """
     _check_dense(cfg)
     x = params["embed"][tokens]
@@ -122,7 +126,9 @@ def forward_seq(cfg: ModelConfig, params, tokens: torch.Tensor, *,
                         use_kernel=use_kernel)
     logits = common.linear(params["lm_head"],
                            x[:, -1:] if last_logit_only else x)
-    out = {"logits": logits, "hidden": x}
+    out = {"logits": logits, "hidden": x,
+           "aux_loss": torch.zeros((), dtype=torch.float32,
+                                   device=tokens.device)}
     if collect_kv:
         out["kv"] = {"0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
     return out

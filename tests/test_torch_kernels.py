@@ -2,10 +2,11 @@
 
 The plain PyTorch ``rmsnorm`` and ``flash_attention`` of
 ``repro_torch.kernels`` are held against ``repro.kernels.ref`` and against
-the Pallas kernels in interpret mode, on the same numpy inputs.  The CUDA
-kernels themselves run only on the card (``chip_smoke.py``); here the
-dispatch, the wrappers' refusal of CPU tensors and the C signatures are
-checked.
+the Pallas kernels in interpret mode, on the same numpy inputs (the plain
+``gram`` and the backward versions: ``tests/test_torch_training.py``).
+The CUDA kernels themselves run only on the card (``chip_smoke.py``);
+here the dispatch, the wrappers' refusal of CPU tensors and the C
+signatures are checked.
 
 Tolerances: f32 1e-5 (rmsnorm) and 2e-4 (attention, the Pallas tests'
 own); bf16 at most 1 bf16 ulp for rmsnorm (only the f32 reduction order
@@ -27,6 +28,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash  # noq
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import gram as gram_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -142,24 +144,44 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
     x = torch.from_numpy(rng.standard_normal((3, 16), dtype=np.float32))
     g = torch.ones(16)
     (_, q), (_, k), (_, v) = _attn_inputs(1, 1, 8, 8, 2, 1, 16, "f32")
-    before = (rn_mod.launches, fa_mod.launches)
+    counts = (lambda: (rn_mod.launches, rn_mod.bwd_launches, fa_mod.launches,
+                       fa_mod.bwd_launches, gram_mod.launches))
+    before = counts()
     for use_kernel in (True, False):
         assert torch.equal(ops.rmsnorm(x, g, use_kernel=use_kernel),
                            ref.rmsnorm(x, g))
         assert torch.equal(
             ops.flash_attention(q, k, v, causal=True, use_kernel=use_kernel),
             ref.flash_attention(q, k, v, causal=True))
-    assert (rn_mod.launches, fa_mod.launches) == before
+        assert torch.equal(ops.gram(x[:2], use_kernel=use_kernel),
+                           ref.gram(x[:2]))
+        # on the CPU, autograd differentiates the plain versions
+        xg = x.clone().requires_grad_()
+        ops.rmsnorm(xg, g, use_kernel=use_kernel).sum().backward()
+        # (f32 sums in another order: 1e-6)
+        assert torch.allclose(
+            xg.grad, ref.rmsnorm_bwd(x, g, torch.ones_like(x)), atol=1e-6)
+        qg = q.clone().requires_grad_()
+        ops.flash_attention(qg, k, v, use_kernel=use_kernel).sum().backward()
+        assert torch.allclose(qg.grad, ref.flash_attention_bwd(
+            q, k, v, torch.ones_like(q))[0], atol=1e-6)
+    assert counts() == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.ones(2, 16)
     with pytest.raises(ValueError, match="CUDA"):
         rn_mod.rmsnorm(x, torch.ones(16))
-    q = torch.ones(1, 4, 2, 16)
     with pytest.raises(ValueError, match="CUDA"):
-        fa_mod.flash_attention(q, q[:, :, :1].contiguous(),
-                               q[:, :, :1].contiguous())
+        rn_mod.rmsnorm_bwd(x, torch.ones(16), x)
+    q = torch.ones(1, 4, 2, 16)
+    kv = q[:, :, :1].contiguous()
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_mod.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_mod.flash_attention_bwd(q, kv, kv, q, torch.zeros(1, 2, 4), q)
+    with pytest.raises(ValueError, match="CUDA"):
+        gram_mod.gram(x)
 
 
 def _c_signatures():
