@@ -21,11 +21,17 @@ line, for a first check of new kernels):
             step's shape (2, 3,407,872) f32 and off it (M = 3 and 8, ragged
             d, bf16, a misaligned row), twice for the same bits, then timed
             beside ``X @ X.T``.
-6. rmsnorm_bwd, 7. flash_bwd: the backward kernels against their plain
+6. quantize, 7. dequantize: the CUDA kernels against their plain versions,
+            bit for bit (codes, scales, decoded values and the
+            error-feedback residual), at the round's uplink shape
+            (2 x 3328, 1024), padded rows, all-zero rows, round-to-nearest
+            bits and bits >= 2**32 - 128, for int8 and int4; then timed
+            (dequantize beside ``codes * scales``).
+8. rmsnorm_bwd, 9. flash_bwd: the backward kernels against their plain
             versions (autograd of the plain forward) at the local step's
             shapes and off them (the forwards' extra cases), then timed
             beside the backward of ``F.rms_norm`` and of SDPA.
-8. rollout: ``fed.engine.rollout_batch`` on llama-3.2-1b at full width
+10. rollout: ``fed.engine.rollout_batch`` on llama-3.2-1b at full width
             (random weights from a seeded generator): 16 prompts of 128
             tokens, 128 new tokens, 2 objectives.  The kernels' launch counts
             are zeroed just before it and must be exactly 4290 (rmsnorm)
@@ -36,7 +42,7 @@ line, for a first check of new kernels):
             plain one is.  Then, uncounted: the rollout's steps timed one by
             one, and 8 decode steps under ``torch.profiler`` for the
             device's idle share.
-9. local_step: ``fed.engine.client_local_steps`` on the same model, one
+11. local_step: ``fed.engine.client_local_steps`` on the same model, one
             client, K=2 local steps of B=16 prompts (each a rollout, then
             ``firm_local_step`` with FIRMConfig's defaults).  The counts are
             zeroed just before it and must be exact just after.  Then,
@@ -46,7 +52,16 @@ line, for a first check of new kernels):
             part, peak memory and device idle share, and the M gradients
             through the kernels, through the plain versions and through an
             f32 copy of the model.
-10. serve:  the ``launch.serve`` CLI at full width, a few tokens.
+12. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
+            K=1, the ``wan`` preset (int8+ef uplink, identity downlink),
+            R=2 rounds.  The counts are zeroed just before and must be
+            exact just after (one quantize and one dequantize a round);
+            comm_bytes must be exactly 68,210,688; lambda on the simplex,
+            drift > 0, residuals carried.  Seconds per round by part, peak
+            memory, and a third round under ``torch.profiler`` for the
+            device's idle share.
+13. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round.
+14. serve:  the ``launch.serve`` CLI at full width, a few tokens.
 
 Every number is printed as JSON on a line of its own; the second-to-last
 line holds the per-kernel table and the last line is
@@ -57,10 +72,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -72,6 +90,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 B, P, MAX_NEW, N_OBJ = 16, 128, 128, 2
+N_CLIENTS, ROUNDS = 2, 2       # the round phase: C clients, R rounds
 
 
 def emit(**record) -> None:
@@ -89,8 +108,9 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-PHASES = ("device", "build", "rmsnorm", "flash", "gram", "rmsnorm_bwd",
-          "flash_bwd", "rollout", "local_step", "serve")
+PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
+          "dequantize", "rmsnorm_bwd", "flash_bwd", "rollout", "local_step",
+          "round", "train", "serve")
 
 
 class StopAfter(Exception):
@@ -122,12 +142,16 @@ def run(torch, stop_after) -> int:
     from repro_torch.configs import FIRMConfig, get_config
     from repro_torch.core import firm
     from repro_torch.data.partition import make_client_datasets
-    from repro_torch.fed.engine import client_local_steps, rollout_batch
+    from repro_torch.fed.engine import (EngineConfig, FederatedTrainer,
+                                        client_local_steps, rollout_batch)
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.comms import quantize as qcodec
     from repro_torch.kernels import gram as gram_mod
+    from repro_torch.kernels import quantize as q_mod
     from repro_torch.kernels import rmsnorm as rn_mod
     from repro_torch.launch import serve
+    from repro_torch.launch import train as train_cli
     from repro_torch.models import common, transformer
     from repro_torch.rlhf import critic, local, ppo, rewards
     from repro_torch.rlhf.sampling import generate
@@ -214,7 +238,9 @@ def run(torch, stop_after) -> int:
                 "rmsnorm_bwd": (rn_mod, "bwd_launches"),
                 "flash_attention": (fa_mod, "launches"),
                 "flash_attention_bwd": (fa_mod, "bwd_launches"),
-                "gram": (gram_mod, "launches")}
+                "gram": (gram_mod, "launches"),
+                "quantize": (q_mod, "quantize_launches"),
+                "dequantize": (q_mod, "dequantize_launches")}
 
     def zero_counts() -> None:
         for mod, attr in counters.values():
@@ -440,7 +466,136 @@ def run(torch, stop_after) -> int:
          "same bits on two runs", **gram_row)
     done("gram")
 
-    # ------------------------------------------------------- 6. rmsnorm_bwd
+    # ---------------------------------------------------------- 6. quantize
+    # the round's uplink: C = 2 clients' LoRA deltas, (C * 3328, 1024) rows.
+    # The kernel must give the plain version's bits: codes equal, scales
+    # equal as bit patterns.
+    rows_round = N_CLIENTS * -(-d_lora // q_mod.BLOCK)
+
+    def rand_bits(rows):
+        return qcodec.random_bits((rows, q_mod.BLOCK), gen)
+
+    def delta_rows(rows):
+        """Deltas of mixed scale per row, as the uplink sees them."""
+        return (randn((rows, q_mod.BLOCK), torch.float32)
+                * torch.exp(4 * randn((rows, 1), torch.float32)) * 1e-4)
+
+    def same_bits(a, b) -> bool:
+        return a.shape == b.shape and torch.equal(
+            a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+    x_pad, _ = qcodec._stacked_blocks(randn((N_CLIENTS, 5 * 1024 + 77),
+                                            torch.float32))
+    x_zero = delta_rows(64)
+    x_zero[::3] = 0
+    x_round = delta_rows(rows_round)
+    det = torch.full((rows_round, q_mod.BLOCK), qcodec.DET_BITS,
+                     dtype=torch.int32, device=dev)
+    # uint32 offsets >= 2**32 - 128 convert to r = 1.0 exactly
+    top = torch.randint(-128, 0, (rows_round, q_mod.BLOCK), generator=gen,
+                        device=dev, dtype=torch.int32)
+    quant_cases = [
+        ("round int8", x_round, rand_bits(rows_round), 127),
+        ("round int4", x_round, rand_bits(rows_round), 7),
+        ("padded d=5*1024+77 int8", x_pad, rand_bits(x_pad.shape[0]), 127),
+        ("zero rows int4", x_zero, rand_bits(64), 7),
+        ("bits 2**31 (nearest) int8", x_round, det, 127),
+        ("bits >= 2**32-128 (r = 1) int8", x_round, top, 127),
+        ("bits >= 2**32-128 (r = 1) int4", x_round, top, 7),
+    ]
+    quant_checks, quant_out = {}, {}
+    for label, xq, bq, qmax in quant_cases:
+        got_c, got_s = q_mod.quantize(xq, bq, qmax)
+        want_c, want_s = ref.quantize(xq, bq, qmax)
+        torch.cuda.synchronize()
+        quant_checks[label] = {
+            "codes_equal": bool(torch.equal(got_c, want_c)),
+            "scales_same_bits": same_bits(got_s, want_s),
+            "max_abs_err": max(
+                float((got_c.int() - want_c.int()).abs().max()),
+                float((got_s - want_s).abs().max()))}
+        check(quant_checks[label]["codes_equal"]
+              and quant_checks[label]["scales_same_bits"]
+              and quant_checks[label]["max_abs_err"] == 0,
+              f"quantize {label}: {quant_checks[label]}")
+        quant_out[label] = (xq, got_c, got_s)
+    check(bool((quant_out["zero rows int4"][2][::3] == 1).all()),
+          "an all-zero row has scale 1")
+    xq, bq = x_round, rand_bits(rows_round)
+    n_el = xq.numel()
+    quant_row = {
+        "name": "quantize", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:70",
+        "max_abs_err": max(c["max_abs_err"] for c in quant_checks.values()),
+        "ms": timed_ms(lambda: q_mod.quantize(xq, bq, 127)),
+        "plain_ms": timed_ms(lambda: ref.quantize(xq, bq, 127)),
+        # no one PyTorch call computes blockwise stochastic quantization
+        "library_ms": None,
+    }
+    # reads x and the bits, writes the codes and one scale a row; per
+    # element |x|, max, the bits' conversion and scaling, the division,
+    # the addition, floor and two clips
+    quant_row["bound_ms"], quant_row["bound_by"] = bound_ms(
+        8 * n_el + n_el + 4 * rows_round, 9 * n_el, "f32")
+    emit(phase="quantize", shape=list(xq.shape), checks=quant_checks,
+         tolerance="bit-identical: codes equal, scales equal bit for bit",
+         library="none: no single PyTorch call quantizes blockwise",
+         **quant_row)
+    done("quantize")
+
+    # -------------------------------------------------------- 7. dequantize
+    # codes * scale, and with the error-feedback epilogue the residual
+    # fma(-code, scale, adj); both bit-identical to the plain versions
+    dequant_checks = {}
+    for label, (xq_, codes_, scales_) in quant_out.items():
+        dec, res = q_mod.dequantize(codes_, scales_, xq_)
+        dec_only, none = q_mod.dequantize(codes_, scales_)
+        torch.cuda.synchronize()
+        want_dec = ref.dequantize(codes_, scales_)
+        want_res = ref.dequantize_residual(codes_, scales_, xq_)
+        dequant_checks[label] = {
+            "decoded_same_bits": same_bits(dec, want_dec),
+            "residual_same_bits": same_bits(res, want_res),
+            "decode_only_same_bits": same_bits(dec_only, dec)
+            and none is None}
+        check(all(dequant_checks[label].values()),
+              f"dequantize {label}: {dequant_checks[label]}")
+        dequant_checks[label]["max_abs_err"] = max(
+            float((dec - want_dec).abs().max()),
+            float((res - want_res).abs().max()))
+    _, codes_r, scales_r = quant_out["round int8"]
+    dequant_row = {
+        "name": "dequantize", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:97",
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in dequant_checks.values()),
+        # the round runs it with the error-feedback epilogue
+        "ms": timed_ms(lambda: q_mod.dequantize(codes_r, scales_r, x_round)),
+        "plain_ms": timed_ms(lambda: (
+            ref.dequantize(codes_r, scales_r),
+            ref.dequantize_residual(codes_r, scales_r, x_round))),
+        "library_ms": timed_ms(lambda: codes_r * scales_r),
+        "ms_without_residual": timed_ms(lambda: q_mod.dequantize(codes_r,
+                                                                 scales_r)),
+        "plain_ms_without_residual": timed_ms(
+            lambda: ref.dequantize(codes_r, scales_r)),
+    }
+    # with the epilogue: reads codes, scales and adj, writes decoded and
+    # residual; one multiply and one fused multiply-add an element
+    dequant_row["bound_ms"], dequant_row["bound_by"] = bound_ms(
+        n_el + 4 * rows_round + 4 * n_el + 8 * n_el, 3 * n_el, "f32")
+    dequant_row["bound_ms_without_residual"] = bound_ms(
+        n_el + 4 * rows_round + 4 * n_el, n_el, "f32")[0]
+    emit(phase="dequantize", shape=list(codes_r.shape),
+         checks=dequant_checks,
+         tolerance="bit-identical: decoded and residual equal bit for bit",
+         library="codes * scales (decode only: compare "
+         "ms_without_residual)", **dequant_row)
+    done("dequantize")
+
+    # ------------------------------------------------------- 8. rmsnorm_bwd
     # bf16: dx is rounded once from f32 on both sides, after reductions in
     # another order, so it may differ by an ulp: 2e-2 of dx's scale.  f32:
     # 1e-4 of the scale.  The last three cases take the scalar path.
@@ -487,7 +642,7 @@ def run(torch, stop_after) -> int:
          "1e-4 (f32) of max |plain|", **rms_bwd_row)
     done("rmsnorm_bwd")
 
-    # --------------------------------------------------------- 7. flash_bwd
+    # --------------------------------------------------------- 9. flash_bwd
     flash_bwd_err = {}
     for label, (b, sq, skv, hq, hkv, dh), dtype, causal, window in [
             ("local step S=256 causal", (B, 256, 256, 32, 8, 64),
@@ -560,7 +715,7 @@ def run(torch, stop_after) -> int:
          "|plain|, for each of dq, dk, dv", **flash_bwd_row)
     done("flash_bwd")
 
-    # ----------------------------------------------------------- 8. rollout
+    # ----------------------------------------------------------- 10. rollout
     fc = FIRMConfig()
     check(fc.batch_size == B and fc.n_objectives == N_OBJ,
           "FIRMConfig defaults changed")
@@ -591,7 +746,8 @@ def run(torch, stop_after) -> int:
     rollout_launches = {"rmsnorm": per_forward * (1 + MAX_NEW + 1),
                         "flash_attention": 2 * cfg.n_layers}
     want_launches = dict(rollout_launches, rmsnorm_bwd=0,
-                         flash_attention_bwd=0, gram=0)
+                         flash_attention_bwd=0, gram=0, quantize=0,
+                         dequantize=0)
     check(launches == want_launches,
           f"launch counts {launches}, expected {want_launches}")
 
@@ -693,7 +849,7 @@ def run(torch, stop_after) -> int:
     emit(phase="decode_profile", profile=device_profile(decode_8, 8))
     done("rollout")
 
-    # -------------------------------------------------------- 9. local step
+    # -------------------------------------------------------- 11. local step
     # one client from the reference (lora_B = 0), K local steps, each a
     # rollout of B prompts and one firm_local_step, with FIRMConfig's
     # defaults (M = 2, B = 16, beta = 0.01, pgd with 100 iterations)
@@ -708,7 +864,7 @@ def run(torch, stop_after) -> int:
     (final, kept), local_s = wall(lambda: client_local_steps(
         cfg, fc, state0, frozen0, ref_params, band_h, band_x,
         k_steps=k_steps, max_new=MAX_NEW, length_tol=length_tol,
-        dataset=ds_local, generator=gen))
+        dataset=ds_local, generators=[gen] * k_steps))
     local_launches = read_counts()
     # per step: a rollout, then one forward and M backward pulls; layer 0's
     # ln1 reads the embedding, which needs no gradient, so a pull runs
@@ -719,7 +875,7 @@ def run(torch, stop_after) -> int:
                                       + cfg.n_layers),
         "rmsnorm_bwd": k_steps * N_OBJ * 2 * cfg.n_layers,
         "flash_attention_bwd": k_steps * N_OBJ * cfg.n_layers,
-        "gram": k_steps}
+        "gram": k_steps, "quantize": 0, "dequantize": 0}
     check(local_launches == want_local,
           f"local-step launch counts {local_launches}, expected {want_local}")
     lam = kept["lam"]
@@ -885,7 +1041,159 @@ def run(torch, stop_after) -> int:
          "(1 - cosine) <= 1.6x the plain bf16 path's; gram 1e-5 of scale")
     done("local_step")
 
-    # ------------------------------------------------------------ 10. serve
+    # ------------------------------------------------------------ 12. round
+    # the federated round at full width: C = 2 clients, K = 1 local step,
+    # the ``wan`` preset (int8+ef uplink, identity downlink), R = 2 rounds
+    # so that the error-feedback residual carries into round 2.  The
+    # trainer starts from the rollout phase's reference weights.
+    fc_round = dataclasses.replace(fc, n_clients=N_CLIENTS, local_steps=1,
+                                   rounds=ROUNDS)
+    ec_round = EngineConfig(prompt_len=P, max_new=MAX_NEW,
+                            uplink_codec="int8+ef",
+                            downlink_codec="identity")
+    trainer = FederatedTrainer(cfg, fc_round, ec_round, params=ref_params,
+                               device=dev)
+    check(trainer.d_trainable == d_lora, "the round's d is the gram phase's")
+    # the round's parts, each ended by a synchronise (instance wrappers:
+    # the trainer itself does not synchronise)
+    part_s = {}
+
+    def timed_part(name, fn):
+        def run_part(*a, **kw):
+            out, sec = wall(lambda: fn(*a, **kw))
+            part_s.setdefault(name, []).append(sec)
+            return out
+        return run_part
+
+    for name in ("_broadcast", "_local_phase", "_delta_flat", "_uplink",
+                 "_aggregate_flat", "_summary_stats"):
+        setattr(trainer, name, timed_part(name, getattr(trainer, name)))
+    # the residuals each uplink call is handed and hands back, kept to
+    # check that round 2 starts from round 1's
+    ef_log = []
+    uplink_rt = trainer.uplink_codec.roundtrip_stacked
+
+    def logged_uplink_rt(flats, spec, states, **kw):
+        out = uplink_rt(flats, spec, states, **kw)
+        ef_log.append((list(states), [r.clone() for r in out[1]]))
+        return out
+    trainer.uplink_codec.roundtrip_stacked = logged_uplink_rt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    summaries, round_s = [], []
+    for _ in range(ROUNDS):
+        summary, sec = wall(trainer.run_round)
+        summaries.append(summary)
+        round_s.append(sec)
+    round_launches = read_counts()
+    round_peak = torch.cuda.max_memory_allocated()
+    steps = N_CLIENTS * fc_round.local_steps * ROUNDS
+    want_round = {name: steps * n // k_steps
+                  for name, n in want_local.items()}
+    want_round.update(quantize=ROUNDS, dequantize=ROUNDS)
+    check(round_launches == want_round,
+          f"round launch counts {round_launches}, expected {want_round}")
+    up_static = trainer.uplink_codec.nbytes_static(d_lora)
+    check(up_static == -(-d_lora // 1024) * (1024 + 4),
+          f"int8 payload bytes {up_static}")
+    want_bytes = ROUNDS * N_CLIENTS * (up_static + 4 * d_lora)
+    check(summaries[-1]["comm_bytes"] == want_bytes == 68_210_688,
+          f"comm_bytes {summaries[-1]['comm_bytes']}, expected {want_bytes}")
+    for s_ in summaries:
+        check(s_["up_nbytes"] == [up_static] * N_CLIENTS
+              and s_["down_nbytes"] == 4 * d_lora
+              and s_["participants"] == list(range(N_CLIENTS))
+              and s_["dispatches"] == 6, f"round bookkeeping {s_}")
+        lam_pc = s_["per_client_lam"]
+        check(lam_pc.shape == (N_CLIENTS, N_OBJ) and (lam_pc >= 0).all()
+              and abs(lam_pc.sum(-1) - 1).max() < 1e-5,
+              f"per-client lambda on the simplex: {lam_pc.tolist()}")
+        check(math.isfinite(s_["lam_disagreement"]),
+              "lam_disagreement finite")
+    check(summaries[0]["param_drift"] > 0, "clients drifted apart")
+    check(all(bool(t.isfinite().all()) for t in
+              common.tree_leaves(trainer.global_trainable)),
+          "finite global adapters")
+    check(any(bool((a != b).any()) for a, b in zip(
+        common.tree_leaves(trainer.global_trainable),
+        common.tree_leaves(train0))), "the global adapters moved")
+    res_rms = [float(r.norm()) for r in trainer._uplink_state]
+    check(all(0 < r < float("inf") for r in res_rms),
+          f"error-feedback residuals finite and non-zero: {res_rms}")
+    check(len(ef_log) == ROUNDS
+          and all(r is None for r in ef_log[0][0])
+          and all(all(a is not None and torch.equal(a, b)
+                      for a, b in zip(ef_log[i + 1][0], ef_log[i][1]))
+                  for i in range(ROUNDS - 1)),
+          "error-feedback residuals carried: each round's uplink starts "
+          "from the residuals the round before handed back")
+    trainer.uplink_codec.roundtrip_stacked = uplink_rt
+    # one more round, uncounted, under the profiler: the device's busy and
+    # idle share of a whole round (kineto's raw events; the round launches
+    # some 450,000 kernels)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, profiled_s = wall(trainer.run_round)
+    dev_events = [(e.start_ns(), e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA]
+    del prof
+    round_profile = None          # not measured: the trace held no kernel
+    if dev_events:
+        busy_ns = sum(d_ for _, d_ in dev_events)
+        window_ns = (max(t + d_ for t, d_ in dev_events)
+                     - min(t for t, _ in dev_events))
+        round_profile = {
+            "device_events": len(dev_events),
+            "device_busy_s": busy_ns / 1e9,
+            "profiled_window_s": window_ns / 1e9,
+            "profiled_round_s": profiled_s,
+            "device_idle_share_of_profiled_window": 1 - busy_ns / window_ns,
+            "device_idle_share_of_unprofiled_round":
+                1 - busy_ns / 1e9 / (sum(round_s) / ROUNDS)}
+    names = {"_broadcast": "downlink", "_local_phase": "local_phase",
+             "_delta_flat": "delta", "_uplink": "uplink_codec",
+             "_aggregate_flat": "aggregate", "_summary_stats": "summary"}
+    emit(phase="round", model=cfg.name, clients=N_CLIENTS,
+         local_steps=fc_round.local_steps, rounds=ROUNDS, batch=B,
+         prompt_len=P, max_new=MAX_NEW, uplink=ec_round.uplink_codec,
+         downlink=ec_round.downlink_codec, d_trainable=d_lora,
+         seconds_per_round=round_s, launches=round_launches,
+         breakdown_s={names[k]: v[:ROUNDS] for k, v in part_s.items()},
+         peak_memory_bytes=round_peak,
+         comm_bytes=summaries[-1]["comm_bytes"],
+         up_nbytes=summaries[-1]["up_nbytes"],
+         down_nbytes=summaries[-1]["down_nbytes"],
+         param_drift=[s_["param_drift"] for s_ in summaries],
+         lam_disagreement=[s_["lam_disagreement"] for s_ in summaries],
+         per_client_lam=[s_["per_client_lam"].tolist() for s_ in summaries],
+         kl=[s_["kl"] for s_ in summaries],
+         rewards=[s_["rewards"].tolist() for s_ in summaries],
+         residual_norms=res_rms, profile=round_profile)
+    del trainer
+    done("round")
+
+    # ------------------------------------------------------------ 13. train
+    with tempfile.TemporaryDirectory() as tmp:
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            tr_cli, train_s = wall(lambda: train_cli.main(
+                ["--preset", "full", "--clients", "2", "--local-steps", "1",
+                 "--rounds", "1", "--batch-size", "4", "--max-new", "8",
+                 "--device", "cuda", "--out", tmp]))
+        hist = json.loads(Path(tmp, "history.json").read_text())["history"]
+        check(len(hist) == 1 and Path(tmp, "adapters.npz").exists(),
+              "launch.train wrote its history and adapters")
+        # the launcher's codecs are identity both ways
+        check(hist[0]["comm_bytes"] == 2 * 2 * 4 * d_lora,
+              f"launch.train comm_bytes {hist[0]['comm_bytes']}")
+    del tr_cli
+    emit(phase="train", seconds=train_s, report=report.getvalue())
+    done("train")
+
+    # ------------------------------------------------------------ 14. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(
@@ -894,9 +1202,11 @@ def run(torch, stop_after) -> int:
     check(tuple(out.shape) == (4, 8), f"serve output shape {out.shape}")
     emit(phase="serve", seconds=serve_s, report=report.getvalue())
 
-    rows = (rms_row, rms_bwd_row, flash_row, flash_bwd_row, gram_row)
+    # launches: the round phase's, the main path of the port so far
+    rows = (rms_row, rms_bwd_row, flash_row, flash_bwd_row, gram_row,
+            quant_row, dequant_row)
     for row in rows:
-        row["launches"] = local_launches[row["name"]]
+        row["launches"] = round_launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

@@ -19,7 +19,8 @@ rebuilt as they came, and ``None`` (the empty slots of
 cannot import; ``client_state_to_torch`` reads its fields by name into the
 port's ``ClientState``/``AdamState``, and ``client_state_to_numpy`` turns
 it back into numpy leaves in the port's classes, whose fields are the
-reference's, in its order.
+reference's, in its order.  ``load_trainer_state`` carries a JAX
+``FederatedTrainer``'s state between rounds into the port's trainer.
 """
 from __future__ import annotations
 
@@ -92,3 +93,22 @@ def client_state_to_numpy(state):
     """The port's ``ClientState`` -> the same classes with numpy leaves,
     laid out field for field as the JAX ``ClientState``."""
     return to_numpy(state)
+
+
+def load_trainer_state(trainer, state: dict) -> None:
+    """Load numpy copies of a JAX ``FederatedTrainer``'s state into the
+    port's ``FederatedTrainer``, onto its device.
+
+    ``state`` holds ``global_trainable`` (numpy tree), ``client_states``
+    (one JAX ``ClientState`` of numpy leaves per client), ``uplink_state``
+    (one residual array, or None, per client) and ``prompt_counts`` (each
+    client's prompt-stream cursor, the reference's ``_count``).
+    """
+    dev = trainer.device
+    trainer.global_trainable = to_torch(state["global_trainable"], dev)
+    trainer.client_states = [client_state_to_torch(s, dev)
+                             for s in state["client_states"]]
+    trainer._uplink_state = [None if r is None else leaf_to_torch(r, dev)
+                             for r in state["uplink_state"]]
+    for ds, n in zip(trainer.datasets, state["prompt_counts"], strict=True):
+        ds.count = int(n)

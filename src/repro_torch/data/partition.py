@@ -60,3 +60,9 @@ def make_client_datasets(n_clients: int, vocab: int, prompt_len: int,
                                    device=device)
     return [PromptDataset(vocab, prompt_len, mix[c], generator=generator,
                           device=device) for c in range(n_clients)]
+
+
+def sample_prompt_block(datasets, batch_size: int) -> torch.Tensor:
+    """One batch from each client's own prompt stream -> (C, B, P), the
+    counterpart of the reference's vmapped ``sample_prompt_block``."""
+    return torch.stack([ds.next_batch(batch_size) for ds in datasets])

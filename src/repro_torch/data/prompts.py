@@ -58,7 +58,11 @@ def sample_prompts(logits: torch.Tensor, topics: torch.Tensor,
 
 
 class PromptDataset:
-    """Per-client prompt stream with a fixed topic mixture."""
+    """Per-client prompt stream with a fixed topic mixture.
+
+    ``count`` is the number of batches drawn so far, the reference's
+    ``_count`` (the engine advances it for injected prompts too).
+    """
 
     def __init__(self, vocab: int, prompt_len: int, topic_probs, *,
                  generator: torch.Generator, device="cuda"):
@@ -69,8 +73,10 @@ class PromptDataset:
                                            device=self.device)
         self.logits = topic_logits(vocab, generator=generator,
                                    device=self.device)
+        self.count = 0
 
     def next_batch(self, batch_size: int) -> torch.Tensor:
+        self.count += 1
         topic_logp = torch.log(self.topic_probs + 1e-9)[None].expand(
             batch_size, -1)
         topics = categorical(topic_logp, gumbel_noise(

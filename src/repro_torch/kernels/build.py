@@ -40,6 +40,10 @@ SIGNATURES = {
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, partials, g, m, d, n_blocks, dtype, stream
     "firm_gram": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, bits, codes, scales, rows, qmax, stream
+    "firm_quantize": (_P, _P, _P, _P, _I, _I, _P),
+    # codes, scales, adj (or null), out, residual (or null), rows, stream
+    "firm_dequantize": (_P, _P, _P, _P, _P, _I, _P),
 }
 
 

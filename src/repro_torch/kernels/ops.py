@@ -17,6 +17,7 @@ import torch
 from repro_torch import trees
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gram as _gram
+from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 
@@ -57,3 +58,27 @@ def rmsnorm(x, g, eps: float = 1e-5, *, use_kernel: bool = True):
     if _kernel(x, use_kernel):
         return _rn.rmsnorm(x, g, eps)
     return ref.rmsnorm(x, g, eps)
+
+
+def quantize(x2, bits, qmax: int = 127, *, use_kernel: bool = True):
+    """(R, 1024) f32 + int32 rounding-bit patterns -> (int8 codes, (R, 1)
+    scales)."""
+    if _kernel(x2, use_kernel):
+        return _q.quantize(x2, bits, qmax)
+    return ref.quantize(x2, bits, qmax)
+
+
+def dequantize(codes, scales, *, use_kernel: bool = True):
+    """(R, 1024) int8 codes, (R, 1) scales -> (R, 1024) f32."""
+    if _kernel(codes, use_kernel):
+        return _q.dequantize(codes, scales)[0]
+    return ref.dequantize(codes, scales)
+
+
+def dequantize_with_residual(codes, scales, adj, *, use_kernel: bool = True):
+    """``dequantize`` plus the error-feedback residual ``adj - codes *
+    scale`` rounded once, in one launch on CUDA: (decoded, residual)."""
+    if _kernel(codes, use_kernel):
+        return _q.dequantize(codes, scales, adj)
+    return (ref.dequantize(codes, scales),
+            ref.dequantize_residual(codes, scales, adj))

@@ -4,9 +4,10 @@ The CPU path of the port runs these, the tests hold them against the JAX
 oracles, and ``chip_smoke.py`` holds the CUDA kernels against them on the
 card.  ``rmsnorm_bwd`` and ``flash_attention_bwd`` are the plain versions
 of the backward kernels: the gradients autograd takes of ``rmsnorm`` and
-``flash_attention`` (JAX's autodiff of the same functions).  The remaining
-oracles of ``repro.kernels.ref`` (quantize, dequantize, the threshold
-passes, ssd_scan) arrive with their kernels.
+``flash_attention`` (JAX's autodiff of the same functions).
+``dequantize_residual`` is the plain version of the dequantize kernel's
+error-feedback epilogue.  The remaining oracles of ``repro.kernels.ref``
+(the threshold passes, ssd_scan) arrive with their kernels.
 """
 from __future__ import annotations
 
@@ -82,3 +83,48 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             sliding_window=sliding_window)
         dq, dk, dv = torch.autograd.grad(o, (qf, kf, vf), do.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+INV_2_32 = 2.0 ** -32
+
+
+def quantize(x2: torch.Tensor, bits: torch.Tensor, qmax: int = 127):
+    """Blockwise symmetric quantization, as ``repro.kernels.ref.quantize``.
+
+    x2: (R, B) f32; bits: (R, B) int32 holding the uint32 rounding offsets'
+    bit patterns (2**31 = exactly round-to-nearest).  Returns ((R, B) int8
+    codes, (R, 1) f32 scales).  The bits widen through int64 to their
+    unsigned value and round once to f32, as JAX's uint32 -> f32 does.  The
+    scale is ``absmax * rn(1/qmax)``, not ``absmax / qmax``: XLA compiles
+    the reference's division by the constant qmax as a multiply by its
+    rounded reciprocal, which differs from the division in the last bit of
+    about one row in 25 (int8).  ``x / scale`` stays a true division.
+    """
+    x = x2.float()
+    absmax = x.abs().amax(dim=-1, keepdim=True)
+    inv_qmax = torch.ones((), dtype=torch.float32, device=x.device) / qmax
+    scale = torch.where(absmax > 0, absmax * inv_qmax,
+                        torch.ones_like(absmax))
+    r = (bits.long() & 0xFFFFFFFF).float() * INV_2_32
+    q = torch.clamp(torch.floor(x / scale + r), -qmax, qmax)
+    return q.to(torch.int8), scale
+
+
+def dequantize(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(R, B) int8 codes times their (R, 1) f32 scales, in f32."""
+    return codes.float() * scales
+
+
+def dequantize_residual(codes: torch.Tensor, scales: torch.Tensor,
+                        adj: torch.Tensor) -> torch.Tensor:
+    """The error-feedback residual ``adj - codes * scale``, rounded once.
+
+    XLA contracts the reference's dequantize multiply into the residual
+    subtract (one fused multiply-subtract), so the residual is the exact
+    difference rounded to f32 once.  Here it is taken in f64: the product
+    of a code (7 bits) and a scale (24 bits) is exact there, and so is the
+    difference unless the two operands' exponents lie more than about 22
+    binary orders apart, when f64 rounds it first (a double rounding that
+    can differ from the single one in the last bit: the far-off case).
+    """
+    return (adj.double() - codes.double() * scales.double()).float()

@@ -43,18 +43,21 @@ def init_client_state(trainable, m: int, d_model: int,
 
 
 def firm_local_step(cfg: ModelConfig, fc: FIRMConfig, state: ClientState,
-                    frozen, batch: ppo.PPOBatch):
+                    frozen, batch: ppo.PPOBatch, gram_fn=None,
+                    preference=None):
     """One local FIRM update.  Returns (new_state, metrics).
 
-    The Gram matrix is ``resolve``'s default (the kernel on CUDA); the
-    reference's ``gram_fn`` and traced ``preference`` overrides come with
-    the vectorized round that passes them.
+    ``gram_fn`` overrides ``resolve``'s Gram matrix (by default the kernel
+    on CUDA); ``preference`` is an (M,) tensor overriding
+    ``fc.preference``, which is how the round passes each client its own
+    preference.
     """
     grads, losses, (metrics, feats, r_tok, _, mask) = \
         ppo.per_objective_grads(cfg, fc, state.trainable, frozen,
                                 state.critic, batch, state.kl_coef)
     eta = firm.eta_schedule(state.step + 1) if fc.lambda_smoothing else None
-    res = firm.resolve(grads, fc, prev_lam=state.lam, eta=eta)
+    res = firm.resolve(grads, fc, prev_lam=state.lam, eta=eta,
+                       gram_fn=gram_fn, preference=preference)
     new_trainable, new_opt, gnorm = optim.adam_update(
         res.direction, state.opt, state.trainable, lr=fc.actor_lr,
         max_grad_norm=1.0)

@@ -26,3 +26,10 @@ def tree_leaves(tree) -> list:
 
 def tree_size(tree) -> int:
     return sum(t.numel() for t in tree_leaves(tree))
+
+
+def tree_unflatten(treedef, leaves):
+    """A tree shaped as ``treedef`` (any tree of that structure) holding
+    ``leaves``, taken in sorted-key order; inverse of ``tree_leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), treedef)

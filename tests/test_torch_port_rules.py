@@ -42,8 +42,11 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch.fed.engine, repro_torch.launch.serve, "
-            "repro_torch.bridge, repro_torch.core.mgda, "
-            "repro_torch.kernels.gram; "
+            "repro_torch.launch.train, repro_torch.bridge, "
+            "repro_torch.core.mgda, repro_torch.core.drift, "
+            "repro_torch.core.fedavg, repro_torch.comms, "
+            "repro_torch.obs.records, repro_torch.train.checkpoint, "
+            "repro_torch.kernels.gram, repro_torch.kernels.quantize; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -93,6 +96,41 @@ def test_other_entry_points_default_to_cuda():
         partition.dirichlet_topic_mixtures(2, generator=g)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bridge.to_torch({"a": np.zeros(2, np.float32)})
+
+
+def test_trainer_and_train_cli_default_to_cuda_and_raise_without_a_card():
+    _skip_if_card()
+    from repro_torch.configs import FIRMConfig, get_config
+    from repro_torch.fed.engine import FederatedTrainer
+    from repro_torch.launch import train
+    cfg = get_config("llama-3.2-1b").reduced(n_layers=2, d_model=64,
+                                             vocab=256)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederatedTrainer(cfg, FIRMConfig(n_clients=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--rounds", "1"])
+
+
+@pytest.mark.parametrize("spec", ["topk:0.05", "topk:0.05+ef", "lowrank:4",
+                                  "delta+int8"])
+def test_unported_codecs_raise_and_never_become_identity(spec):
+    from repro_torch.comms import make_codec
+    with pytest.raises(ValueError, match="not ported yet"):
+        make_codec(spec)
+
+
+def test_quantize_wrappers_refuse_cpu_tensors_before_any_launch():
+    """The wrappers launch on CUDA tensors or raise: a CPU tensor never
+    reaches the plain version through them, and nothing is counted."""
+    from repro_torch.kernels import quantize as q_mod
+    before = (q_mod.quantize_launches, q_mod.dequantize_launches)
+    x = torch.zeros(2, 1024)
+    with pytest.raises(ValueError, match="CUDA"):
+        q_mod.quantize(x, torch.zeros(2, 1024, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        q_mod.dequantize(torch.zeros(2, 1024, dtype=torch.int8),
+                         torch.ones(2, 1))
+    assert (q_mod.quantize_launches, q_mod.dequantize_launches) == before
 
 
 def _bits(a: np.ndarray) -> np.ndarray:

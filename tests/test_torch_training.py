@@ -521,3 +521,33 @@ def test_two_client_local_steps_match_jax_sequence():
         client_local_steps(tcfg, tfc, ts, tfrozen, tref_p, th, tx,
                            k_steps=1, max_new=MAX_NEW, length_tol=LENGTH_TOL,
                            gumbel=_t(gumbel))
+
+
+@pytest.mark.parametrize("pref", [(0.7, 0.3), (0.2, 0.8)])
+def test_firm_local_step_takes_the_round_preference_and_gram_fn(pref):
+    """The round hands each client its preference as an (M,) tensor, as the
+    reference's vectorized round does (``preference=``), and ``gram_fn``
+    replaces the Gram matrix: both reach ``firm.resolve``."""
+    jcfg, tcfg = _cfgs()
+    jfc, tfc = _fcs()
+    jp, tp = _params("f32", seed=3)
+    jtrain, jfrozen = jcommon.split_trainable(jp)
+    _, tfrozen = common.split_trainable(tp)
+    jb, tb = _batch(jcfg, jp, seed=6)
+    js, ts = _states(jtrain, jcfg.d_model, seed=4)
+    p = np.asarray(pref, np.float32)
+    jnew, jm = jlocal.firm_local_step(jcfg, jfc, js, jfrozen, jb,
+                                      preference=jnp.asarray(p))
+    tnew, tm = local.firm_local_step(tcfg, tfc, ts, tfrozen, tb,
+                                     preference=_t(p))
+    for key in ("lam", "lam_star", "gram", "losses", "kl"):
+        assert_close(tm[key], jm[key], 1e-4, key)
+    _state_close(tnew, jnew, 1e-4, tfc.actor_lr)
+    # the preference moved lambda* away from the unweighted solution
+    _, plain = local.firm_local_step(tcfg, tfc, ts, tfrozen, tb)
+    assert float((plain["lam_star"] - tm["lam_star"]).abs().max()) > 1e-3
+    _, pairwise = local.firm_local_step(tcfg, tfc, ts, tfrozen, tb,
+                                        gram_fn=mgda.gram_matrix,
+                                        preference=_t(p))
+    assert_close(pairwise["gram"], tm["gram"], 1e-6, "gram_fn")
+    assert_close(pairwise["lam"], tm["lam"], 1e-5, "gram_fn lam")
