@@ -27,11 +27,19 @@ line, for a first check of new kernels):
             (2 x 3328, 1024), padded rows, all-zero rows, round-to-nearest
             bits and bits >= 2**32 - 128, for int8 and int4; then timed
             (dequantize beside ``codes * scales``).
-8. rmsnorm_bwd, 9. flash_bwd: the backward kernels against their plain
+8. topk:    the CUDA threshold count and mask against their plain versions,
+            exactly (counts equal, masks equal bit for bit), at the round's
+            uplink shape (2, 3328, 1024) and off it (thresholds 0, negative,
+            a median, a tie and above the max; all-zero rows, ties, -0.0, a
+            ragged last row; C = 1, 2 and 3); then the whole top-k
+            selection (32 bisection passes and the support) through the
+            count kernel against the plain count's, bit for bit; timed
+            beside ``torch.topk``.
+9. rmsnorm_bwd, 10. flash_bwd: the backward kernels against their plain
             versions (autograd of the plain forward) at the local step's
             shapes and off them (the forwards' extra cases), then timed
             beside the backward of ``F.rms_norm`` and of SDPA.
-10. rollout: ``fed.engine.rollout_batch`` on llama-3.2-1b at full width
+11. rollout: ``fed.engine.rollout_batch`` on llama-3.2-1b at full width
             (random weights from a seeded generator): 16 prompts of 128
             tokens, 128 new tokens, 2 objectives.  The kernels' launch counts
             are zeroed just before it and must be exactly 4290 (rmsnorm)
@@ -42,7 +50,7 @@ line, for a first check of new kernels):
             plain one is.  Then, uncounted: the rollout's steps timed one by
             one, and 8 decode steps under ``torch.profiler`` for the
             device's idle share.
-11. local_step: ``fed.engine.client_local_steps`` on the same model, one
+12. local_step: ``fed.engine.client_local_steps`` on the same model, one
             client, K=2 local steps of B=16 prompts (each a rollout, then
             ``firm_local_step`` with FIRMConfig's defaults).  The counts are
             zeroed just before it and must be exact just after.  Then,
@@ -52,16 +60,25 @@ line, for a first check of new kernels):
             part, peak memory and device idle share, and the M gradients
             through the kernels, through the plain versions and through an
             f32 copy of the model.
-12. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
-            K=1, the ``wan`` preset (int8+ef uplink, identity downlink),
-            R=2 rounds.  The counts are zeroed just before and must be
-            exact just after (one quantize and one dequantize a round);
-            comm_bytes must be exactly 68,210,688; lambda on the simplex,
-            drift > 0, residuals carried.  Seconds per round by part, peak
-            memory, and a third round under ``torch.profiler`` for the
+13. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
+            K=1, R=2 rounds, first the ``wan`` preset (int8+ef uplink,
+            identity downlink), then the ``extreme`` preset (topk:0.05+ef
+            uplink, int8 downlink).  Each preset's counts are zeroed just
+            before its rounds and must be exact just after (wan: one
+            quantize and one dequantize a round; extreme: 32 threshold
+            counts, one quantize and one dequantize a round, no mask);
+            comm_bytes must be exactly 68,210,688 (wan) and 19,137,344
+            (extreme); lambda on the simplex, drift > 0, residuals carried.
+            Seconds per round by part, the uplink codec's share, peak
+            memory, and a third wan round under ``torch.profiler`` for the
             device's idle share.
-13. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round.
-14. serve:  the ``launch.serve`` CLI at full width, a few tokens.
+14. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+            downlink at the round's width, on the card and again through
+            the port's CPU path with the same inputs and injected draws:
+            low-rank within 1e-4 of the scale, delta bit for bit; the
+            low-rank payload's bytes equal ``nbytes_static`` (59,392).
+15. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round.
+16. serve:  the ``launch.serve`` CLI at full width, a few tokens.
 
 Every number is printed as JSON on a line of its own; the second-to-last
 line holds the per-kernel table and the last line is
@@ -109,8 +126,9 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
 
 
 PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
-          "dequantize", "rmsnorm_bwd", "flash_bwd", "rollout", "local_step",
-          "round", "train", "serve")
+          "dequantize", "topk", "rmsnorm_bwd", "flash_bwd", "rollout",
+          "local_step", "round", "codecs", "train", "serve")
+TOPK_PASSES = 32               # bisection passes of one top-k selection
 
 
 class StopAfter(Exception):
@@ -139,7 +157,10 @@ def run(torch, stop_after) -> int:
         if phase == stop_after:
             raise StopAfter(phase)
 
+    from repro_torch.comms import codec as codec_lib
+    from repro_torch.comms import lowrank, make_codec, sparsify
     from repro_torch.configs import FIRMConfig, get_config
+    from repro_torch.configs.base import CODEC_PRESETS
     from repro_torch.core import firm
     from repro_torch.data.partition import make_client_datasets
     from repro_torch.fed.engine import (EngineConfig, FederatedTrainer,
@@ -240,7 +261,9 @@ def run(torch, stop_after) -> int:
                 "flash_attention_bwd": (fa_mod, "bwd_launches"),
                 "gram": (gram_mod, "launches"),
                 "quantize": (q_mod, "quantize_launches"),
-                "dequantize": (q_mod, "dequantize_launches")}
+                "dequantize": (q_mod, "dequantize_launches"),
+                "abs_threshold_count": (q_mod, "threshold_count_launches"),
+                "abs_threshold_mask": (q_mod, "threshold_mask_launches")}
 
     def zero_counts() -> None:
         for mod, attr in counters.values():
@@ -595,7 +618,151 @@ def run(torch, stop_after) -> int:
          "ms_without_residual)", **dequant_row)
     done("dequantize")
 
-    # ------------------------------------------------------- 8. rmsnorm_bwd
+    # -------------------------------------------------------------- 8. topk
+    # the threshold count and mask against their plain versions, exactly:
+    # counts equal (integers in f32), masks equal bit for bit (-0.0 kept
+    # at t <= 0, dropped entries +0.0); at the round's uplink shape (C = 2
+    # clients of 3328 rows, (C,) thresholds on the device) and off it
+    def thresholds(x):
+        a = x.abs().reshape(x.shape[0], -1)
+        c = x.shape[0]
+        return {"zero": torch.zeros(c, device=dev),
+                "negative": torch.full((c,), -1.0, device=dev),
+                "median": a.median(dim=1).values,
+                "tie 1e-4": torch.full((c,), 1e-4, device=dev),
+                "above max": torch.nextafter(
+                    a.amax(dim=1), torch.tensor(float("inf"), device=dev))}
+
+    x_topk = x_round.view(N_CLIENTS, -1, q_mod.BLOCK)
+    x_odd = delta_rows(3 * 64).view(3, 64, q_mod.BLOCK)
+    x_odd[:, ::5] = 0.0                          # all-zero rows
+    x_odd[:, 1, ::7] = -0.0                      # negative zeros
+    x_odd[:, 2, :300] = 1e-4                     # ties at "tie 1e-4"
+    x_odd[:, 2, 300:600] = -1e-4
+    x_ragged, _ = qcodec._stacked_blocks(randn((1, 5 * 1024 + 77),
+                                               torch.float32))
+    thresh_cases = [("round C=2", x_topk), ("zero rows, ties, -0.0 C=3", x_odd),
+                    ("ragged d=5*1024+77 C=1", x_ragged.view(1, -1,
+                                                             q_mod.BLOCK)),
+                    ("one client (R, 1024), 0-d threshold", x_round[:3328])]
+    thresh_checks = {}
+    for label, xt in thresh_cases:
+        stacked = xt if xt.dim() == 3 else xt[None]
+        for tname, t in thresholds(stacked).items():
+            t = t if xt.dim() == 3 else t[0]
+            got_n = q_mod.abs_threshold_count(xt, t)
+            got_m = q_mod.abs_threshold_mask(xt, t)
+            torch.cuda.synchronize()
+            want_n = ref.abs_threshold_count(xt, t)
+            want_m = ref.abs_threshold_mask(xt, t)
+            key = f"{label}, t {tname}"
+            thresh_checks[key] = {
+                "counts": got_n.reshape(-1).tolist(),
+                "counts_equal": bool(torch.equal(got_n, want_n)),
+                "mask_same_bits": same_bits(got_m, want_m)}
+            if xt is x_odd and bool((t <= 0).all()):
+                thresh_checks[key]["negative_zeros_kept"] = bool(
+                    (got_m[:, 1, ::7].view(torch.int32) == -2 ** 31).all())
+            check(all(v for k_, v in thresh_checks[key].items()
+                      if k_ != "counts"), f"threshold {key}: "
+                  f"{thresh_checks[key]}")
+            thresh_checks[key]["max_abs_err"] = max(
+                float((got_n - want_n).abs().max()),
+                float((got_m - want_m).abs().max()))
+
+    # the whole selection of the uplink's top-k: the bisection's (lo, hi)
+    # and the support through the count kernel, bit for bit as through the
+    # plain count (which the round would run on the CPU)
+    def selection(flats, k, use_kernel):
+        xb, rows = qcodec._stacked_blocks(flats)
+        lo, hi = ops.topk_threshold(xb.view(flats.shape[0], rows, -1), k,
+                                    use_kernel=use_kernel)
+        return (lo, hi) + sparsify.support_in_bracket(flats, lo, hi, k)
+
+    flats_topk = x_round.view(N_CLIENTS, -1)
+    k_round = max(1, int(round(0.05 * d_lora)))
+    select_checks = {}
+    for label, flats, k in [("round C=2 k=0.05 d", flats_topk, k_round),
+                            ("zero rows, ties, -0.0 C=3 k=5000",
+                             x_odd.view(3, -1), 5000),
+                            ("ragged d C=1 k=300",
+                             x_ragged.view(1, -1)[:, :5 * 1024 + 77], 300)]:
+        got = selection(flats, k, True)
+        want = selection(flats, k, False)
+        idx_c, val_c = sparsify.topk_support_stacked(flats, k)
+        torch.cuda.synchronize()
+        xb = qcodec._stacked_blocks(flats)[0].view(flats.shape[0], -1,
+                                                   q_mod.BLOCK)
+        n_lo = ref.abs_threshold_count(xb, got[0])
+        n_hi = ref.abs_threshold_count(xb, got[1])
+        select_checks[label] = {
+            "lo_hi_same_bits": same_bits(torch.stack(got[:2]),
+                                         torch.stack(want[:2])),
+            "indices_equal": bool(torch.equal(got[2], want[2])),
+            "values_same_bits": same_bits(got[3], want[3]),
+            "codec_path_equal": bool(torch.equal(idx_c, got[2])
+                                     and torch.equal(val_c, got[3])),
+            "bracket": bool(((n_hi < k) & (n_lo >= k)).all())}
+        check(all(select_checks[label].values()),
+              f"top-k selection {label}: {select_checks[label]}")
+    t_mid = thresholds(x_topk)["median"]
+    count_row = {
+        "name": "abs_threshold_count", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/threshold.cu",
+        "replaces": "src/repro/kernels/quantize.py:132",
+        "max_abs_err": max(c["max_abs_err"] for c in thresh_checks.values()),
+        # the wrapper's time: the scratch's zeroing and the kernel
+        "ms": timed_ms(lambda: q_mod.abs_threshold_count(x_topk, t_mid)),
+        "plain_ms": timed_ms(lambda: ref.abs_threshold_count(x_topk, t_mid)),
+        # no one PyTorch call counts |x| >= t per client
+        "library_ms": None,
+        "ms_host_paced": timed_ms(
+            lambda: q_mod.abs_threshold_count(x_topk, t_mid), hold=False),
+    }
+    mask_row = {
+        "name": "abs_threshold_mask", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/threshold.cu",
+        "replaces": "src/repro/kernels/quantize.py:161",
+        "max_abs_err": max(c["max_abs_err"] for c in thresh_checks.values()),
+        "ms": timed_ms(lambda: q_mod.abs_threshold_mask(x_topk, t_mid)),
+        "plain_ms": timed_ms(lambda: ref.abs_threshold_mask(x_topk, t_mid)),
+        # no one PyTorch call keeps x where |x| >= t (hardshrink keeps
+        # |x| > t, for one Python-float t)
+        "library_ms": None,
+    }
+    # count: reads x and C thresholds, writes C counts; |x| and a compare
+    # an element.  mask: reads x and the thresholds, writes the mask.
+    count_row["bound_ms"], count_row["bound_by"] = bound_ms(
+        4 * n_el + 8 * N_CLIENTS, 2 * n_el, "f32")
+    mask_row["bound_ms"], mask_row["bound_by"] = bound_ms(
+        8 * n_el + 4 * N_CLIENTS, 2 * n_el, "f32")
+    selection_ms = {
+        "kernel": timed_ms(lambda: sparsify.topk_support_stacked(
+            flats_topk, k_round), iters=10, warmup=2),
+        "plain": timed_ms(lambda: selection(flats_topk, k_round, False),
+                          iters=10, warmup=2),
+        "library_torch_topk": timed_ms(lambda: torch.topk(
+            flats_topk.abs(), k_round, dim=1), iters=10, warmup=2),
+        "kernel_host_paced": timed_ms(lambda: sparsify.topk_support_stacked(
+            flats_topk, k_round), iters=10, warmup=2, hold=False)}
+    # its parts: the 32-pass bisection, and the support from the bracket
+    xb_topk = flats_topk.view(N_CLIENTS, -1, q_mod.BLOCK)
+    lo_t, hi_t = ops.topk_threshold(xb_topk, k_round)
+    selection_ms.update({
+        "bisection_kernel": timed_ms(lambda: ops.topk_threshold(
+            xb_topk, k_round), iters=10, warmup=2),
+        "bisection_plain": timed_ms(lambda: ops.topk_threshold(
+            xb_topk, k_round, use_kernel=False), iters=10, warmup=2),
+        "support_in_bracket": timed_ms(lambda: sparsify.support_in_bracket(
+            flats_topk, lo_t, hi_t, k_round), iters=10, warmup=2)})
+    emit(phase="topk", shape=list(x_topk.shape), k=k_round,
+         checks=thresh_checks, selection_checks=select_checks,
+         selection_ms=selection_ms,
+         tolerance="exact: counts equal, masks, (lo, hi), indices and "
+         "values equal bit for bit", count=count_row, mask=mask_row)
+    done("topk")
+
+    # ------------------------------------------------------- 9. rmsnorm_bwd
     # bf16: dx is rounded once from f32 on both sides, after reductions in
     # another order, so it may differ by an ulp: 2e-2 of dx's scale.  f32:
     # 1e-4 of the scale.  The last three cases take the scalar path.
@@ -642,7 +809,7 @@ def run(torch, stop_after) -> int:
          "1e-4 (f32) of max |plain|", **rms_bwd_row)
     done("rmsnorm_bwd")
 
-    # --------------------------------------------------------- 9. flash_bwd
+    # -------------------------------------------------------- 10. flash_bwd
     flash_bwd_err = {}
     for label, (b, sq, skv, hq, hkv, dh), dtype, causal, window in [
             ("local step S=256 causal", (B, 256, 256, 32, 8, 64),
@@ -715,7 +882,7 @@ def run(torch, stop_after) -> int:
          "|plain|, for each of dq, dk, dv", **flash_bwd_row)
     done("flash_bwd")
 
-    # ----------------------------------------------------------- 10. rollout
+    # ---------------------------------------------------------- 11. rollout
     fc = FIRMConfig()
     check(fc.batch_size == B and fc.n_objectives == N_OBJ,
           "FIRMConfig defaults changed")
@@ -747,7 +914,8 @@ def run(torch, stop_after) -> int:
                         "flash_attention": 2 * cfg.n_layers}
     want_launches = dict(rollout_launches, rmsnorm_bwd=0,
                          flash_attention_bwd=0, gram=0, quantize=0,
-                         dequantize=0)
+                         dequantize=0, abs_threshold_count=0,
+                         abs_threshold_mask=0)
     check(launches == want_launches,
           f"launch counts {launches}, expected {want_launches}")
 
@@ -849,7 +1017,7 @@ def run(torch, stop_after) -> int:
     emit(phase="decode_profile", profile=device_profile(decode_8, 8))
     done("rollout")
 
-    # -------------------------------------------------------- 11. local step
+    # ------------------------------------------------------- 12. local step
     # one client from the reference (lora_B = 0), K local steps, each a
     # rollout of B prompts and one firm_local_step, with FIRMConfig's
     # defaults (M = 2, B = 16, beta = 0.01, pgd with 100 iterations)
@@ -875,7 +1043,8 @@ def run(torch, stop_after) -> int:
                                       + cfg.n_layers),
         "rmsnorm_bwd": k_steps * N_OBJ * 2 * cfg.n_layers,
         "flash_attention_bwd": k_steps * N_OBJ * cfg.n_layers,
-        "gram": k_steps, "quantize": 0, "dequantize": 0}
+        "gram": k_steps, "quantize": 0, "dequantize": 0,
+        "abs_threshold_count": 0, "abs_threshold_mask": 0}
     check(local_launches == want_local,
           f"local-step launch counts {local_launches}, expected {want_local}")
     lam = kept["lam"]
@@ -1041,94 +1210,132 @@ def run(torch, stop_after) -> int:
          "(1 - cosine) <= 1.6x the plain bf16 path's; gram 1e-5 of scale")
     done("local_step")
 
-    # ------------------------------------------------------------ 12. round
+    # ------------------------------------------------------------ 13. round
     # the federated round at full width: C = 2 clients, K = 1 local step,
-    # the ``wan`` preset (int8+ef uplink, identity downlink), R = 2 rounds
-    # so that the error-feedback residual carries into round 2.  The
-    # trainer starts from the rollout phase's reference weights.
+    # R = 2 rounds so that the error-feedback residual carries into round
+    # 2; first the ``wan`` preset (int8+ef uplink, identity downlink), then
+    # the ``extreme`` preset (topk:0.05+ef uplink, int8 downlink).  Each
+    # trainer starts from the rollout phase's reference weights; the counts
+    # are zeroed just before its rounds and read just after.
     fc_round = dataclasses.replace(fc, n_clients=N_CLIENTS, local_steps=1,
                                    rounds=ROUNDS)
-    ec_round = EngineConfig(prompt_len=P, max_new=MAX_NEW,
-                            uplink_codec="int8+ef",
-                            downlink_codec="identity")
-    trainer = FederatedTrainer(cfg, fc_round, ec_round, params=ref_params,
-                               device=dev)
-    check(trainer.d_trainable == d_lora, "the round's d is the gram phase's")
-    # the round's parts, each ended by a synchronise (instance wrappers:
-    # the trainer itself does not synchronise)
-    part_s = {}
-
-    def timed_part(name, fn):
-        def run_part(*a, **kw):
-            out, sec = wall(lambda: fn(*a, **kw))
-            part_s.setdefault(name, []).append(sec)
-            return out
-        return run_part
-
-    for name in ("_broadcast", "_local_phase", "_delta_flat", "_uplink",
-                 "_aggregate_flat", "_summary_stats"):
-        setattr(trainer, name, timed_part(name, getattr(trainer, name)))
-    # the residuals each uplink call is handed and hands back, kept to
-    # check that round 2 starts from round 1's
-    ef_log = []
-    uplink_rt = trainer.uplink_codec.roundtrip_stacked
-
-    def logged_uplink_rt(flats, spec, states, **kw):
-        out = uplink_rt(flats, spec, states, **kw)
-        ef_log.append((list(states), [r.clone() for r in out[1]]))
-        return out
-    trainer.uplink_codec.roundtrip_stacked = logged_uplink_rt
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    summaries, round_s = [], []
-    for _ in range(ROUNDS):
-        summary, sec = wall(trainer.run_round)
-        summaries.append(summary)
-        round_s.append(sec)
-    round_launches = read_counts()
-    round_peak = torch.cuda.max_memory_allocated()
     steps = N_CLIENTS * fc_round.local_steps * ROUNDS
+    # the local phase's launches; each preset adds its codecs'
     want_round = {name: steps * n // k_steps
                   for name, n in want_local.items()}
-    want_round.update(quantize=ROUNDS, dequantize=ROUNDS)
-    check(round_launches == want_round,
-          f"round launch counts {round_launches}, expected {want_round}")
+    names = {"_broadcast": "downlink", "_local_phase": "local_phase",
+             "_delta_flat": "delta", "_uplink": "uplink_codec",
+             "_aggregate_flat": "aggregate", "_summary_stats": "summary"}
+
+    def federated_rounds(preset: str):
+        """ROUNDS counted rounds of a fresh trainer with the preset's
+        codecs and the checks every preset shares: (trainer, summaries,
+        launches, the record to emit)."""
+        up, down = CODEC_PRESETS[preset]
+        trainer = FederatedTrainer(
+            cfg, fc_round, EngineConfig(prompt_len=P, max_new=MAX_NEW,
+                                        uplink_codec=up, downlink_codec=down),
+            params=ref_params, device=dev)
+        check(trainer.d_trainable == d_lora,
+              "the round's d is the gram phase's")
+        # the round's parts, each ended by a synchronise (instance
+        # wrappers: the trainer itself does not synchronise)
+        part_s = {}
+
+        def timed_part(name, fn):
+            def run_part(*a, **kw):
+                out, sec = wall(lambda: fn(*a, **kw))
+                part_s.setdefault(names[name], []).append(sec)
+                return out
+            return run_part
+
+        for name in names:
+            setattr(trainer, name, timed_part(name, getattr(trainer, name)))
+        # the residuals each uplink call is handed and hands back, kept to
+        # check that round 2 starts from round 1's
+        ef_log = []
+        uplink_rt = trainer.uplink_codec.roundtrip_stacked
+
+        def logged_uplink_rt(flats, spec, states, **kw):
+            out = uplink_rt(flats, spec, states, **kw)
+            ef_log.append((list(states), [r.clone() for r in out[1]]))
+            return out
+        trainer.uplink_codec.roundtrip_stacked = logged_uplink_rt
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        summaries, round_s = [], []
+        for _ in range(ROUNDS):
+            summary, sec = wall(trainer.run_round)
+            summaries.append(summary)
+            round_s.append(sec)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        trainer.uplink_codec.roundtrip_stacked = uplink_rt
+        up_static = trainer.uplink_codec.nbytes_static(d_lora)
+        down_static = trainer.downlink_codec.nbytes_static(d_lora)
+        check(summaries[-1]["comm_bytes"]
+              == ROUNDS * N_CLIENTS * (up_static + down_static),
+              f"{preset} comm_bytes {summaries[-1]['comm_bytes']}")
+        for s_ in summaries:
+            check(s_["up_nbytes"] == [up_static] * N_CLIENTS
+                  and s_["down_nbytes"] == down_static
+                  and s_["participants"] == list(range(N_CLIENTS))
+                  and s_["dispatches"] == 6, f"round bookkeeping {s_}")
+            lam_pc = s_["per_client_lam"]
+            check(lam_pc.shape == (N_CLIENTS, N_OBJ) and (lam_pc >= 0).all()
+                  and abs(lam_pc.sum(-1) - 1).max() < 1e-5,
+                  f"per-client lambda on the simplex: {lam_pc.tolist()}")
+            check(math.isfinite(s_["lam_disagreement"]),
+                  "lam_disagreement finite")
+        check(summaries[0]["param_drift"] > 0, "clients drifted apart")
+        check(all(bool(t.isfinite().all()) for t in
+                  common.tree_leaves(trainer.global_trainable)),
+              "finite global adapters")
+        check(any(bool((a != b).any()) for a, b in zip(
+            common.tree_leaves(trainer.global_trainable),
+            common.tree_leaves(train0))), "the global adapters moved")
+        res_rms = [float(r.norm()) for r in trainer._uplink_state]
+        check(all(0 < r < float("inf") for r in res_rms),
+              f"error-feedback residuals finite and non-zero: {res_rms}")
+        check(len(ef_log) == ROUNDS
+              and all(r is None for r in ef_log[0][0])
+              and all(all(a is not None and torch.equal(a, b)
+                          for a, b in zip(ef_log[i + 1][0], ef_log[i][1]))
+                      for i in range(ROUNDS - 1)),
+              "error-feedback residuals carried: each round's uplink "
+              "starts from the residuals the round before handed back")
+        breakdown = {k: v[:ROUNDS] for k, v in part_s.items()}
+        record = dict(
+            model=cfg.name, preset=preset, clients=N_CLIENTS,
+            local_steps=fc_round.local_steps, rounds=ROUNDS, batch=B,
+            prompt_len=P, max_new=MAX_NEW, uplink=up, downlink=down,
+            d_trainable=d_lora, seconds_per_round=round_s,
+            launches=launches, breakdown_s=breakdown,
+            uplink_codec_share=[u / r for u, r in zip(
+                breakdown["uplink_codec"], round_s)],
+            peak_memory_bytes=peak, comm_bytes=summaries[-1]["comm_bytes"],
+            up_nbytes=summaries[-1]["up_nbytes"],
+            down_nbytes=summaries[-1]["down_nbytes"],
+            param_drift=[s_["param_drift"] for s_ in summaries],
+            lam_disagreement=[s_["lam_disagreement"] for s_ in summaries],
+            per_client_lam=[s_["per_client_lam"].tolist()
+                            for s_ in summaries],
+            kl=[s_["kl"] for s_ in summaries],
+            rewards=[s_["rewards"].tolist() for s_ in summaries],
+            residual_norms=res_rms)
+        return trainer, summaries, launches, record
+
+    trainer, summaries, round_launches, wan_record = federated_rounds("wan")
+    want_wan = dict(want_round, quantize=ROUNDS, dequantize=ROUNDS)
+    check(round_launches == want_wan,
+          f"round launch counts {round_launches}, expected {want_wan}")
     up_static = trainer.uplink_codec.nbytes_static(d_lora)
     check(up_static == -(-d_lora // 1024) * (1024 + 4),
           f"int8 payload bytes {up_static}")
     want_bytes = ROUNDS * N_CLIENTS * (up_static + 4 * d_lora)
     check(summaries[-1]["comm_bytes"] == want_bytes == 68_210_688,
           f"comm_bytes {summaries[-1]['comm_bytes']}, expected {want_bytes}")
-    for s_ in summaries:
-        check(s_["up_nbytes"] == [up_static] * N_CLIENTS
-              and s_["down_nbytes"] == 4 * d_lora
-              and s_["participants"] == list(range(N_CLIENTS))
-              and s_["dispatches"] == 6, f"round bookkeeping {s_}")
-        lam_pc = s_["per_client_lam"]
-        check(lam_pc.shape == (N_CLIENTS, N_OBJ) and (lam_pc >= 0).all()
-              and abs(lam_pc.sum(-1) - 1).max() < 1e-5,
-              f"per-client lambda on the simplex: {lam_pc.tolist()}")
-        check(math.isfinite(s_["lam_disagreement"]),
-              "lam_disagreement finite")
-    check(summaries[0]["param_drift"] > 0, "clients drifted apart")
-    check(all(bool(t.isfinite().all()) for t in
-              common.tree_leaves(trainer.global_trainable)),
-          "finite global adapters")
-    check(any(bool((a != b).any()) for a, b in zip(
-        common.tree_leaves(trainer.global_trainable),
-        common.tree_leaves(train0))), "the global adapters moved")
-    res_rms = [float(r.norm()) for r in trainer._uplink_state]
-    check(all(0 < r < float("inf") for r in res_rms),
-          f"error-feedback residuals finite and non-zero: {res_rms}")
-    check(len(ef_log) == ROUNDS
-          and all(r is None for r in ef_log[0][0])
-          and all(all(a is not None and torch.equal(a, b)
-                      for a, b in zip(ef_log[i + 1][0], ef_log[i][1]))
-                  for i in range(ROUNDS - 1)),
-          "error-feedback residuals carried: each round's uplink starts "
-          "from the residuals the round before handed back")
-    trainer.uplink_codec.roundtrip_stacked = uplink_rt
     # one more round, uncounted, under the profiler: the device's busy and
     # idle share of a whole round (kineto's raw events; the round launches
     # some 450,000 kernels)
@@ -1152,30 +1359,101 @@ def run(torch, stop_after) -> int:
             "profiled_round_s": profiled_s,
             "device_idle_share_of_profiled_window": 1 - busy_ns / window_ns,
             "device_idle_share_of_unprofiled_round":
-                1 - busy_ns / 1e9 / (sum(round_s) / ROUNDS)}
-    names = {"_broadcast": "downlink", "_local_phase": "local_phase",
-             "_delta_flat": "delta", "_uplink": "uplink_codec",
-             "_aggregate_flat": "aggregate", "_summary_stats": "summary"}
-    emit(phase="round", model=cfg.name, clients=N_CLIENTS,
-         local_steps=fc_round.local_steps, rounds=ROUNDS, batch=B,
-         prompt_len=P, max_new=MAX_NEW, uplink=ec_round.uplink_codec,
-         downlink=ec_round.downlink_codec, d_trainable=d_lora,
-         seconds_per_round=round_s, launches=round_launches,
-         breakdown_s={names[k]: v[:ROUNDS] for k, v in part_s.items()},
-         peak_memory_bytes=round_peak,
-         comm_bytes=summaries[-1]["comm_bytes"],
-         up_nbytes=summaries[-1]["up_nbytes"],
-         down_nbytes=summaries[-1]["down_nbytes"],
-         param_drift=[s_["param_drift"] for s_ in summaries],
-         lam_disagreement=[s_["lam_disagreement"] for s_ in summaries],
-         per_client_lam=[s_["per_client_lam"].tolist() for s_ in summaries],
-         kl=[s_["kl"] for s_ in summaries],
-         rewards=[s_["rewards"].tolist() for s_ in summaries],
-         residual_norms=res_rms, profile=round_profile)
+                1 - busy_ns / 1e9 / (sum(wan_record["seconds_per_round"])
+                                     / ROUNDS)}
+    emit(phase="round", profile=round_profile, **wan_record)
+    del trainer
+
+    # the extreme preset: the top-k uplink's 32 count passes a round (one
+    # launch over both clients each), the int8 broadcast's quantize and
+    # dequantize, no mask (the JAX package calls it nowhere)
+    trainer, summaries, extreme_launches, extreme_record = \
+        federated_rounds("extreme")
+    want_extreme = dict(want_round, quantize=ROUNDS, dequantize=ROUNDS,
+                        abs_threshold_count=TOPK_PASSES * ROUNDS,
+                        abs_threshold_mask=0)
+    check(extreme_launches == want_extreme,
+          f"extreme launch counts {extreme_launches}, expected "
+          f"{want_extreme}")
+    up_static = trainer.uplink_codec.nbytes_static(d_lora)
+    down_static = trainer.downlink_codec.nbytes_static(d_lora)
+    check(up_static == 8 * k_round == 1_363_152
+          and down_static == -(-d_lora // 1024) * (1024 + 4) == 3_421_184,
+          f"extreme payload bytes {up_static}, {down_static}")
+    check(summaries[-1]["comm_bytes"] == 19_137_344,
+          f"extreme comm_bytes {summaries[-1]['comm_bytes']}")
+    emit(phase="round_extreme", **extreme_record)
     del trainer
     done("round")
 
-    # ------------------------------------------------------------ 13. train
+    # ----------------------------------------------------------- 14. codecs
+    # the powersgd uplink (lowrank:4+ef) and the delta downlink
+    # (delta+int8) at the round's width, on the card, then through the
+    # port's CPU path with the same inputs and injected draws (omega, the
+    # rounding bits).  Low-rank: within 1e-4 of the scale (f32 products of
+    # 2048 and 1664 terms summed in other orders, and another QR; ~1e-6
+    # measured against the JAX package on the CPU).  Delta: bit for bit
+    # (the quantize kernels are, and one f32 subtraction and addition
+    # round alike on both).
+    _, spec_d = codec_lib.tree_to_flat({"a": torch.zeros(d_lora)})
+
+    def rel_err(got, want) -> float:
+        return float((got.cpu() - want).abs().max() / want.abs().max())
+
+    lr_codec = make_codec(CODEC_PRESETS["powersgd"][0])
+    _, b_cols = lowrank._matrix_shape(d_lora)
+    lr_flats = delta_rows(rows_round).view(N_CLIENTS, d_lora)
+    lr_states = [1e-2 * delta_rows(rows_round // N_CLIENTS).view(-1)
+                 for _ in range(N_CLIENTS)]
+    omega = randn((N_CLIENTS, b_cols, lr_codec.inner.rank), torch.float32)
+    (lr_pay, lr_res, lr_dec), lr_s = wall(lambda: lr_codec.roundtrip_stacked(
+        lr_flats, spec_d, lr_states, bits=omega))
+    cpu_pay, cpu_res, cpu_dec = lr_codec.roundtrip_stacked(
+        lr_flats.cpu(), spec_d, [t.cpu() for t in lr_states],
+        bits=omega.cpu())
+    lr_checks = {
+        "decoded_rel_err": rel_err(lr_dec, cpu_dec),
+        "residual_rel_err": max(rel_err(a, b)
+                                for a, b in zip(lr_res, cpu_res)),
+        "nbytes": [p_.nbytes for p_ in lr_pay],
+        "nbytes_static": lr_codec.nbytes_static(d_lora)}
+    check(lr_checks["decoded_rel_err"] <= 1e-4
+          and lr_checks["residual_rel_err"] <= 1e-4,
+          f"lowrank:4+ef card vs CPU: {lr_checks}")
+    check(lr_checks["nbytes"] == [lr_checks["nbytes_static"]] * N_CLIENTS
+          and lr_checks["nbytes_static"] == 59_392,
+          f"lowrank payload bytes {lr_checks}")
+    dl_codec = make_codec("delta+int8")
+    theta0 = 1e-2 * randn((d_lora,), torch.float32)
+    thetas = [theta0, theta0 + delta_rows(rows_round // N_CLIENTS).view(-1)]
+    dl_state = dl_state_cpu = None
+    dl_checks, dl_s = [], []
+    for theta in thetas:
+        dbits = rand_bits(rows_round // N_CLIENTS)
+        (dp, dl_state, ddec), sec = wall(lambda: dl_codec.roundtrip_flat(
+            theta, spec_d, dl_state, bits=dbits))
+        cp, dl_state_cpu, cdec = dl_codec.roundtrip_flat(
+            theta.cpu(), spec_d, dl_state_cpu, bits=dbits.cpu())
+        dl_s.append(sec)
+        dl_checks.append({
+            "codes_equal": bool(torch.equal(dp.arrays["codes"].cpu(),
+                                            cp.arrays["codes"])),
+            "scales_same_bits": same_bits(dp.arrays["scales"].cpu(),
+                                          cp.arrays["scales"]),
+            "decoded_same_bits": same_bits(ddec.cpu(), cdec),
+            "reference_same_bits": same_bits(dl_state[0].cpu(),
+                                             dl_state_cpu[0]),
+            "nbytes_static": dp.nbytes == dl_codec.nbytes_static(d_lora)})
+        check(all(dl_checks[-1].values()),
+              f"delta+int8 card vs CPU: {dl_checks[-1]}")
+    emit(phase="codecs", d=d_lora, lowrank={
+        "spec": lr_codec.name, "checks": lr_checks, "seconds": lr_s,
+        "tolerance": "max |card - CPU| <= 1e-4 max |CPU| (sum order, QR)"},
+        delta={"spec": dl_codec.name, "checks": dl_checks, "seconds": dl_s,
+               "tolerance": "bit-identical"})
+    done("codecs")
+
+    # ------------------------------------------------------------ 15. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -1193,7 +1471,7 @@ def run(torch, stop_after) -> int:
     emit(phase="train", seconds=train_s, report=report.getvalue())
     done("train")
 
-    # ------------------------------------------------------------ 14. serve
+    # ------------------------------------------------------------ 16. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(
@@ -1202,11 +1480,16 @@ def run(torch, stop_after) -> int:
     check(tuple(out.shape) == (4, 8), f"serve output shape {out.shape}")
     emit(phase="serve", seconds=serve_s, report=report.getvalue())
 
-    # launches: the round phase's, the main path of the port so far
+    # launches: each kernel's in the round of the path it was ported for,
+    # the wan round for the first seven, the extreme round for the top-k
+    # passes (the mask is on no path: 0)
     rows = (rms_row, rms_bwd_row, flash_row, flash_bwd_row, gram_row,
             quant_row, dequant_row)
     for row in rows:
         row["launches"] = round_launches[row["name"]]
+    for row in (count_row, mask_row):
+        row["launches"] = extreme_launches[row["name"]]
+    rows += (count_row, mask_row)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

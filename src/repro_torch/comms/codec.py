@@ -17,12 +17,13 @@ draw itself injected as ``bits`` (the uint32 rounding offsets as an int32
 tensor of their bit patterns), so that a test can hand the port JAX's
 draws.
 
-What the ``datacenter``, ``wan`` and ``mobile`` presets need is ported:
-``IdentityCodec``, ``QuantizeCodec`` (``comms.quantize``) and
-``ErrorFeedback`` around it.  The reference's ``DeltaCodec``, the top-k
-and low-rank codecs, ``nbytes_entropy`` and the traced API of its fused
-executor (``roundtrip_traced*``, ``init_state(s)_traced``) are not ported
-yet.
+Every codec of the reference's registry is ported: ``IdentityCodec``,
+``QuantizeCodec`` (``comms.quantize``), ``TopKCodec`` (``comms.sparsify``),
+``LowRankCodec`` (``comms.lowrank``), ``ErrorFeedback`` around any lossy
+codec and ``DeltaCodec`` around any codec, at the host boundary
+(``roundtrip*``).  ``nbytes_entropy`` and the traced API of the
+reference's fused executor (``roundtrip_traced*``, ``init_state(s)_traced``)
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -139,8 +140,8 @@ class Codec:
         """``roundtrip_flat`` over the C rows of (C, d) ``flats``:
         (payloads, new_states, decoded (C, d)).  ``keys`` holds one
         generator (or None) per row; ``bits`` the rows' injected draws,
-        stacked.  This base version loops; quantize codecs override it with
-        one launch over all rows."""
+        stacked.  This base version loops; the quantize and top-k codecs
+        override it with one batched pass over all rows."""
         c = flats.shape[0]
         states = list(states) if states is not None else [None] * c
         keys = list(keys) if keys is not None else [None] * c
@@ -149,6 +150,23 @@ class Codec:
                for i in range(c)]
         return ([p for p, _, _ in out], [s for _, s, _ in out],
                 torch.stack([dec for _, _, dec in out]))
+
+    def ef_roundtrip_stacked(self, adj, spec: TreeSpec, *, keys=None,
+                             bits=None):
+        """The stateless roundtrip of (C, d) ``adj`` with the
+        error-feedback residual ``adj - decoded``: (payloads, decoded,
+        residual), as ``ErrorFeedback`` needs it.  The quantize codec
+        overrides it to write the residual in its dequantize launch."""
+        payloads, _, decoded = self.roundtrip_stacked(adj, spec, keys=keys,
+                                                      bits=bits)
+        return payloads, decoded, adj - decoded
+
+    def roundtrip_traced(self, flat, state=(), *, key=None):
+        """The reference's in-graph codec contract, which only its fused
+        executor uses: not ported yet."""
+        raise NotImplementedError(
+            f"{self.name}: the traced codec contract (roundtrip_traced*) "
+            f"is not ported yet")
 
 
 class IdentityCodec(Codec):
@@ -173,14 +191,15 @@ class ErrorFeedback(Codec):
     """Client-local residual around a lossy codec (the standard EF trick).
 
     The state is the client's residual flat vector (None = zeros).  The
-    client encodes ``adj = flat + residual`` and keeps ``adj - decoded`` as
-    its next residual; the server only ever decodes.  The inner codec is a
-    ``QuantizeCodec``, the one lossy codec ported so far: its stacked path
-    quantizes all rows in one launch and dequantizes them in one more,
-    whose epilogue writes the residual as one fused multiply-subtract,
-    which is how XLA computes the reference's residual (see
-    ``kernels.ref.dequantize_residual``).  A row whose key is None rounds
-    to nearest, as the reference's per-row fallback does.
+    client encodes ``adj = flat + residual`` through the inner codec and
+    keeps ``adj - decoded`` as its next residual; the server only ever
+    decodes.  The inner codec computes the residual with its roundtrip
+    (``Codec.ef_roundtrip_stacked``): the quantize codec in its dequantize
+    launch, as one fused multiply-subtract, which is how XLA computes the
+    reference's residual (see ``kernels.ref.dequantize_residual``); every
+    other codec as the difference, exact for top-k (kept entries give 0,
+    dropped ones ``adj``).  A row whose key is None rounds to nearest, as
+    the reference's per-row fallback does.
     """
 
     def __init__(self, inner):
@@ -206,18 +225,13 @@ class ErrorFeedback(Codec):
 
     def roundtrip_stacked(self, flats, spec, states=None, *, keys=None,
                           bits=None):
-        c, d = flats.shape
+        c = flats.shape[0]
         states = list(states) if states is not None else [None] * c
         adj = flats + torch.stack([torch.zeros_like(flats[i]) if s is None
                                    else s for i, s in enumerate(states)])
-        codes, scales, rows, x = self.inner._quantize_stacked(adj, keys,
-                                                              bits)
-        decoded, residual = self.inner._dequantize(codes, scales, adj=x)
-        payloads = self.inner._stacked_payloads(codes, scales, rows, c, spec,
-                                                d)
-        residual = residual.reshape(c, -1)[:, :d]
-        return (payloads, [residual[i] for i in range(c)],
-                decoded.reshape(c, -1)[:, :d])
+        payloads, decoded, residual = self.inner.ef_roundtrip_stacked(
+            adj, spec, keys=keys, bits=bits)
+        return payloads, [residual[i] for i in range(c)], decoded
 
     def decode(self, payload):
         return self.inner.decode(payload)
@@ -227,6 +241,59 @@ class ErrorFeedback(Codec):
 
     def decode_flat(self, payload):
         return self.inner.decode_flat(payload)
+
+    def bits_per_param(self, d: int) -> float:
+        return self.inner.bits_per_param(d)
+
+    def nbytes_static(self, d: int) -> int:
+        return self.inner.nbytes_static(d)
+
+    def meta_static(self, d: int):
+        return self.inner.meta_static(d)
+
+
+class DeltaCodec(Codec):
+    """Broadcast the delta against the last round's reconstruction (the
+    downlink), as ``repro.comms.codec.DeltaCodec``.
+
+    The server encodes theta_t - ref_{t-1} through the inner codec, and
+    both ends move their reference to the reconstruction ref_t = ref_{t-1}
+    + decoded, so a lossy inner codec never lets them drift apart.  The
+    first transmission (no reference yet) carries the full parameters.
+    The state is (reference flat vector, inner codec state).  Decoding
+    needs the receiver's reference, so only the ``roundtrip*`` API works;
+    a bare ``decode`` raises.  The subtraction and the addition are one f32
+    rounding each, as the reference's eager ones are.
+    """
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.name = "delta+" + inner.name
+
+    def roundtrip_flat(self, flat, spec, state=None, *, key=None, bits=None):
+        ref, inner_state = (None, None) if state is None else state
+        base = torch.zeros_like(flat) if ref is None else ref
+        payload, inner_state, dec_delta = self.inner.roundtrip_flat(
+            flat - base, spec, inner_state, key=key, bits=bits)
+        decoded = base + dec_delta
+        return payload, (decoded, inner_state), decoded
+
+    def roundtrip(self, tree, state=None, *, key=None, bits=None):
+        flat, spec = tree_to_flat(tree)
+        payload, new_state, decoded = self.roundtrip_flat(
+            flat, spec, state, key=key, bits=bits)
+        return payload, new_state, flat_to_tree(decoded, spec)
+
+    def encode(self, tree, state=None, *, key=None, bits=None):
+        payload, new_state, _ = self.roundtrip(tree, state, key=key,
+                                               bits=bits)
+        return payload, new_state
+
+    def decode_flat(self, payload):
+        # Codec.decode calls this, so a bare decode raises too
+        raise NotImplementedError(
+            "delta codec reconstruction needs the receiver's reference; "
+            "use roundtrip/roundtrip_flat")
 
     def bits_per_param(self, d: int) -> float:
         return self.inner.bits_per_param(d)

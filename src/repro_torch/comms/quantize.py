@@ -148,6 +148,16 @@ class QuantizeCodec(Codec):
         return (self._stacked_payloads(codes, scales, rows, c, spec, d),
                 list(states) if states is not None else [None] * c)
 
+    def ef_roundtrip_stacked(self, adj, spec, *, keys=None, bits=None):
+        """One quantize launch over all rows, then one dequantize launch
+        whose epilogue writes the residual ``fma(-code, scale, adj)``."""
+        c, d = adj.shape
+        codes, scales, rows, x = self._quantize_stacked(adj, keys, bits)
+        decoded, residual = self._dequantize(codes, scales, adj=x)
+        return (self._stacked_payloads(codes, scales, rows, c, spec, d),
+                decoded.reshape(c, -1)[:, :d],
+                residual.reshape(c, -1)[:, :d])
+
     def roundtrip_stacked(self, flats, spec, states=None, *, keys=None,
                           bits=None):
         c, d = flats.shape

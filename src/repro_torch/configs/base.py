@@ -156,3 +156,15 @@ class FIRMConfig:
     trace_normalize: bool = True     # App. A Gram normalisation
     solver: str = "pgd"              # pgd | closed_form_m2 | frank_wolfe
     solver_iters: int = 100
+
+
+# Deployment-profile codec presets (``repro_torch.comms`` registry specs):
+# the (uplink, downlink) pairs of ``repro.configs.base.CODEC_PRESETS``.
+# Uplink is the scarce direction for cross-device FL, hence the asymmetry.
+CODEC_PRESETS = {
+    "datacenter": ("identity", "identity"),      # measured baseline
+    "wan": ("int8+ef", "identity"),              # ~4x uplink reduction
+    "mobile": ("int4+ef", "int8"),               # both directions coded
+    "extreme": ("topk:0.05+ef", "int8"),         # ~10x uplink reduction
+    "powersgd": ("lowrank:4+ef", "identity"),    # rank-r sketch uplink
+}

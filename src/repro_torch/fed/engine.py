@@ -13,7 +13,8 @@ semantics of the reference's vectorized executor for ``firm``: the
 broadcast through the downlink codec, K local steps per participant (all
 starting from the decoded broadcast), the stacked flat delta, ONE stacked
 uplink roundtrip (one quantize and one dequantize launch over all clients
-for ``int8``/``int4``, with error feedback), FedAvg, the drift statistics,
+for ``int8``/``int4``, with error feedback; one batched 32-pass bisection
+for ``topk``), FedAvg, the drift statistics,
 the comms ledger and the round summary.  The clients run one after another
 in a Python loop: the kernels' ``autograd.Function``s have no vmap rule,
 and one client's update already peaks at ~17 GB at full width.  The
@@ -335,9 +336,12 @@ class FederatedTrainer:
         """One federated round; returns its summary.
 
         Injected draws, each replacing the stream's: ``prompts`` (K, P, B,
-        prompt_len), ``gumbel`` (K, P, max_new, B, V), ``up_bits`` (P, rows,
-        1024) int32 and ``down_bits`` (rows, 1024) int32 rounding-bit
-        patterns.  The main stream is read all the same.
+        prompt_len), ``gumbel`` (K, P, max_new, B, V), and the codecs'
+        draws, ``up_bits`` (P, ...) and ``down_bits``: for a quantize codec
+        the (rows, 1024) int32 rounding-bit patterns, for a low-rank codec
+        omega (b, rank) f32; top-k reads none.  The main stream is read all
+        the same (P uplink draws whatever the codec), so later rounds'
+        draws stay where the reference's are.
         """
         if participants is None:
             participants = self._sample_participants()

@@ -44,6 +44,10 @@ SIGNATURES = {
     "firm_quantize": (_P, _P, _P, _P, _I, _I, _P),
     # codes, scales, adj (or null), out, residual (or null), rows, stream
     "firm_dequantize": (_P, _P, _P, _P, _P, _I, _P),
+    # x, thresh, scratch, out, clients, rows (a client), stream
+    "firm_abs_threshold_count": (_P, _P, _P, _P, _I, _I, _P),
+    # x, thresh, out, clients, rows, stream
+    "firm_abs_threshold_mask": (_P, _P, _P, _I, _I, _P),
 }
 
 

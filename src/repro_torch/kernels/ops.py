@@ -82,3 +82,48 @@ def dequantize_with_residual(codes, scales, adj, *, use_kernel: bool = True):
         return _q.dequantize(codes, scales, adj)
     return (ref.dequantize(codes, scales),
             ref.dequantize_residual(codes, scales, adj))
+
+
+def _thresh(x2, thresh) -> torch.Tensor:
+    """The threshold as an f32 tensor on ``x2``'s device (a Python float
+    rounds once to f32, as ``jnp.asarray(t, jnp.float32)`` does)."""
+    return torch.as_tensor(thresh, dtype=torch.float32,
+                           device=x2.device).contiguous()
+
+
+def abs_threshold_count(x2, thresh, *, use_kernel: bool = True):
+    """Count of ``|x| >= thresh`` as f32: (R, 1024) with a scalar
+    threshold -> 0-d, or (C, R, 1024) with (C,) thresholds -> (C,)."""
+    if _kernel(x2, use_kernel):
+        return _q.abs_threshold_count(x2, _thresh(x2, thresh))
+    return ref.abs_threshold_count(x2, thresh)
+
+
+def abs_threshold_mask(x2, thresh, *, use_kernel: bool = True):
+    """``x`` where ``|x| >= thresh``, else +0.0; shapes as the count's."""
+    if _kernel(x2, use_kernel):
+        return _q.abs_threshold_mask(x2, _thresh(x2, thresh))
+    return ref.abs_threshold_mask(x2, thresh)
+
+
+def topk_threshold(x2, k: int, iters: int = 32, *, use_kernel: bool = True):
+    """Magnitude threshold bracket for top-k selection, by bisection (as
+    ``repro.kernels.ops.topk_threshold``).
+
+    x2: (R, 1024) f32, or (C, R, 1024) for C clients, each bracketed on its
+    own.  Returns (lo, hi), 0-d or (C,) f32, with count(|x| >= lo) >= k >
+    count(|x| >= hi) whenever such a bracket exists.  Each of the ``iters``
+    passes is one count over all clients.  lo, hi and mid stay f32 tensors
+    on the device: Python floats are f64 and would bisect to other
+    thresholds, and reading them would wait for the device every pass.
+    """
+    xf = x2.float()
+    hi = torch.nextafter(xf.abs().amax(dim=(-2, -1)),
+                         torch.tensor(float("inf"), device=xf.device))
+    lo = torch.zeros_like(hi)
+    kf = torch.tensor(float(k), dtype=torch.float32, device=xf.device)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        take = abs_threshold_count(xf, mid, use_kernel=use_kernel) >= kf
+        lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
+    return lo, hi

@@ -1,11 +1,16 @@
-"""Wrappers of the Hopper quantize and dequantize kernels
-(``csrc/quantize.cu``).
+"""Wrappers of the Hopper kernels of the codecs: quantize and dequantize
+(``csrc/quantize.cu``), and the top-k threshold count and mask
+(``csrc/threshold.cu``).
 
-Replace the Pallas TPU kernels ``repro/kernels/quantize.py:quantize`` and
-``:dequantize``.  The wrappers take CUDA tensors only; ``kernels.ops``
-sends CPU tensors to the plain versions in ``kernels.ref``.  Rounding bits
-travel as int32 tensors holding the uint32 bit patterns (``torch.uint32``
-has few operations); the kernel reads them as uint32.
+Replace the Pallas TPU kernels of ``repro/kernels/quantize.py``:
+``quantize``, ``dequantize``, ``abs_threshold_count`` and
+``abs_threshold_mask``.  The wrappers take CUDA tensors only;
+``kernels.ops`` sends CPU tensors to the plain versions in
+``kernels.ref``.  Rounding bits travel as int32 tensors holding the uint32
+bit patterns (``torch.uint32`` has few operations); the kernel reads them
+as uint32.  The threshold passes take one client's (R, 1024) blocks with
+a 0-d threshold, or C clients' (C, R, 1024) with a (C,) threshold, both on
+the device, so that a bisection never waits for the host.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ BLOCK = 1024          # elements per row: one scale each
 # kernel launches so far; chip_smoke.py zeroes them around the main path
 quantize_launches = 0
 dequantize_launches = 0
+threshold_count_launches = 0
+threshold_mask_launches = 0
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
@@ -93,3 +100,62 @@ def dequantize(codes: torch.Tensor, scales: torch.Tensor,
                            f"{err}")
     dequantize_launches += 1
     return out, residual
+
+
+def _threshold_args(x: torch.Tensor, thresh: torch.Tensor):
+    """Check a threshold pass's inputs: (clients, rows a client)."""
+    if not x.is_cuda:
+        raise ValueError(f"threshold kernels need CUDA tensors; x is on "
+                         f"{x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if x.dim() not in (2, 3) or x.shape[-1] != BLOCK or 0 in x.shape:
+        raise ValueError(f"x must be (rows, {BLOCK}) or (clients, rows, "
+                         f"{BLOCK}) with no empty axis, got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
+    clients, rows = (x.shape[0] if x.dim() == 3 else 1), x.shape[-2]
+    if clients > 65535 or rows >= 2 ** 22:
+        raise ValueError(f"x {tuple(x.shape)}: at most 65535 clients of "
+                         f"fewer than 2**22 rows (2**32 elements)")
+    if (not isinstance(thresh, torch.Tensor) or thresh.device != x.device
+            or thresh.dtype != torch.float32
+            or tuple(thresh.shape) != tuple(x.shape[:-2])
+            or not thresh.is_contiguous()):
+        raise ValueError(f"thresh must be a contiguous float32 tensor of "
+                         f"shape {tuple(x.shape[:-2])} on {x.device}")
+    return clients, rows
+
+
+def abs_threshold_count(x: torch.Tensor, thresh: torch.Tensor):
+    """Count of ``|x| >= thresh`` a client, as f32, shaped like ``thresh``:
+    the same values as ``ref.abs_threshold_count``."""
+    global threshold_count_launches
+    clients, rows = _threshold_args(x, thresh)
+    scratch = torch.zeros(2 * clients, dtype=torch.int32, device=x.device)
+    out = torch.empty(thresh.shape, dtype=torch.float32, device=x.device)
+    err = build.load().firm_abs_threshold_count(
+        x.data_ptr(), thresh.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        clients, rows, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"threshold count kernel launch failed: CUDA "
+                           f"error {err}")
+    threshold_count_launches += 1
+    return out
+
+
+def abs_threshold_mask(x: torch.Tensor, thresh: torch.Tensor):
+    """``x`` where ``|x| >= thresh``, else +0.0: the same bits as
+    ``ref.abs_threshold_mask``."""
+    global threshold_mask_launches
+    clients, rows = _threshold_args(x, thresh)
+    out = torch.empty_like(x)
+    err = build.load().firm_abs_threshold_mask(
+        x.data_ptr(), thresh.data_ptr(), out.data_ptr(), clients, rows,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"threshold mask kernel launch failed: CUDA "
+                           f"error {err}")
+    threshold_mask_launches += 1
+    return out

@@ -6,8 +6,10 @@ card.  ``rmsnorm_bwd`` and ``flash_attention_bwd`` are the plain versions
 of the backward kernels: the gradients autograd takes of ``rmsnorm`` and
 ``flash_attention`` (JAX's autodiff of the same functions).
 ``dequantize_residual`` is the plain version of the dequantize kernel's
-error-feedback epilogue.  The remaining oracles of ``repro.kernels.ref``
-(the threshold passes, ssd_scan) arrive with their kernels.
+error-feedback epilogue.  ``abs_threshold_count`` and
+``abs_threshold_mask`` also take a stack of C clients' blocks with one
+threshold each.  ssd_scan, the one oracle of ``repro.kernels.ref`` left,
+arrives with its kernel.
 """
 from __future__ import annotations
 
@@ -128,3 +130,28 @@ def dequantize_residual(codes: torch.Tensor, scales: torch.Tensor,
     can differ from the single one in the last bit: the far-off case).
     """
     return (adj.double() - codes.double() * scales.double()).float()
+
+
+def _per_client(x2: torch.Tensor, thresh) -> torch.Tensor:
+    """The threshold as an f32 tensor that broadcasts over ``x2``'s last
+    two axes: a scalar for (R, B), one value a client for (C, R, B)."""
+    t = torch.as_tensor(thresh, dtype=torch.float32, device=x2.device)
+    return t.reshape(t.shape + (1, 1))
+
+
+def abs_threshold_count(x2: torch.Tensor, thresh) -> torch.Tensor:
+    """Count of ``|x| >= thresh`` over each client's (R, B) blocks, as f32.
+
+    x2: (R, B), or (C, R, B) with ``thresh`` of shape (C,).  The count is
+    an exact integer rounded once to f32 (exact below 2**24, where the
+    reference's f32 accumulation is exact too).
+    """
+    hit = x2.float().abs() >= _per_client(x2, thresh)
+    return hit.sum(dim=(-2, -1)).float()
+
+
+def abs_threshold_mask(x2: torch.Tensor, thresh) -> torch.Tensor:
+    """``x`` where ``|x| >= thresh``, else +0.0; shapes as the count's."""
+    x = x2.float()
+    return torch.where(x.abs() >= _per_client(x2, thresh), x,
+                       torch.zeros((), dtype=torch.float32, device=x.device))

@@ -46,7 +46,8 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.core.mgda, repro_torch.core.drift, "
             "repro_torch.core.fedavg, repro_torch.comms, "
             "repro_torch.obs.records, repro_torch.train.checkpoint, "
-            "repro_torch.kernels.gram, repro_torch.kernels.quantize; "
+            "repro_torch.kernels.gram, repro_torch.kernels.quantize, "
+            "repro_torch.comms.sparsify, repro_torch.comms.lowrank; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -114,9 +115,20 @@ def test_trainer_and_train_cli_default_to_cuda_and_raise_without_a_card():
 @pytest.mark.parametrize("spec", ["topk:0.05", "topk:0.05+ef", "lowrank:4",
                                   "delta+int8"])
 def test_unported_codecs_raise_and_never_become_identity(spec):
-    from repro_torch.comms import make_codec
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_codec(spec)
+    """These codecs are ported at the host boundary and build themselves,
+    never the identity; the traced contract of the reference's fused
+    executor is not ported, and asking for it raises."""
+    from repro_torch.comms import IdentityCodec, make_codec
+    from repro_torch.comms.codec import tree_to_flat
+    cd = make_codec(spec)
+    assert cd.name == spec and not isinstance(cd, IdentityCodec)
+    flat = torch.linspace(-1, 1, 3000)
+    _, spec_ = tree_to_flat({"a": flat})
+    payload, _, dec = cd.roundtrip_flat(flat, spec_)
+    assert payload.kind != "identity" and payload.nbytes < 4 * flat.numel()
+    assert not torch.equal(dec, flat)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        cd.roundtrip_traced(flat, ())
 
 
 def test_quantize_wrappers_refuse_cpu_tensors_before_any_launch():
@@ -131,6 +143,26 @@ def test_quantize_wrappers_refuse_cpu_tensors_before_any_launch():
         q_mod.dequantize(torch.zeros(2, 1024, dtype=torch.int8),
                          torch.ones(2, 1))
     assert (q_mod.quantize_launches, q_mod.dequantize_launches) == before
+
+
+def test_threshold_wrappers_refuse_cpu_tensors_before_any_launch():
+    """The threshold kernels' wrappers launch on CUDA tensors or raise; the
+    plain versions are reached only through ``kernels.ops`` with a CPU
+    tensor, and nothing is counted."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as q_mod
+    before = (q_mod.threshold_count_launches, q_mod.threshold_mask_launches)
+    x, t = torch.ones(2, 3, 1024), torch.zeros(2)
+    with pytest.raises(ValueError, match="CUDA"):
+        q_mod.abs_threshold_count(x, t)
+    with pytest.raises(ValueError, match="CUDA"):
+        q_mod.abs_threshold_mask(x, t)
+    assert torch.equal(ops.abs_threshold_count(x, t), torch.full((2,), 3072.))
+    assert torch.equal(ops.abs_threshold_mask(x, t), x)
+    lo, hi = ops.topk_threshold(x, 5)
+    assert lo.shape == hi.shape == (2,) and bool((lo <= 1).all())
+    assert (q_mod.threshold_count_launches,
+            q_mod.threshold_mask_launches) == before
 
 
 def _bits(a: np.ndarray) -> np.ndarray:

@@ -9,7 +9,7 @@ is snapshot before a round, the snapshot is carried into the port's
 trainer by ``bridge.load_trainer_state``, and the port's round is fed that
 round's JAX draws: the prompt blocks, the Gumbel noise of every generation
 key, the uplink rounding bits and, for a quantized downlink, the
-downlink's.  Four cases:
+downlink's.  Six cases:
 
 * ``round1``, ``round2``: the ``wan`` preset (int8+ef up, identity down),
   each round anchored on its own snapshot, because the reference's own
@@ -19,7 +19,11 @@ downlink's.  Four cases:
   runs both rounds on its own state, so round 2's error-feedback residual
   is the port's own round-1 residual;
 * ``mobile_round1``: the ``mobile`` preset (int4+ef up, int8 down), with
-  the downlink's bits injected.
+  the downlink's bits injected;
+* ``extreme_round1``, ``extreme_round2_carried``: the ``extreme`` preset
+  (topk:0.05+ef up, int8 down), round 1 anchored, round 2 on the port's
+  own state and residuals.  The top-k uplink reads no draw, but the
+  trainer still takes one a client from its stream.
 
 Tolerances.  Bytes, participants, dispatches, tokens and rewards are
 exact, and so is the broadcast of an anchored round.  Drift agrees within 1e-4 of its own
@@ -47,7 +51,8 @@ that step, and moves a stochastic code by one in some entries; so the
 two rounds' residuals cannot agree entry for entry.  What is held instead
 is the uplink on the round's own data: the reference's codec, given the
 port's codec input, carried residuals and this round's keys, returns the
-port's codes, scales, decoded deltas and residuals bit for bit; and the
+port's payloads (codes and scales, or indices and values), decoded deltas
+and residuals bit for bit; and the
 residual the port hands its codec is the one loaded (anchored rounds) or
 its own of the round before (``round2_carried``).  ``test_torch_codec.py``
 holds the codec alone to the reference bit for bit on the same inputs.
@@ -350,6 +355,7 @@ class RoundCase(NamedTuple):
     want: dict                   # the JAX summary
     curvature: float             # D of the module docstring
     codec: str                   # the uplink spec
+    downlink: str                # the downlink spec
     up_keys: list                # the round's JAX uplink keys
     n_round: int                 # rounds run (the ledger's count)
     jspec: object                # the JAX flat TreeSpec of a delta
@@ -373,8 +379,11 @@ def rounds():
                               batch_size=B, n_objectives=M)
     one_client = _jit_one_client(jcfg, jfc)
     cases = {}
-    for preset, up, down, n_rounds in (("wan", "int8+ef", "identity", 2),
-                                       ("mobile", "int4+ef", "int8", 1)):
+    # preset, uplink, downlink, rounds, the rounds also run anchored
+    for preset, up, down, n_rounds, anchored in (
+            ("wan", "int8+ef", "identity", 2, (0, 1)),
+            ("mobile", "int4+ef", "int8", 1, (0,)),
+            ("extreme", "topk:0.05+ef", "int8", 2, (0,))):
         jtr = jengine.FederatedTrainer(jcfg, jfc, jengine.EngineConfig(
             prompt_len=P, max_new=MAX_NEW, uplink_codec=up,
             downlink_codec=down))
@@ -400,23 +409,26 @@ def rounds():
             curvature = _qp_curvature(jtr, one_client, jb, jd["prompts"],
                                       jd["gen"])
             want = jtr.run_round()
-            ports = [("", ttr, logs["t"], logs["tb"])]
-            bridge.load_trainer_state(ttr, snap)
+            ports = []
+            if r in anchored:
+                bridge.load_trainer_state(ttr, snap)
+                ports.append(("", ttr, logs["t"], logs["tb"]))
             if r == 0:
                 bridge.load_trainer_state(carried, snap)
             else:
                 ports.append(("_carried", carried, logs["c"], logs["cb"]))
             for suffix, tr, log, blog in ports:
                 got = tr.run_round(**draws)
-                cases[("round" if preset == "wan" else "mobile_round")
+                cases[("round" if preset == "wan" else f"{preset}_round")
                       + f"{r + 1}{suffix}"] = RoundCase(
-                    got, want, curvature, up, jd["up"], r + 1, jtr._delta_spec,
+                    got, want, curvature, up, down, jd["up"], r + 1,
+                    jtr._delta_spec,
                     _jflat(jb),
                     blog[-1][0], logs["j"][-1], log[-1],
                     _jflat(jtr.global_trainable),
                     _tflat(tr.global_trainable),
                     logs["c"][0][1][1] if suffix else None)
-            if r == 0:
+            if r == 0 and n_rounds > 1:
                 carried.run_round(**draws)
     return cases
 
@@ -428,9 +440,10 @@ def _step_close(got, want, tol, what):
 
 
 @pytest.mark.parametrize("case", ["round1", "round2", "round2_carried",
-                                  "mobile_round1"])
+                                  "mobile_round1", "extreme_round1",
+                                  "extreme_round2_carried"])
 def test_round_matches_jax_vectorized_round(rounds, case):
-    got, want, curvature, spec, up_keys, n_round, jspec, jb, tb, \
+    got, want, curvature, spec, down, up_keys, n_round, jspec, jb, tb, \
         (jin, _), (tin, tout), jglobal, tglobal, carried_from = rounds[case]
     assert list(got) == list(want)
     for key in ("comm_bytes", "up_bytes", "down_bytes", "participants",
@@ -439,7 +452,6 @@ def test_round_matches_jax_vectorized_round(rounds, case):
         assert got[key] == want[key], key
     assert got["dispatches"] == 6 and got["cohorts"] == 1
     d = 14336
-    down = "int8" if case.startswith("mobile") else "identity"
     assert got["comm_bytes"] == n_round * C * (
         make_codec(spec).nbytes_static(d) + make_codec(down).nbytes_static(d))
     if carried_from is None:
@@ -483,7 +495,8 @@ def test_round_matches_jax_vectorized_round(rounds, case):
         keys=up_keys)
     tpay, tres, _ = tout
     for c in range(C):
-        for name in ("codes", "scales"):
+        assert sorted(tpay[c].arrays) == sorted(rpay[c].arrays)
+        for name in rpay[c].arrays:
             np.testing.assert_array_equal(
                 tpay[c].arrays[name].numpy(), np.asarray(
                     rpay[c].arrays[name]), err_msg=f"client {c} {name}")
@@ -528,6 +541,31 @@ def test_round_bookkeeping_on_the_port_alone():
     with pytest.raises(NotImplementedError, match="heterogeneous"):
         FederatedTrainer(tcfg, dataclasses.replace(
             fc, client_local_steps=(1, 2, 1)), ec, device="cpu")
+
+
+def test_topk_uplink_reads_the_stream_as_a_quantized_uplink_does():
+    """The top-k uplink reads no draw, but the trainer takes one a
+    participant from its main stream all the same, as the reference splits
+    one key a participant whatever the codec: later rounds' draws stay
+    where the reference's are."""
+    _, tcfg = _cfgs()
+    fc = dataclasses.replace(FIRMConfig(), n_clients=C, local_steps=1,
+                             batch_size=B, n_objectives=M)
+    streams = []
+    for spec in ("int8+ef", "topk:0.05+ef", "lowrank:4+ef"):
+        tr = FederatedTrainer(tcfg, fc, EngineConfig(
+            prompt_len=P, max_new=4, uplink_codec=spec), device="cpu")
+        before = tr._rng.get_state()
+        flats = torch.randn((C, tr.d_trainable),
+                            generator=torch.Generator().manual_seed(0))
+        _, decoded = tr._uplink([0, 1], flats)
+        assert decoded.shape == flats.shape
+        assert tr.ledger.up_bytes == C * tr.uplink_codec.nbytes_static(
+            tr.d_trainable)
+        assert all(r is not None for r in tr._uplink_state)
+        streams.append(tr._rng.get_state())
+        assert not torch.equal(streams[-1], before)
+    assert all(torch.equal(st, streams[0]) for st in streams)
 
 
 # ------------------------------------------------ checkpoints and launcher
