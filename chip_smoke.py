@@ -15,8 +15,9 @@ line, for a first check of new kernels):
 3. rmsnorm: the CUDA kernel against its plain PyTorch version at the
             rollout's shapes, then timed beside ``F.rms_norm``.
 4. flash:   the CUDA flash-attention kernel against its plain version
-            (causal, ragged, non-causal, sliding window, f32), then timed
-            beside ``F.scaled_dot_product_attention``.
+            (causal, ragged, non-causal, sliding window, f32, and zamba2's
+            MHA with 32 query and 32 KV heads), then timed beside
+            ``F.scaled_dot_product_attention``.
 5. gram:    the CUDA Gram kernel against its plain version at the local
             step's shape (2, 3,407,872) f32 and off it (M = 3 and 8, ragged
             d, bf16, a misaligned row), twice for the same bits, then timed
@@ -35,11 +36,19 @@ line, for a first check of new kernels):
             selection (32 bisection passes and the support) through the
             count kernel against the plain count's, bit for bit; timed
             beside ``torch.topk``.
-9. rmsnorm_bwd, 10. flash_bwd: the backward kernels against their plain
+9. ssd:     the CUDA SSD chunked-scan kernel against its plain version
+            (``ref.ssd_chunked``) and both against the exact recurrence
+            (``ref.ssd_scan``), y and the final state, at zamba2's rollout
+            shapes (x (16, S, 64, 64) as a strided view into the
+            convolution's output, S = 128 and 256), at ragged S = 1, 100,
+            129 and 200, B = 1, a head with all-zero dt, and ds = 16 (the
+            smoke preset); the same bits twice and from a contiguous copy;
+            then timed.
+10. rmsnorm_bwd, 11. flash_bwd: the backward kernels against their plain
             versions (autograd of the plain forward) at the local step's
             shapes and off them (the forwards' extra cases), then timed
             beside the backward of ``F.rms_norm`` and of SDPA.
-11. rollout: ``fed.engine.rollout_batch`` on llama-3.2-1b at full width
+12. rollout: ``fed.engine.rollout_batch`` on llama-3.2-1b at full width
             (random weights from a seeded generator): 16 prompts of 128
             tokens, 128 new tokens, 2 objectives.  The kernels' launch counts
             are zeroed just before it and must be exactly 4290 (rmsnorm)
@@ -50,7 +59,19 @@ line, for a first check of new kernels):
             plain one is.  Then, uncounted: the rollout's steps timed one by
             one, and 8 decode steps under ``torch.profiler`` for the
             device's idle share.
-12. local_step: ``fed.engine.client_local_steps`` on the same model, one
+13. rollout_hybrid: the same rollout on zamba2-1.2b at full width (32
+            Mamba2 layers, 6 applications of one shared attention block).
+            The counts are zeroed just before it and must be exactly 64
+            (ssd: 32 in prefill, 32 in the reference forward; decode runs
+            the exact recurrence), 12 (flash attention) and 45 x 130 = 5850
+            (rmsnorm), and 0 for the others, just after.  The outputs are
+            checked; teacher-forced, the kernels' bf16 logits are as close
+            to an f32 forward as the plain bf16 path's, and the f32 forward
+            through the kernels matches the plain f32 forward within 1e-4
+            of the logits' scale; the decode logits after prefill(200)
+            match an f32 forward at position 200.  Then the steps timed one by one and 8
+            profiled decode steps.
+14. local_step: ``fed.engine.client_local_steps`` on the same model, one
             client, K=2 local steps of B=16 prompts (each a rollout, then
             ``firm_local_step`` with FIRMConfig's defaults).  The counts are
             zeroed just before it and must be exact just after.  Then,
@@ -60,7 +81,7 @@ line, for a first check of new kernels):
             part, peak memory and device idle share, and the M gradients
             through the kernels, through the plain versions and through an
             f32 copy of the model.
-13. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
+15. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
             K=1, R=2 rounds, first the ``wan`` preset (int8+ef uplink,
             identity downlink), then the ``extreme`` preset (topk:0.05+ef
             uplink, int8 downlink).  Each preset's counts are zeroed just
@@ -72,13 +93,14 @@ line, for a first check of new kernels):
             Seconds per round by part, the uplink codec's share, peak
             memory, and a third wan round under ``torch.profiler`` for the
             device's idle share.
-14. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+16. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             low-rank within 1e-4 of the scale, delta bit for bit; the
             low-rank payload's bytes equal ``nbytes_static`` (59,392).
-15. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round.
-16. serve:  the ``launch.serve`` CLI at full width, a few tokens.
+17. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round.
+18. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+            llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
 line holds the per-kernel table and the last line is
@@ -125,9 +147,24 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ssd_flops(b: int, s: int, nh: int, hd: int, ds: int, chunk: int) -> int:
+    """Operations the chunked SSD scan needs for these shapes: for each
+    chunk of n positions and each head, 2 hd per causal (i, j) pair
+    (y_intra), 2 ds hd per position (y_inter) and as many again (the state
+    update); C B^T once per batch row, 2 ds per causal pair."""
+    total = 0
+    for c0 in range(0, s, chunk):
+        n = min(chunk, s - c0)
+        pairs = n * (n + 1) // 2
+        total += b * (nh * (2 * hd * pairs + 4 * n * ds * hd)
+                      + 2 * ds * pairs)
+    return total
+
+
 PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
-          "dequantize", "topk", "rmsnorm_bwd", "flash_bwd", "rollout",
-          "local_step", "round", "codecs", "train", "serve")
+          "dequantize", "topk", "ssd", "rmsnorm_bwd", "flash_bwd", "rollout",
+          "rollout_hybrid", "local_step", "round", "codecs", "train",
+          "serve")
 TOPK_PASSES = 32               # bisection passes of one top-k selection
 
 
@@ -171,9 +208,10 @@ def run(torch, stop_after) -> int:
     from repro_torch.kernels import gram as gram_mod
     from repro_torch.kernels import quantize as q_mod
     from repro_torch.kernels import rmsnorm as rn_mod
+    from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.launch import serve
     from repro_torch.launch import train as train_cli
-    from repro_torch.models import common, transformer
+    from repro_torch.models import common, ssm, transformer
     from repro_torch.rlhf import critic, local, ppo, rewards
     from repro_torch.rlhf.sampling import generate
     from repro_torch.train import optim
@@ -263,7 +301,8 @@ def run(torch, stop_after) -> int:
                 "quantize": (q_mod, "quantize_launches"),
                 "dequantize": (q_mod, "dequantize_launches"),
                 "abs_threshold_count": (q_mod, "threshold_count_launches"),
-                "abs_threshold_mask": (q_mod, "threshold_mask_launches")}
+                "abs_threshold_mask": (q_mod, "threshold_mask_launches"),
+                "ssd": (ssd_mod, "launches")}
 
     def zero_counts() -> None:
         for mod, attr in counters.values():
@@ -397,6 +436,8 @@ def run(torch, stop_after) -> int:
          False, 0),
         ("Sq=130 Skv=50 causal", (2, 130, 50, 32, 8, 64), torch.bfloat16,
          True, 0),
+        ("zamba2 MHA S=256 causal", (B, 256, 256, 32, 32, 64),
+         torch.bfloat16, True, 0),
     ]
     flash_err = {}
     for label, (b, sq, skv, hq, hkv, dh), dtype, causal, window in \
@@ -427,6 +468,14 @@ def run(torch, stop_after) -> int:
         "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
     }
+    # zamba2's MHA shape (32 KV heads): the kernel and SDPA
+    qm, km, vm = qkv(B, s, s, 32, 32, 64, torch.bfloat16)
+    flash_row["ms_mha"] = timed_ms(lambda: fa_mod.flash_attention(
+        qm, km, vm, causal=True))
+    flash_row["library_ms_mha"] = timed_ms(
+        lambda: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in (qm, km, vm)), is_causal=True))
+    del qm, km, vm
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     pairs = B * 32 * s * (s + 1) // 2          # causal (query, key) pairs
     flash_row["bound_ms"], flash_row["bound_by"] = bound_ms(
@@ -762,7 +811,125 @@ def run(torch, stop_after) -> int:
          "values equal bit for bit", count=count_row, mask=mask_row)
     done("topk")
 
-    # ------------------------------------------------------- 9. rmsnorm_bwd
+    # --------------------------------------------------------------- 9. ssd
+    # the SSD kernel against its plain version (ref.ssd_chunked, the
+    # reference model's chunk body) and both against the exact per-step
+    # recurrence (ref.ssd_scan), y and the final state; within 1e-4 of
+    # each tensor's scale (f32 sums in other orders; the chunked form
+    # against the recurrence: 1e-5 measured on the CPU).  Inputs as the
+    # model makes them: x, B and C silu of one (B, S, din + 2 ds) tensor,
+    # x, B and C strided views into it; dt = softplus(N(0, 1)); da = dt A
+    # with A = -(1..16) over the heads, so L falls to ~-1800 in a chunk.
+    zcfg = get_config("zamba2-1.2b")
+    _, z_nh, z_hd, z_ds = ssm.dims(zcfg)
+
+    def ssd_inputs(b, s, nh, ds, zero_dt_head=None):
+        xbc = F.silu(randn((b, s, nh * z_hd + 2 * ds), torch.float32))
+        x = xbc[..., :nh * z_hd].view(b, s, nh, z_hd)
+        bm = xbc[..., nh * z_hd:nh * z_hd + ds]
+        cm = xbc[..., nh * z_hd + ds:]
+        dt = F.softplus(randn((b, s, nh), torch.float32))
+        if zero_dt_head is not None:
+            dt[:, :, zero_dt_head] = 0
+        a = -torch.linspace(1.0, 16.0, nh, device=dev)
+        return x, bm, cm, dt, dt * a
+
+    def per_head(x, bm, cm, dt, da):
+        b, s, nh, hd = x.shape
+
+        def heads(t):
+            return t[:, :, None].expand(b, s, nh, t.shape[-1]).permute(
+                0, 2, 1, 3).reshape(b * nh, s, -1)
+        return (x.permute(0, 2, 1, 3).reshape(b * nh, s, hd), heads(bm),
+                heads(cm), dt.permute(0, 2, 1).reshape(b * nh, s),
+                da.permute(0, 2, 1).reshape(b * nh, s))
+
+    ssd_cases = [("rollout S=256 strided", (B, 256, z_nh, z_ds), None),
+                 ("prefill S=128 strided", (B, P, z_nh, z_ds), None),
+                 ("ragged S=1", (2, 1, z_nh, z_ds), None),
+                 ("ragged S=100", (2, 100, z_nh, z_ds), None),
+                 ("ragged S=129", (2, 129, z_nh, z_ds), None),
+                 ("ragged S=200", (2, 200, z_nh, z_ds), None),
+                 ("B=1 S=256", (1, 256, z_nh, z_ds), None),
+                 ("head 5 all-zero dt S=200", (2, 200, z_nh, z_ds), 5),
+                 ("ds=16 (smoke preset) S=200", (2, 200, 8, 16), None)]
+    ssd_checks = {}
+    for label, (b_, s_, nh_, ds_), zero in ssd_cases:
+        xs_ = ssd_inputs(b_, s_, nh_, ds_, zero)
+        y_k, st_k = ssd_mod.ssd_scan(*xs_, return_state=True)
+        y_k2, st_k2 = ssd_mod.ssd_scan(*xs_, return_state=True)
+        y_c, st_c = ssd_mod.ssd_scan(*(t.contiguous() for t in xs_),
+                                     return_state=True)
+        y_p, st_p = ref.ssd_chunked(*xs_)
+        y_e, st_e = ref.ssd_scan(*per_head(*xs_), return_state=True)
+        torch.cuda.synchronize()
+        y_e = y_e.view(b_, nh_, s_, z_hd).permute(0, 2, 1, 3)
+        st_e = st_e.view(b_, nh_, z_hd, ds_)
+        ssd_checks[label] = {
+            "y_vs_plain": max_rel(y_k, y_p),
+            "state_vs_plain": max_rel(st_k, st_p),
+            "y_vs_recurrence": max_rel(y_k, y_e),
+            "state_vs_recurrence": max_rel(st_k, st_e),
+            "plain_y_vs_recurrence": max_rel(y_p, y_e),
+            "same_bits_twice": bool(torch.equal(y_k, y_k2)
+                                    and torch.equal(st_k, st_k2)),
+            "same_bits_contiguous": bool(torch.equal(y_k, y_c)
+                                         and torch.equal(st_k, st_c)),
+            "y_without_state_same_bits": bool(torch.equal(
+                ssd_mod.ssd_scan(*xs_), y_k))}
+        c_ = ssd_checks[label]
+        check(max(c_["y_vs_plain"], c_["state_vs_plain"],
+                  c_["y_vs_recurrence"], c_["state_vs_recurrence"]) <= 1e-4
+              and c_["same_bits_twice"] and c_["same_bits_contiguous"]
+              and c_["y_without_state_same_bits"], f"ssd {label}: {c_}")
+        if zero is not None:
+            c_["zero_dt_head_y_and_state_zero"] = bool(
+                (y_k[:, :, zero] == 0).all() and (st_k[:, zero] == 0).all())
+            check(c_["zero_dt_head_y_and_state_zero"],
+                  f"ssd {label}: a head with dt = 0 keeps a zero state")
+    # a gradient request on the card raises (the kernel has no backward)
+    xs_ = ssd_inputs(1, 8, z_nh, z_ds)
+    try:
+        with torch.enable_grad():
+            ssd_mod.ssd_scan(xs_[0].clone().requires_grad_(), *xs_[1:])
+        grad_refused = False
+    except NotImplementedError:
+        grad_refused = True
+    check(grad_refused, "ssd kernel must refuse a gradient request")
+    xs_ = ssd_inputs(B, 256, z_nh, z_ds)
+    ssd_row = {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:82",
+        "max_abs_err": max(float((a - b_).abs().max()) for a, b_ in zip(
+            ssd_mod.ssd_scan(*xs_, return_state=True), ref.ssd_chunked(
+                *xs_))),
+        "ms": timed_ms(lambda: ssd_mod.ssd_scan(*xs_, return_state=True)),
+        "plain_ms": timed_ms(lambda: ref.ssd_chunked(*xs_), iters=10),
+        # no one PyTorch call computes the chunked scan
+        "library_ms": None,
+        "ms_without_state": timed_ms(lambda: ssd_mod.ssd_scan(*xs_)),
+        "plain_recurrence_ms": timed_ms(lambda: ref.ssd_scan(
+            *per_head(*xs_)), iters=3, warmup=1),
+    }
+    ssd_b, ssd_s = B, 256
+    ssd_bytes = 4 * (2 * ssd_b * ssd_s * z_nh * z_hd      # x in, y out
+                     + 2 * ssd_b * ssd_s * z_ds             # B, C
+                     + 2 * ssd_b * ssd_s * z_nh             # dt, da
+                     + ssd_b * z_nh * z_hd * z_ds)          # final state
+    ssd_row["bound_ms"], ssd_row["bound_by"] = bound_ms(
+        ssd_bytes, ssd_flops(ssd_b, ssd_s, z_nh, z_hd, z_ds,
+                             zcfg.ssm_chunk), "f32")
+    emit(phase="ssd", shape={"x": [B, 256, z_nh, z_hd], "ds": z_ds},
+         checks=ssd_checks, grad_request_refused=grad_refused,
+         bytes=ssd_bytes,
+         flops=ssd_flops(ssd_b, ssd_s, z_nh, z_hd, z_ds, zcfg.ssm_chunk),
+         tolerance="max |kernel - plain| and |kernel - exact recurrence| "
+         "<= 1e-4 of the compared tensor's max, y and final state; the same "
+         "bits twice and from contiguous inputs", **ssd_row)
+    done("ssd")
+
+    # ------------------------------------------------------ 10. rmsnorm_bwd
     # bf16: dx is rounded once from f32 on both sides, after reductions in
     # another order, so it may differ by an ulp: 2e-2 of dx's scale.  f32:
     # 1e-4 of the scale.  The last three cases take the scalar path.
@@ -809,7 +976,7 @@ def run(torch, stop_after) -> int:
          "1e-4 (f32) of max |plain|", **rms_bwd_row)
     done("rmsnorm_bwd")
 
-    # -------------------------------------------------------- 10. flash_bwd
+    # -------------------------------------------------------- 11. flash_bwd
     flash_bwd_err = {}
     for label, (b, sq, skv, hq, hkv, dh), dtype, causal, window in [
             ("local step S=256 causal", (B, 256, 256, 32, 8, 64),
@@ -882,7 +1049,7 @@ def run(torch, stop_after) -> int:
          "|plain|, for each of dq, dk, dv", **flash_bwd_row)
     done("flash_bwd")
 
-    # ---------------------------------------------------------- 11. rollout
+    # ---------------------------------------------------------- 12. rollout
     fc = FIRMConfig()
     check(fc.batch_size == B and fc.n_objectives == N_OBJ,
           "FIRMConfig defaults changed")
@@ -915,7 +1082,7 @@ def run(torch, stop_after) -> int:
     want_launches = dict(rollout_launches, rmsnorm_bwd=0,
                          flash_attention_bwd=0, gram=0, quantize=0,
                          dequantize=0, abs_threshold_count=0,
-                         abs_threshold_mask=0)
+                         abs_threshold_mask=0, ssd=0)
     check(launches == want_launches,
           f"launch counts {launches}, expected {want_launches}")
 
@@ -1017,7 +1184,163 @@ def run(torch, stop_after) -> int:
     emit(phase="decode_profile", profile=device_profile(decode_8, 8))
     done("rollout")
 
-    # ------------------------------------------------------- 12. local step
+    # --------------------------------------------------- 13. rollout_hybrid
+    # the same rollout on zamba2-1.2b at full width: 32 Mamba2 layers (the
+    # SSD kernel in every sequence forward) and 6 applications of the one
+    # shared attention block (MHA, 32 query and 32 KV heads)
+    z_ref = transformer.init_params(zcfg, generator=gen, device=dev)
+    z_train, z_frozen = common.split_trainable(z_ref)
+    z_train = common.tree_map(
+        lambda t: t + 1e-3 * torch.randn(t.shape, generator=gen, device=dev),
+        z_train)
+    z_policy = common.merge_trainable(z_train, z_frozen)
+    z_ds_ = make_client_datasets(1, zcfg.vocab, P, generator=gen,
+                                 device=dev)[0]
+    z_prompts = z_ds_.next_batch(B)
+    z_band_h, z_band_x = rewards.variant_bands(zcfg.vocab)
+
+    def z_rollout():
+        return rollout_batch(zcfg, z_policy, z_ref, z_prompts, z_band_h,
+                             z_band_x, n_objectives=N_OBJ, max_new=MAX_NEW,
+                             length_tol=length_tol, generator=gen)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    z_batch, z_rollout_s = wall(z_rollout)
+    z_launches = read_counts()
+    z_peak = torch.cuda.max_memory_allocated()
+    n_mamba = zcfg.pattern.count("mamba2") * zcfg.n_periods
+    n_attn = len(zcfg.pattern) * zcfg.n_periods - n_mamba
+    z_per_forward = n_mamba + 2 * n_attn + 1
+    want_z = {name: 0 for name in counters}
+    want_z.update(rmsnorm=z_per_forward * (1 + MAX_NEW + 1),
+                  flash_attention=2 * n_attn, ssd=2 * n_mamba)
+    check((n_mamba, n_attn, z_per_forward) == (32, 6, 45)
+          and want_z["rmsnorm"] == 5850, "zamba2's layer counts changed")
+    check(z_launches == want_z,
+          f"zamba2 launch counts {z_launches}, expected {want_z}")
+
+    z_tok, z_mask = z_batch.tokens, z_batch.response_mask
+    check(tuple(z_tok.shape) == (B, s_total), f"tokens shape {z_tok.shape}")
+    check(bool(((z_tok >= 0) & (z_tok < zcfg.vocab)).all()),
+          "token ids range")
+    check(torch.equal(z_tok[:, :P], z_prompts), "prompt kept in the tokens")
+    check(bool((z_mask[:, :P] == 0).all() and (z_mask[:, P:] == 1).all()),
+          "response mask")
+    for name in ("old_logprobs", "ref_logprobs"):
+        lp = getattr(z_batch, name)
+        check(tuple(lp.shape) == (B, s_total) and bool(lp.isfinite().all())
+              and bool((lp <= 0).all()), f"zamba2 {name} finite, <= 0")
+    z_r = z_batch.rewards
+    check(tuple(z_r.shape) == (B, N_OBJ) and bool(((z_r >= 0)
+                                                  & (z_r <= 1)).all()),
+          "zamba2 rewards in [0, 1]")
+
+    # teacher-forced.  bf16: the kernels' path as close to the f32 forward
+    # (the same bf16 weights, upcast) as the plain path, the llama rule;
+    # the two bf16 paths' distance from each other is reported, not gated:
+    # through 38 layers each lies up to ~6% of the logits' scale from the
+    # f32 forward (1-ulp flips; my chip run 2, PR 16), beyond the llama
+    # gate's 2e-2.  f32: the same forward through the kernels and through
+    # the plain versions within 1e-4 of the logits' scale.
+    def z_logits_and_lp(p, **kw):
+        logits = transformer.forward_seq(zcfg, p, z_tok, **kw)["logits"]
+        return logits.float(), ppo.token_logprobs(logits, z_tok)
+
+    z_policy32 = common.tree_map(lambda t: t.float(), z_policy)
+    z_logits_32, z_lp_32 = z_logits_and_lp(z_policy32, use_kernel=False)
+    z_logits_k32, z_lp_k32 = z_logits_and_lp(z_policy32)
+    z_logits_k, z_lp_k = z_logits_and_lp(z_policy)
+    z_logits_p, z_lp_p = z_logits_and_lp(z_policy, use_kernel=False)
+    z_tf = {"logits": {"kernels_vs_f32": err(z_logits_k, z_logits_32),
+                       "plain_vs_f32": err(z_logits_p, z_logits_32),
+                       "kernels_vs_plain": err(z_logits_k, z_logits_p),
+                       "f32_kernels_vs_f32_plain": err(z_logits_k32,
+                                                       z_logits_32),
+                       "max_abs_value": float(z_logits_32.abs().max())},
+            "logprobs": {"kernels_vs_f32": err(z_lp_k, z_lp_32),
+                         "plain_vs_f32": err(z_lp_p, z_lp_32),
+                         "kernels_vs_plain": err(z_lp_k, z_lp_p),
+                         "f32_kernels_vs_f32_plain": err(z_lp_k32, z_lp_32)}}
+    for what, want in (("logits", z_logits_32), ("logprobs", z_lp_32)):
+        limit = 1e-4 * max(1.0, float(want.abs().max()))
+        z_tf[what]["f32_kernels_vs_f32_plain"]["limit"] = limit
+        check(z_tf[what]["f32_kernels_vs_f32_plain"]["max_abs"] <= limit,
+              f"zamba2 teacher-forced f32 {what}, kernels vs plain: "
+              f"{z_tf[what]}")
+    del z_logits_32, z_logits_k32, z_logits_k, z_logits_p
+    for what, e in z_tf.items():
+        k, p = e["kernels_vs_f32"], e["plain_vs_f32"]
+        check(k["mean_abs"] <= 1.25 * p["mean_abs"]
+              and k["max_abs"] <= 1.5 * p["max_abs"],
+              f"zamba2 teacher-forced {what}: kernels further from f32 than "
+              f"the plain path: {e}")
+
+    # decode after prefill(S) against the f32 forward at position S, on the
+    # f32 copy of the weights and an f32 cache: 1e-4 (rtol and atol), as
+    # the CPU test of the port holds it
+    s_pre = 200
+    with torch.no_grad():
+        z_full = transformer.forward_seq(zcfg, z_policy32,
+                                         z_tok[:, :s_pre + 1])["logits"]
+        _, z_cache = transformer.prefill(zcfg, z_policy32, z_tok[:, :s_pre],
+                                         cache_len=s_pre + 1,
+                                         cache_dtype=torch.float32)
+        z_dec, _ = transformer.decode_step(zcfg, z_policy32, z_cache,
+                                           z_tok[:, s_pre:s_pre + 1])
+    z_want = z_full[:, s_pre].float()
+    z_dec_err = (z_dec.float() - z_want).abs()
+    z_decode_check = {"max_abs": float(z_dec_err.max()),
+                      "max_abs_value": float(z_want.abs().max()),
+                      "within_1e-4": bool((z_dec_err <= 1e-4
+                                           + 1e-4 * z_want.abs()).all())}
+    check(z_decode_check["within_1e-4"],
+          f"zamba2 decode after prefill({s_pre}) vs the f32 forward: "
+          f"{z_decode_check}")
+    del z_policy32, z_full, z_cache
+
+    _, z_prefill_s = wall(lambda: transformer.prefill(
+        zcfg, z_policy, z_prompts, cache_len=s_total))
+    (z_tokens2, _, z_mask2), z_generate_s = wall(lambda: generate(
+        zcfg, z_policy, z_prompts, max_new=MAX_NEW, generator=gen))
+    _, z_rewards_s = wall(lambda: rewards.score_batch_banded(
+        z_band_h, z_band_x, z_tokens2, z_mask2, N_OBJ, length_tol))
+    _, z_ref_s = wall(lambda: ppo.token_logprobs(
+        transformer.forward_seq(zcfg, z_ref, z_tokens2)["logits"],
+        z_tokens2))
+    _, z_cache = transformer.prefill(zcfg, z_policy, z_prompts,
+                                     cache_len=P + MAX_NEW)
+    z_step_tok = z_prompts[:, -1:]
+
+    def z_decode_8():
+        nonlocal z_cache
+        for _ in range(8):
+            _, z_cache = transformer.decode_step(zcfg, z_policy, z_cache,
+                                                 z_step_tok)
+
+    z_profile = device_profile(z_decode_8, 8)
+    emit(phase="rollout_hybrid", model=zcfg.name,
+         params=common.tree_size(z_ref),
+         param_count_reference_arithmetic=zcfg.param_count(), batch=B,
+         prompt_len=P, max_new=MAX_NEW, n_objectives=N_OBJ,
+         seconds=z_rollout_s, generated_tokens_per_s=B * MAX_NEW / z_rollout_s,
+         peak_memory_bytes=z_peak, launches=z_launches, teacher_forced=z_tf,
+         decode_after_prefill=z_decode_check,
+         tolerance="bf16: kernels' error vs the f32 forward <= 1.25x "
+         "(mean) and 1.5x (max) the plain bf16 path's; f32: kernels vs plain "
+         "max abs <= 1e-4 * max(1, max |plain|); f32 decode after prefill vs "
+         "the f32 forward: 1e-4 + 1e-4 |forward|",
+         reward_means=[float(x) for x in z_r.mean(0)],
+         breakdown_s={"prefill": z_prefill_s,
+                      "decode_128_steps": z_generate_s - z_prefill_s,
+                      "generate": z_generate_s, "rewards": z_rewards_s,
+                      "reference_logprobs": z_ref_s},
+         decode_profile=z_profile)
+    del z_cache, z_batch, z_policy, z_train, z_frozen, z_ref
+    done("rollout_hybrid")
+
+    # ------------------------------------------------------- 14. local step
     # one client from the reference (lora_B = 0), K local steps, each a
     # rollout of B prompts and one firm_local_step, with FIRMConfig's
     # defaults (M = 2, B = 16, beta = 0.01, pgd with 100 iterations)
@@ -1044,7 +1367,7 @@ def run(torch, stop_after) -> int:
         "rmsnorm_bwd": k_steps * N_OBJ * 2 * cfg.n_layers,
         "flash_attention_bwd": k_steps * N_OBJ * cfg.n_layers,
         "gram": k_steps, "quantize": 0, "dequantize": 0,
-        "abs_threshold_count": 0, "abs_threshold_mask": 0}
+        "abs_threshold_count": 0, "abs_threshold_mask": 0, "ssd": 0}
     check(local_launches == want_local,
           f"local-step launch counts {local_launches}, expected {want_local}")
     lam = kept["lam"]
@@ -1210,7 +1533,7 @@ def run(torch, stop_after) -> int:
          "(1 - cosine) <= 1.6x the plain bf16 path's; gram 1e-5 of scale")
     done("local_step")
 
-    # ------------------------------------------------------------ 13. round
+    # ------------------------------------------------------------ 15. round
     # the federated round at full width: C = 2 clients, K = 1 local step,
     # R = 2 rounds so that the error-feedback residual carries into round
     # 2; first the ``wan`` preset (int8+ef uplink, identity downlink), then
@@ -1386,7 +1709,7 @@ def run(torch, stop_after) -> int:
     del trainer
     done("round")
 
-    # ----------------------------------------------------------- 14. codecs
+    # ----------------------------------------------------------- 16. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -1453,7 +1776,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # ------------------------------------------------------------ 15. train
+    # ------------------------------------------------------------ 17. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -1471,25 +1794,42 @@ def run(torch, stop_after) -> int:
     emit(phase="train", seconds=train_s, report=report.getvalue())
     done("train")
 
-    # ------------------------------------------------------------ 16. serve
+    # ------------------------------------------------------------ 18. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(
             ["--preset", "full", "--batch", "4", "--prompt-len", "32",
              "--max-new", "8", "--device", "cuda"]))
     check(tuple(out.shape) == (4, 8), f"serve output shape {out.shape}")
-    emit(phase="serve", seconds=serve_s, report=report.getvalue())
+    serve_runs = {"llama-3.2-1b full": {"seconds": serve_s,
+                                        "report": report.getvalue()}}
+    # zamba2 at full width (ragged S = 32 in the SSD kernel), and its smoke
+    # preset (ds = 16)
+    for preset in ("full", "smoke"):
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            out, sec = wall(lambda: serve.main(
+                ["--arch", "zamba2-1.2b", "--preset", preset, "--batch", "4",
+                 "--prompt-len", "32", "--max-new", "8", "--device",
+                 "cuda"]))
+        check(tuple(out.shape) == (4, 8), f"zamba2 {preset} serve output "
+              f"shape {out.shape}")
+        serve_runs[f"zamba2-1.2b {preset}"] = {"seconds": sec,
+                                               "report": report.getvalue()}
+    emit(phase="serve", runs=serve_runs)
 
-    # launches: each kernel's in the round of the path it was ported for,
+    # launches: each kernel's in the run of the path it was ported for,
     # the wan round for the first seven, the extreme round for the top-k
-    # passes (the mask is on no path: 0)
+    # passes (the mask is on no path: 0), the zamba2 rollout for the SSD
     rows = (rms_row, rms_bwd_row, flash_row, flash_bwd_row, gram_row,
             quant_row, dequant_row)
     for row in rows:
         row["launches"] = round_launches[row["name"]]
     for row in (count_row, mask_row):
         row["launches"] = extreme_launches[row["name"]]
-    rows += (count_row, mask_row)
+    # the SSD kernel's: the zamba2 rollout's
+    ssd_row["launches"] = z_launches["ssd"]
+    rows += (count_row, mask_row, ssd_row)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

@@ -5,8 +5,8 @@ so these dataclasses are repeated here, field for field, and a parity
 test holds the two copies equal.  The layer stack is a *periodic
 pattern*: ``pattern`` is the tuple of block kinds inside one period and
 ``n_periods`` repeats it, so ``n_layers == len(pattern) * n_periods``.
-This slice of the port runs only the dense ``("attn",)`` pattern; the
-other block kinds are listed so that configs describe them faithfully.
+The port runs the ``attn``, ``mamba2`` and ``shared_attn`` block kinds;
+the others are listed so that configs describe them faithfully.
 """
 from __future__ import annotations
 
@@ -118,16 +118,41 @@ class ModelConfig:
         )
 
     def param_count(self) -> int:
-        """Parameters of the dense ``("attn",)`` stack, adapters excluded."""
-        if self.pattern != ("attn",):
+        """Parameters of the block kinds the port runs (``attn``,
+        ``mamba2``, ``shared_attn``), adapters excluded; other kinds raise.
+
+        The reference's arithmetic, copied as it is: a ``shared_attn``
+        slot counts its parameter set once per pattern slot, although the
+        tree holds one set.  For zamba2-1.2b (3 shared slots) that gives
+        1,150,912,512 where the tree holds 1,017,085,952 parameters
+        (262,144 of them the shared block's f32 LoRA factors).
+        """
+        d, dff, hd = self.d_model, self.d_ff, self.head_dim
+        q = self.n_heads * hd
+        kv = self.n_kv_heads * hd
+        attn = d * q + 2 * d * kv + q * d
+        mlp = 3 * d * dff
+        din = self.ssm_expand * d
+        nh_ssm = max(1, din // self.ssm_head_dim) if self.ssm_state else 0
+        mamba = (d * (2 * din + 2 * self.ssm_state + nh_ssm)  # in_proj
+                 + self.conv_dim * (din + 2 * self.ssm_state)
+                 + din * d + nh_ssm * 2)                       # out_proj, A, D
+        per = {"attn": attn + mlp + 2 * d, "mamba2": mamba + d,
+               "shared_attn": attn + mlp + 2 * d}
+        other = sorted(set(self.pattern) - set(per))
+        if other:
             raise NotImplementedError(
-                "param_count covers the dense pattern only in this slice")
-        d, hd = self.d_model, self.head_dim
-        q, kv = self.n_heads * hd, self.n_kv_heads * hd
-        per_layer = d * q + 2 * d * kv + q * d + 3 * d * self.d_ff + 2 * d
-        total = per_layer * self.n_periods + self.vocab * d + d
+                f"param_count covers the block kinds {sorted(per)}; "
+                f"{other} come with the model-families slice")
+        total = 0
+        for kind in self.pattern:
+            # one parameter set for every shared_attn slot
+            n = 1 if kind == "shared_attn" else self.n_periods
+            total += per[kind] * n
+        total += self.vocab * d              # embed
         if not self.tie_embeddings:
-            total += self.vocab * d
+            total += self.vocab * d          # lm head
+        total += d                           # final norm
         return int(total)
 
 

@@ -3,7 +3,9 @@
 ``rollout_batch`` is what every FIRM local step runs before any gradient:
 generation (prefill, then decode and sample), banded rewards, and the
 frozen reference model's logprobs (``FederatedTrainer._make_batch`` and the
-first lines of ``one_client`` in the reference's ``_make_round_fn``).
+first lines of ``one_client`` in the reference's ``_make_round_fn``).  It
+runs on every ported pattern, the zamba2 hybrid included; the training
+below runs on the dense ``("attn",)`` pattern only.
 ``client_local_steps`` runs K local steps of one client, each a rollout
 then ``firm_local_step``: ``one_client`` and the scan ``body`` of
 ``_make_round_fn`` for a single client.
@@ -155,6 +157,16 @@ class FederatedTrainer:
     draws; each draw seeds a generator on the device.  Participants come
     from a stream keyed on (seed, round) alone.  ``run_round`` also takes
     each draw injected, so that a test can hand the port JAX's.
+
+    Participants.  With ``participation < 1`` each round draws
+    ``round(participation * C)`` clients from that stream.  Like every
+    other draw of the port it is not the reference's (``jax.random.choice``
+    on its named participation stream): the same seed picks other clients.
+    Parity comes from injecting the reference's draw, as for the prompts,
+    the Gumbel noise and the codecs' bits: ``run_round(participants=...)``
+    takes one round's sorted client indices, and ``run(R, participants=)``
+    a schedule of R such lists, one a round, which it hands to
+    ``run_round``; without a schedule each round draws its own.
     """
 
     def __init__(self, cfg: ModelConfig, fc: FIRMConfig,
@@ -164,6 +176,12 @@ class FederatedTrainer:
         if ec.algorithm != "firm":
             raise NotImplementedError(
                 f"algorithm {ec.algorithm!r} is not ported yet; ported: firm")
+        if tuple(cfg.pattern) != ("attn",):
+            raise NotImplementedError(
+                f"training on the block pattern {cfg.pattern} is not ported "
+                "yet (the SSD kernel has no backward): the port trains the "
+                "dense ('attn',) pattern; training on zamba2 is the next "
+                "slice (ROADMAP Queue 1 item 1)")
         if fc.client_local_steps is not None and \
                 len(set(fc.client_local_steps)) > 1:
             raise NotImplementedError(
@@ -369,7 +387,21 @@ class FederatedTrainer:
         self.history.append(summary)
         return summary
 
-    def run(self, rounds: Optional[int] = None) -> List[dict]:
-        for _ in range(rounds or self.fc.rounds):
-            self.run_round()
+    def run(self, rounds: Optional[int] = None,
+            participants: Optional[Sequence[Sequence[int]]] = None
+            ) -> List[dict]:
+        """``rounds`` rounds (default ``fc.rounds``); returns the history.
+
+        ``participants``, if given, is a schedule of one list of client
+        indices a round, each handed to ``run_round``; without it every
+        round draws its own.
+        """
+        rounds = rounds or self.fc.rounds
+        if participants is not None and len(participants) != rounds:
+            raise ValueError(f"a participant schedule needs one entry a "
+                             f"round: {len(participants)} for {rounds} "
+                             "rounds")
+        for r in range(rounds):
+            self.run_round(None if participants is None
+                           else list(participants[r]))
         return self.history

@@ -20,6 +20,7 @@ from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd as _ssd
 
 
 def _kernel(x: torch.Tensor, use_kernel: bool) -> bool:
@@ -127,3 +128,17 @@ def topk_threshold(x2, k: int, iters: int = 32, *, use_kernel: bool = True):
         take = abs_threshold_count(xf, mid, use_kernel=use_kernel) >= kf
         lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
     return lo, hi
+
+
+def ssd_scan(x, bmat, cmat, dt, da, *, chunk: int = 128,
+             return_state: bool = False, use_kernel: bool = True):
+    """The Mamba2 chunked SSD scan in the model's layout: x (B, S, nh, hd),
+    B and C (B, S, ds) shared by the heads, dt and da (B, S, nh), f32 ->
+    y (B, S, nh, hd) [, final state (B, nh, hd, ds)].  A CPU tensor takes
+    ``ref.ssd_chunked`` (differentiable by autograd); a CUDA tensor the
+    kernel, which has no backward."""
+    if _kernel(x, use_kernel):
+        return _ssd.ssd_scan(x, bmat, cmat, dt, da, chunk=chunk,
+                             return_state=return_state)
+    y, state = ref.ssd_chunked(x, bmat, cmat, dt, da, chunk=chunk)
+    return (y, state) if return_state else y

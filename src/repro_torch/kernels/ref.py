@@ -8,8 +8,10 @@ of the backward kernels: the gradients autograd takes of ``rmsnorm`` and
 ``dequantize_residual`` is the plain version of the dequantize kernel's
 error-feedback epilogue.  ``abs_threshold_count`` and
 ``abs_threshold_mask`` also take a stack of C clients' blocks with one
-threshold each.  ssd_scan, the one oracle of ``repro.kernels.ref`` left,
-arrives with its kernel.
+threshold each.  ``ssd_scan`` is the exact per-step SSD recurrence in the
+Pallas kernel's layout; ``ssd_chunked`` is the chunked SSD of
+``repro.models.ssm.mamba2_seq`` in the model's layout, and the plain
+version of the SSD kernel.
 """
 from __future__ import annotations
 
@@ -155,3 +157,77 @@ def abs_threshold_mask(x2: torch.Tensor, thresh) -> torch.Tensor:
     x = x2.float()
     return torch.where(x.abs() >= _per_client(x2, thresh), x,
                        torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def ssd_scan(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+             dt: torch.Tensor, da: torch.Tensor, *, return_state: bool = False):
+    """Exact SSD recurrence (per-step scan), as ``repro.kernels.ref``.
+
+    x: (BH, S, hd); bmat/cmat: (BH, S, ds); dt/da: (BH, S).
+    h_t = exp(da_t) h_{t-1} + dt_t * x_t B_t^T;  y_t = C_t . h_t.
+    Returns y (BH, S, hd) in x's dtype, and with ``return_state`` also the
+    final state h_S (BH, hd, ds) f32.
+    """
+    bh, s, hd = x.shape
+    xs, bs, cs, dts, das = (t.float() for t in (x, bmat, cmat, dt, da))
+    h = torch.zeros((bh, hd, bmat.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(s):
+        h = torch.exp(das[:, t])[:, None, None] * h + \
+            dts[:, t, None, None] * (xs[:, t, :, None] * bs[:, t, None, :])
+        ys.append(torch.einsum("bds,bs->bd", h, cs[:, t]))
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros_like(xs)).to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def ssd_chunked(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                dt: torch.Tensor, da: torch.Tensor, *, chunk: int = 128):
+    """The chunked SSD of ``repro.models.ssm.mamba2_seq``, in the model's
+    layout, with B and C shared across heads.
+
+    x: (B, S, nh, hd); bmat/cmat: (B, S, ds); dt/da: (B, S, nh), all f32.
+    Returns (y (B, S, nh, hd), final state (B, nh, hd, ds)).  S is padded
+    with zeros to a multiple of ``chunk`` (a zero dt and da leave the state
+    as it was, so the final state is exact); within a chunk the decay is
+    masked with -inf before ``exp``, and ``L_i - L_j`` is formed before
+    it, as in the reference.
+    """
+    b, s, nh, hd = x.shape
+    ds = bmat.shape[-1]
+    nchunks = -(-s // chunk)
+    pad = nchunks * chunk - s
+
+    def rs(t):        # (B, S, ...) -> (B, n, chunk, ...), zero-padded
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], dim=1)
+        return t.reshape((b, nchunks, chunk) + t.shape[2:])
+
+    xs_c, b_c, c_c, dt_c, da_c = (rs(t) for t in (x, bmat, cmat, dt, da))
+    ii = torch.arange(chunk, device=x.device)
+    causal = ii[:, None] >= ii[None, :]
+    neg_inf = torch.tensor(float("-inf"), device=x.device)
+    state = torch.zeros((b, nh, hd, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for k in range(nchunks):
+        xck, bck, cck, dtk, dak = (xs_c[:, k], b_c[:, k], c_c[:, k],
+                                   dt_c[:, k], da_c[:, k])
+        L = torch.cumsum(dak, dim=1)                          # (B, Ck, nh)
+        cb = torch.einsum("bis,bjs->bij", cck, bck)           # (B, Ck, Ck)
+        ldiff = L[:, :, None, :] - L[:, None, :, :]           # (B, i, j, nh)
+        decay = torch.exp(torch.where(causal[None, :, :, None], ldiff,
+                                      neg_inf))
+        scores = cb[..., None] * decay
+        scores = scores * dtk[:, None, :, :]                  # weight by dt_j
+        y_intra = torch.einsum("bijh,bjhd->bihd", scores, xck)
+        y_inter = torch.einsum("bis,bhds->bihd", cck, state) * \
+            torch.exp(L)[:, :, :, None]
+        decay_end = torch.exp(L[:, -1:, :] - L)               # (B, Ck, nh)
+        w = (dtk * decay_end)[..., None]
+        state_new = torch.einsum("bjhd,bjs->bhds", xck * w, bck)
+        state = state * torch.exp(L[:, -1])[:, :, None, None] + state_new
+        ys.append(y_intra + y_inter)
+    y = torch.cat(ys, dim=1)[:, :s] if ys else x.new_zeros(x.shape)
+    return y, state

@@ -1,0 +1,88 @@
+"""Wrapper of the Hopper SSD chunked-scan kernel (``csrc/ssd.cu``).
+
+Replaces the Pallas TPU kernel ``repro/kernels/ssd.py:ssd_scan``, in the
+layout of ``repro.models.ssm.mamba2_seq``: x (B, S, nh, hd), B and C
+(B, S, ds) shared by all heads, dt and da (B, S, nh), all f32; y
+(B, S, nh, hd) f32 and, on request, the final state (B, nh, hd, ds).
+Unlike the Pallas kernel it takes any S (the last chunk is masked) and
+strided inputs (x, B and C are views into the convolution's output).  The
+wrapper takes CUDA tensors only; ``kernels.ops.ssd_scan`` sends CPU
+tensors to the plain version ``kernels.ref.ssd_chunked``.  It has no
+backward: a gradient request raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+CHUNK = 128          # cfg.ssm_chunk of every config
+HEAD_DIM = 64        # cfg.ssm_head_dim of every config
+STATE_DIMS = (16, 64)     # zamba2 and its smoke preset
+
+# kernel launches so far; chip_smoke.py zeroes it around the main path
+launches = 0
+
+
+def _strides(t: torch.Tensor, what: str):
+    """The element strides of every axis but the last, which must be 1."""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"ssd kernel needs unit stride on the last axis of "
+                         f"{what}, got strides {t.stride()}")
+    return [int(st) for st in t.stride()[:-1]]
+
+
+def ssd_scan(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+             dt: torch.Tensor, da: torch.Tensor, *, chunk: int = CHUNK,
+             return_state: bool = False):
+    """y (B, S, nh, hd) f32 of the chunked SSD scan, and with
+    ``return_state`` also the final state (B, nh, hd, ds) f32."""
+    global launches
+    ts = {"x": x, "B": bmat, "C": cmat, "dt": dt, "da": da}
+    if any(not t.is_cuda or t.device != x.device for t in ts.values()):
+        raise ValueError("ssd kernel needs CUDA tensors on one device, got "
+                         + ", ".join(f"{k} on {t.device}"
+                                     for k, t in ts.items()))
+    if any(t.dtype != torch.float32 for t in ts.values()):
+        raise TypeError("ssd kernel takes float32 x, B, C, dt and da, got "
+                        + ", ".join(f"{k} {t.dtype}" for k, t in ts.items()))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts.values()):
+        raise NotImplementedError(
+            "the SSD kernel has no backward yet: training through the Mamba2 "
+            "layers comes with the zamba2 training slice (ROADMAP Queue 1 "
+            "item 1)")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, S, nh, hd), got {tuple(x.shape)}")
+    b, s, nh, hd = x.shape
+    ds = bmat.shape[-1]
+    if (bmat.shape != (b, s, ds) or cmat.shape != (b, s, ds)
+            or dt.shape != (b, s, nh) or da.shape != (b, s, nh)):
+        raise ValueError(
+            f"B and C must be (B, S, ds) and dt, da (B, S, nh) for x "
+            f"{tuple(x.shape)}, got {tuple(bmat.shape)}, {tuple(cmat.shape)}, "
+            f"{tuple(dt.shape)}, {tuple(da.shape)}")
+    if hd != HEAD_DIM or ds not in STATE_DIMS or chunk != CHUNK:
+        raise ValueError(f"ssd kernel takes hd = {HEAD_DIM}, ds in "
+                         f"{STATE_DIMS} and chunk = {CHUNK}, got hd = {hd}, "
+                         f"ds = {ds}, chunk = {chunk}")
+    strides = (_strides(x, "x") + _strides(bmat, "B") + _strides(cmat, "C")
+               + _strides(dt, "dt") + _strides(da, "da"))
+    for k, t in ts.items():
+        if sum((n - 1) * st for n, st in zip(t.shape, t.stride())) >= 2 ** 31:
+            raise ValueError(f"ssd kernel takes < 2**31 elements ({k})")
+    y = torch.empty((b, s, nh, hd), dtype=torch.float32, device=x.device)
+    state = (torch.zeros((b, nh, hd, ds), dtype=torch.float32,
+                         device=x.device) if return_state else None)
+    if y.numel() == 0:
+        return (y, state) if return_state else y
+    if y.numel() >= 2 ** 31:
+        raise ValueError("ssd kernel takes < 2**31 output elements")
+    err = build.load().firm_ssd_scan(
+        x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
+        da.data_ptr(), y.data_ptr(),
+        state.data_ptr() if state is not None else None, b, s, nh, ds,
+        *strides, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
+    launches += 1
+    return (y, state) if return_state else y

@@ -1,9 +1,15 @@
 """Serving driver: batched prefill + decode (counterpart of
 ``repro.launch.serve``), with the same flags plus ``--device``.
 
-Example, on the card at llama-3.2-1b's full width:
+Serves every ported architecture: ``llama-3.2-1b`` (the default) and the
+``zamba2-1.2b`` hybrid.  Examples, on the card at full width:
   PYTHONPATH=src python -m repro_torch.launch.serve --preset full \
       --batch 16 --prompt-len 128 --max-new 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --preset full --batch 16 --prompt-len 128 --max-new 128
+and on the CPU at the smoke size:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --device cpu
 """
 from __future__ import annotations
 

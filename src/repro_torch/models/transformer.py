@@ -1,22 +1,30 @@
-"""The dense transformer: init, sequence forward, prefill and decode.
+"""The transformer: init, sequence forward, prefill and decode.
 
-Counterpart of ``repro.models.transformer`` for the dense ``("attn",)``
-pattern; any other block kind raises ``NotImplementedError``.  Parameters
-use the reference's layout, so ``bridge.to_torch`` carries a JAX tree over
+Counterpart of ``repro.models.transformer`` for the block kinds ``attn``
+(the dense llama pattern), ``mamba2`` and ``shared_attn`` (the zamba2
+hybrid); any other kind raises ``NotImplementedError``.  Parameters use
+the reference's layout, so ``bridge.to_torch`` carries a JAX tree over
 unchanged:
 
   params['embed']            (V, d) token embedding
-  params['slots']['0']       block params stacked over n_periods on the
-                             leading axis (ln1, attn.{wq,wk,wv,wo}, ln2,
-                             mlp.{w_gate,w_up,w_down})
+  params['slots'][str(i)]    pattern slot i's block params, stacked over
+                             n_periods on the leading axis: an attention
+                             block (ln1, attn.{wq,wk,wv,wo}, ln2,
+                             mlp.{w_gate,w_up,w_down}) or a Mamba2 block
+                             (``models.ssm``); no entry for shared_attn
+  params['shared']           the one attention block that every
+                             'shared_attn' slot of every period runs
   params['final_norm'], params['lm_head']
 
-The stacked layers run in a Python loop over periods, eagerly.
+The periods and their slots run in Python loops, eagerly.
 ``forward_seq`` records gradients (the PPO losses differentiate it; the
-kernels' backward runs through their ``autograd.Function``s) and keeps
-every activation: nothing is rematerialised, where the reference
-checkpoints each period (``cfg.remat``).  ``prefill`` and ``decode_step``
-run under ``torch.no_grad()``, and the decode cache is updated in place.
+kernels' backward runs through their ``autograd.Function``s; the SSD
+kernel has none yet) and keeps every activation: nothing is
+rematerialised, where the reference checkpoints each period
+(``cfg.remat``).  ``prefill`` and ``decode_step`` run under
+``torch.no_grad()``, and the decode cache is updated in place: each
+attention slot has its own K/V, each Mamba2 slot its own f32 conv history
+and state, per period, even where the parameters are shared.
 """
 from __future__ import annotations
 
@@ -26,16 +34,19 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common
+from repro_torch.models import common, ssm
 from repro_torch.models.attention import chunked_attention, decode_attention
 
+PORTED_KINDS = ("attn", "mamba2", "shared_attn")
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if tuple(cfg.pattern) != ("attn",):
+
+def _check_kinds(cfg: ModelConfig) -> None:
+    other = sorted(set(cfg.pattern) - set(PORTED_KINDS))
+    if other:
         raise NotImplementedError(
-            f"block pattern {cfg.pattern} is not ported yet: only the dense "
-            "('attn',) pattern is; the other block kinds come with the "
-            "model-families slice (ROADMAP Queue 1 item 11)")
+            f"block kinds {other} of pattern {cfg.pattern} are not ported "
+            f"yet: only {list(PORTED_KINDS)} are; the other block kinds come "
+            "with the model-families slice (ROADMAP Queue 1 item 6)")
 
 
 def _layer(stacked, i: int):
@@ -43,41 +54,60 @@ def _layer(stacked, i: int):
     return common.tree_map(lambda t: t[i], stacked)
 
 
+def _slot_params(cfg: ModelConfig, params, i: int, period: int):
+    kind = cfg.pattern[i]
+    if kind == "shared_attn":
+        return params["shared"]
+    return _layer(params["slots"][str(i)], period)
+
+
 # ================================================================== init
+def _init_block(kind: str, cfg: ModelConfig, lead: tuple, **kw):
+    """One block's parameters (``lead`` stacks them, e.g. over periods)."""
+    if kind == "mamba2":
+        return ssm.init_mamba2(cfg, lead=lead, **kw)
+    d = cfg.d_model
+    rank = cfg.lora.rank if cfg.lora else 0
+    dq, dkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    dev, dtype = kw["device"], kw["dtype"]
+    return {
+        "ln1": common.init_norm(d, device=dev, dtype=dtype, lead=lead),
+        "attn": {
+            "wq": common.init_linear(d, dq, lora_rank=rank, lead=lead, **kw),
+            "wk": common.init_linear(d, dkv, lora_rank=rank, lead=lead,
+                                     **kw),
+            "wv": common.init_linear(d, dkv, lora_rank=rank, lead=lead,
+                                     **kw),
+            "wo": common.init_linear(dq, d, lora_rank=rank, lead=lead, **kw),
+        },
+        "ln2": common.init_norm(d, device=dev, dtype=dtype, lead=lead),
+        "mlp": common.init_swiglu(d, cfg.d_ff, lead=lead, **kw),
+    }
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda", dtype=torch.bfloat16):
     """Random parameters drawn from ``generator`` on ``device``.
 
-    Base weights are ``dtype``; LoRA factors are f32 with ``lora_B = 0``.
-    The generator must live on ``device``.
+    Base weights are ``dtype``; LoRA factors (attention blocks only, as in
+    the reference) are f32 with ``lora_B = 0``.  The generator must live
+    on ``device``.
     """
-    _check_dense(cfg)
+    _check_kinds(cfg)
     dev = device_lib.resolve(device)
-    d, n = cfg.d_model, cfg.n_periods
-    rank = cfg.lora.rank if cfg.lora else 0
-    dq, dkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    d = cfg.d_model
     kw = dict(generator=generator, device=dev, dtype=dtype)
-    lead = (n,)
-    return {
+    params = {
         "embed": common.normal((cfg.vocab, d), 0.02, **kw),
         "final_norm": common.init_norm(d, device=dev, dtype=dtype),
         "lm_head": common.init_linear(d, cfg.vocab, **kw),
-        "slots": {"0": {
-            "ln1": common.init_norm(d, device=dev, dtype=dtype, lead=lead),
-            "attn": {
-                "wq": common.init_linear(d, dq, lora_rank=rank, lead=lead,
-                                         **kw),
-                "wk": common.init_linear(d, dkv, lora_rank=rank, lead=lead,
-                                         **kw),
-                "wv": common.init_linear(d, dkv, lora_rank=rank, lead=lead,
-                                         **kw),
-                "wo": common.init_linear(dq, d, lora_rank=rank, lead=lead,
-                                         **kw),
-            },
-            "ln2": common.init_norm(d, device=dev, dtype=dtype, lead=lead),
-            "mlp": common.init_swiglu(d, cfg.d_ff, lead=lead, **kw),
-        }},
+        "slots": {str(i): _init_block(kind, cfg, (cfg.n_periods,), **kw)
+                  for i, kind in enumerate(cfg.pattern)
+                  if kind != "shared_attn"},
     }
+    if "shared_attn" in cfg.pattern:
+        params["shared"] = _init_block("shared_attn", cfg, (), **kw)
+    return params
 
 
 # ================================================================ seq mode
@@ -93,13 +123,23 @@ def _self_attention(p, cfg: ModelConfig, h, positions, use_kernel: bool):
     return common.linear(p["wo"], o.reshape(b, s, hq * dh)), (k, v)
 
 
-def block_seq(p, cfg: ModelConfig, x, positions, use_kernel: bool = True):
-    """One dense block in sequence mode.  Returns (x, (k, v))."""
+def block_seq(kind: str, p, cfg: ModelConfig, x, positions,
+              collect_kv: bool = False, use_kernel: bool = True):
+    """One block in sequence mode.  Returns (x, piece): with
+    ``collect_kv`` an attention block's ``{'k', 'v'}`` or a Mamba2 block's
+    final ``{'conv', 'state'}``, else None."""
+    if kind == "mamba2":
+        if collect_kv:
+            return ssm.mamba2_seq(p, cfg, x, return_state=True,
+                                  use_kernel=use_kernel)
+        return ssm.mamba2_seq(p, cfg, x, use_kernel=use_kernel), None
     h = common.rms_norm(p["ln1"], x, cfg.norm_eps, use_kernel=use_kernel)
-    attn_out, kv = _self_attention(p["attn"], cfg, h, positions, use_kernel)
+    attn_out, (k, v) = _self_attention(p["attn"], cfg, h, positions,
+                                       use_kernel)
     x = x + attn_out
     h2 = common.rms_norm(p["ln2"], x, cfg.norm_eps, use_kernel=use_kernel)
-    return x + common.swiglu(p["mlp"], h2), kv
+    x = x + common.swiglu(p["mlp"], h2)
+    return x, ({"k": k, "v": v} if collect_kv else None)
 
 
 def forward_seq(cfg: ModelConfig, params, tokens: torch.Tensor, *,
@@ -107,21 +147,23 @@ def forward_seq(cfg: ModelConfig, params, tokens: torch.Tensor, *,
                 use_kernel: bool = True):
     """tokens: (B, S) -> dict(logits, hidden, aux_loss [, kv]).
 
-    ``kv`` is ``{'0': {'k', 'v'}}`` with (n_periods, B, S, Hkv, Dh) leaves.
-    last_logit_only: logits for the final position only.  ``aux_loss`` is
-    the f32 zero of the dense model (the MoE router loss of other
-    families).
+    ``kv`` maps each slot ``str(i)`` to its pieces stacked over periods:
+    (n_periods, B, S, Hkv, Dh) ``k`` and ``v`` for an attention slot,
+    (n_periods, B, conv_dim - 1, din + 2 ds) ``conv`` and (n_periods, B,
+    nh, hd, ds) ``state`` for a Mamba2 slot.  last_logit_only: logits for
+    the final position only.  ``aux_loss`` is the f32 zero of these block
+    kinds (the MoE router loss of other families).
     """
-    _check_dense(cfg)
+    _check_kinds(cfg)
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    slot = params["slots"]["0"]
-    ks, vs = [], []
-    for i in range(cfg.n_periods):
-        x, (k, v) = block_seq(_layer(slot, i), cfg, x, positions, use_kernel)
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
+    pieces = {str(i): [] for i in range(len(cfg.pattern))}
+    for period in range(cfg.n_periods):
+        for i, kind in enumerate(cfg.pattern):
+            x, piece = block_seq(kind, _slot_params(cfg, params, i, period),
+                                 cfg, x, positions, collect_kv, use_kernel)
+            if collect_kv:
+                pieces[str(i)].append(piece)
     x = common.rms_norm(params["final_norm"], x, cfg.norm_eps,
                         use_kernel=use_kernel)
     logits = common.linear(params["lm_head"],
@@ -130,25 +172,40 @@ def forward_seq(cfg: ModelConfig, params, tokens: torch.Tensor, *,
            "aux_loss": torch.zeros((), dtype=torch.float32,
                                    device=tokens.device)}
     if collect_kv:
-        out["kv"] = {"0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        out["kv"] = {i: {name: torch.stack([pc[name] for pc in per])
+                         for name in per[0]}
+                     for i, per in pieces.items()}
     return out
 
 
 # ============================================================== decode mode
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device,
                dtype=torch.bfloat16):
-    """Pre-allocated decode cache: (n_periods, B, C, Hkv, Dh) K and V."""
-    _check_dense(cfg)
-    shape = (cfg.n_periods, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"slots": {"0": {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device)}},
-        "pos": 0}
+    """Pre-allocated decode cache, one entry a pattern slot, stacked over
+    periods: ``dtype`` (n_periods, B, C, Hkv, Dh) K and V for attention
+    slots; f32 conv history and state for Mamba2 slots."""
+    _check_kinds(cfg)
+    slots = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "mamba2":
+            slots[str(i)] = ssm.init_mamba2_cache(cfg, batch, device=device,
+                                                  lead=(cfg.n_periods,))
+            continue
+        shape = (cfg.n_periods, batch, cache_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        slots[str(i)] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"slots": slots, "pos": 0}
 
 
-def block_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos: int):
-    """One-token decode through one dense block; writes slot ``pos`` of
-    ``k_cache``/``v_cache`` (B, C, Hkv, Dh) in place.  Returns x."""
+def block_decode(kind: str, p, cfg: ModelConfig, x, cache, pos: int):
+    """One-token decode through one block.  ``cache`` is this slot's and
+    period's piece: ``{'k', 'v'}`` (B, C, Hkv, Dh), whose slot ``pos`` is
+    written in place, or a Mamba2 ``{'conv', 'state'}``, updated in place.
+    Returns x."""
+    if kind == "mamba2":
+        return ssm.mamba2_decode(p, cfg, x, cache)[0]
+    k_cache, v_cache = cache["k"], cache["v"]
     b = x.shape[0]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = common.rms_norm(p["ln1"], x, cfg.norm_eps)
@@ -171,16 +228,18 @@ def block_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos: int):
 def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor):
     """token: (B, 1) -> (logits (B, V), cache).
 
-    The cache is updated in place (its K/V slot ``pos`` and ``pos``) and
+    The cache is updated in place (every slot's piece, and ``pos``) and
     returned.
     """
-    _check_dense(cfg)
+    _check_kinds(cfg)
     x = params["embed"][token]
     pos = cache["pos"]
-    slot = params["slots"]["0"]
-    kc, vc = cache["slots"]["0"]["k"], cache["slots"]["0"]["v"]
-    for i in range(cfg.n_periods):
-        x = block_decode(_layer(slot, i), cfg, x, kc[i], vc[i], pos)
+    for period in range(cfg.n_periods):
+        for i, kind in enumerate(cfg.pattern):
+            piece = {name: t[period]
+                     for name, t in cache["slots"][str(i)].items()}
+            x = block_decode(kind, _slot_params(cfg, params, i, period), cfg,
+                             x, piece, pos)
     x = common.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = common.linear(params["lm_head"], x)[:, 0]
     cache["pos"] = pos + 1
@@ -193,7 +252,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             cache_len: Optional[int] = None, cache_dtype=torch.bfloat16):
     """Run the sequence forward AND build a decode cache.
 
-    Returns (logits (B, S, V), cache).  cache_len defaults to S.
+    Returns (logits (B, S, V), cache).  cache_len defaults to S.  Mamba2
+    slots take the exact final conv history and state of the sequence
+    scan.
     """
     b, s = tokens.shape
     cache_len = cache_len or s
@@ -201,8 +262,13 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     cache = init_cache(cfg, b, cache_len, device=tokens.device,
                        dtype=cache_dtype)
     take = min(s, cache_len)
-    for name in ("k", "v"):
-        cache["slots"]["0"][name][:, :, :take] = \
-            out["kv"]["0"][name][:, :, -take:].to(cache_dtype)
+    for i, kind in enumerate(cfg.pattern):
+        piece, kv = cache["slots"][str(i)], out["kv"][str(i)]
+        if kind == "mamba2":
+            for name in ("conv", "state"):
+                piece[name].copy_(kv[name])
+            continue
+        for name in ("k", "v"):
+            piece[name][:, :, :take] = kv[name][:, :, -take:].to(cache_dtype)
     cache["pos"] = s
     return out["logits"], cache

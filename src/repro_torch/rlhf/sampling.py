@@ -29,7 +29,8 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, *,
 
     As in the reference, the prefill logits are not used: the last prompt
     token is fed again as the first decode input, at position P, so it
-    sits twice in the cache.
+    sits twice in the cache (and a Mamba2 layer's state advances twice
+    with it).
     """
     if (generator is None) == (gumbel is None):
         raise ValueError("pass exactly one of generator= and gumbel=")

@@ -47,7 +47,8 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.core.fedavg, repro_torch.comms, "
             "repro_torch.obs.records, repro_torch.train.checkpoint, "
             "repro_torch.kernels.gram, repro_torch.kernels.quantize, "
-            "repro_torch.comms.sparsify, repro_torch.comms.lowrank; "
+            "repro_torch.comms.sparsify, repro_torch.comms.lowrank, "
+            "repro_torch.models.ssm, repro_torch.kernels.ssd; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -189,6 +190,25 @@ def test_bridge_round_trip_is_bit_identical():
     # the tensors own their memory: writing them leaves the source alone
     t["w"].zero_()
     assert f32[1, 0] != 0
+    # a zamba2 tree (bf16 Mamba2 slots stacked over periods, f32 A_log, D
+    # and dt_bias, one unstacked shared block with f32 adapters)
+    from repro.configs import get_config as jax_get_config
+    from repro.models import transformer as jT
+    jcfg = jax_get_config("zamba2-1.2b").reduced(n_layers=2, d_model=64,
+                                                 vocab=64)
+    ztree = jax.tree_util.tree_map(np.asarray, jT.init_params(
+        jcfg, jax.random.PRNGKey(3)))
+    zt = bridge.to_torch(ztree, device="cpu")
+    assert zt["slots"]["0"]["in_proj"]["w"].dtype == torch.bfloat16
+    assert zt["slots"]["0"]["A_log"].dtype == torch.float32
+    assert zt["shared"]["attn"]["wq"]["lora_A"].dtype == torch.float32
+    zback = bridge.to_numpy(zt)
+    got, want = (jax.tree_util.tree_leaves_with_path(t)
+                 for t in (zback, ztree))
+    assert [p for p, _ in got] == [p for p, _ in want] and len(want) > 100
+    for (path, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, path
+        np.testing.assert_array_equal(_bits(g), _bits(w))
 
 
 # ------------------------------------------------- containers and order

@@ -224,11 +224,14 @@ def _snapshot(jtr) -> dict:
             "prompt_counts": [ds._count for ds in jtr.datasets]}
 
 
-def _round_draws(jtr, jcfg):
+def _round_draws(jtr, jcfg, parts=None):
     """What the next JAX round will draw, replayed from its key: the
-    downlink key, K x C generation keys step-major, C uplink keys (the
-    order of ``run_round`` on the vectorized path).  Returns the port's
-    injected draws and the JAX keys and prompts."""
+    downlink key, K x P generation keys step-major, P uplink keys (the
+    order of ``run_round`` on the vectorized path), for the participants
+    ``parts`` (default: every client).  Returns the port's injected draws
+    and the JAX keys and prompts."""
+    parts = list(range(len(jtr.datasets))) if parts is None else parts
+    n = len(parts)
     rng = jtr._rng
 
     def split(r):
@@ -236,22 +239,24 @@ def _round_draws(jtr, jcfg):
         return out[0], out[1]
 
     rng, down = split(rng)
-    gen = [[None] * C for _ in range(K)]
+    gen = [[None] * n for _ in range(K)]
     for k in range(K):
-        for c in range(C):
+        for c in range(n):
             rng, gen[k][c] = split(rng)
     up = []
-    for _ in range(C):
+    for _ in range(n):
         rng, kk = split(rng)
         up.append(kk)
-    counts0 = jnp.asarray([ds._count for ds in jtr.datasets], jnp.int32)
+    idx = jnp.asarray(parts, jnp.int32)
+    counts0 = jnp.asarray([jtr.datasets[c]._count for c in parts],
+                          jnp.int32)
     prompts = np.stack([np.asarray(sample_prompt_block(
-        jtr._seeds_all, counts0 + k, jtr._probs_all, B, P, jcfg.vocab))
-        for k in range(K)])                               # (K, C, B, P)
+        jtr._seeds_all[idx], counts0 + k, jtr._probs_all[idx], B, P,
+        jcfg.vocab)) for k in range(K)])                  # (K, P, B, P)
     gumbel = np.stack([np.stack([np.stack([
         np.asarray(jax.random.gumbel(s, (B, jcfg.vocab)))
         for s in jax.random.split(gen[k][c], MAX_NEW)])
-        for c in range(C)]) for k in range(K)])           # (K, C, T, B, V)
+        for c in range(n)]) for k in range(K)])           # (K, P, T, B, V)
     rows = -(-jtr.d_trainable // 1024)
 
     def bits(kk):
@@ -264,17 +269,19 @@ def _round_draws(jtr, jcfg):
     return draws, {"prompts": prompts, "gen": gen, "up": up, "down": down}
 
 
-def _qp_curvature(jtr, one_client, start, prompts, gen_keys) -> float:
+def _qp_curvature(jtr, one_client, start, prompts, gen_keys,
+                  parts=None) -> float:
     """The smallest MGDA curvature D (see the module docstring) over the
     round's client-steps, from the reference's own steps: ``one_client``
-    of its ``_make_round_fn`` run one client at a time from the same
-    start, prompts and keys."""
+    of its ``_make_round_fn`` run one participant at a time (``parts``,
+    default every client) from the same start, prompts and keys."""
+    parts = list(range(len(jtr.datasets))) if parts is None else parts
     curv = []
-    for c in range(C):
+    for ci, c in enumerate(parts):
         st = jtr.client_states[c]._replace(trainable=start)
         for k in range(K):
-            st, met = one_client(st, jnp.asarray(prompts[k, c]),
-                                 gen_keys[k][c], jtr._bands_h[c],
+            st, met = one_client(st, jnp.asarray(prompts[k, ci]),
+                                 gen_keys[k][ci], jtr._bands_h[c],
                                  jtr._bands_x[c], jtr.frozen,
                                  jtr.ref_params)
             g = np.asarray(met["gram"], np.float64)
@@ -311,7 +318,7 @@ def _f32_model(jtr):
     jtr.client_states = [
         jlocal.init_client_state(trainable, M, jtr.cfg.d_model,
                                  jtr.fc.kl_coef_init)
-        for _ in range(C)]
+        for _ in jtr.client_states]
     return params
 
 
@@ -503,6 +510,74 @@ def test_round_matches_jax_vectorized_round(rounds, case):
         np.testing.assert_array_equal(_np(tres[c]), np.asarray(rstates[c]),
                                       err_msg=f"client {c} residual")
     np.testing.assert_array_equal(tdecoded, np.asarray(rdec))
+
+
+def test_partial_participation_rounds_match_jax_with_its_participants():
+    """C = 4 clients at participation 0.5, R = 2 rounds of the ``wan``
+    preset.  The port's own participant draw is not the reference's, so
+    the reference's (``_sample_participants(round_idx=r)``) is handed to
+    the port as ``run(R, participants=schedule)``, with each round's JAX
+    draws; the port runs both rounds on its own state (loaded once, before
+    round 1).  Each round's summary is held to the reference vectorized
+    round's with the tolerances of ``test_round_matches_jax_vectorized_round``.
+    """
+    n_clients, n_rounds = 4, 2
+    jcfg, tcfg = _cfgs()
+    fields = dict(n_clients=n_clients, local_steps=K, batch_size=B,
+                  n_objectives=M, participation=0.5)
+    jfc = dataclasses.replace(JFIRMConfig(), **fields)
+    tfc = dataclasses.replace(FIRMConfig(), **fields)
+    codecs = dict(prompt_len=P, max_new=MAX_NEW, uplink_codec="int8+ef",
+                  downlink_codec="identity")
+    jtr = jengine.FederatedTrainer(jcfg, jfc, jengine.EngineConfig(**codecs))
+    params = bridge.to_torch(jax.tree_util.tree_map(
+        np.asarray, _f32_model(jtr)), device="cpu")
+    ttr = FederatedTrainer(tcfg, tfc, EngineConfig(**codecs), device="cpu",
+                           params=params)
+    bridge.load_trainer_state(ttr, _snapshot(jtr))
+    one_client = _jit_one_client(jcfg, jfc)
+    schedule = [jtr._sample_participants(round_idx=r)
+                for r in range(n_rounds)]
+    assert all(len(p) == 2 and p == sorted(set(p)) for p in schedule)
+    wants, draws, curvature = [], [], []
+    for parts in schedule:
+        d, jd = _round_draws(jtr, jcfg, parts)
+        _, _, jb = jtr.downlink_codec.roundtrip(
+            jtr.global_trainable, jtr._downlink_state, key=jd["down"])
+        curvature.append(_qp_curvature(jtr, one_client, jb, jd["prompts"],
+                                       jd["gen"], parts))
+        draws.append(d)
+        wants.append(jtr.run_round())
+    assert [w["participants"] for w in wants] == schedule
+    # run() hands each round its entry of the schedule; the spy adds that
+    # round's JAX draws
+    run_round, seen = ttr.run_round, []
+
+    def with_draws(participants=None, **kw):
+        seen.append(participants)
+        return run_round(participants, **draws[len(seen) - 1])
+    ttr.run_round = with_draws
+    gots = ttr.run(n_rounds, participants=schedule)
+    assert seen == schedule and len(gots) == n_rounds
+    for got, want, curv in zip(gots, wants, curvature):
+        assert list(got) == list(want)
+        for key in ("comm_bytes", "up_bytes", "down_bytes", "participants",
+                    "dispatches", "up_nbytes", "down_nbytes", "local_steps",
+                    "cohorts"):
+            assert got[key] == want[key], key
+        np.testing.assert_array_equal(got["rewards_per_client"],
+                                      want["rewards_per_client"])
+        np.testing.assert_array_equal(got["rewards"], want["rewards"])
+        assert_close(got["param_drift"], want["param_drift"], TOL, "drift")
+        assert abs(got["kl"] - want["kl"]) <= KL_ATOL, (got["kl"],
+                                                       want["kl"])
+        slack = 1 / min(1.0, curv)
+        for key in ("lam_mean", "per_client_lam", "lam_disagreement"):
+            assert_close(got[key], want[key], TOL * slack, key)
+    assert [ds.count for ds in ttr.datasets] == \
+        [ds._count for ds in jtr.datasets]
+    with pytest.raises(ValueError, match="one entry a round"):
+        ttr.run(n_rounds, participants=schedule[:1])
 
 
 def test_round_bookkeeping_on_the_port_alone():
