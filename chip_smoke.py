@@ -1241,7 +1241,7 @@ def run(torch, stop_after) -> int:
     # (the same bf16 weights, upcast) as the plain path, the llama rule;
     # the two bf16 paths' distance from each other is reported, not gated:
     # through 38 layers each lies up to ~6% of the logits' scale from the
-    # f32 forward (1-ulp flips; my chip run 2, PR 16), beyond the llama
+    # f32 forward (1-ulp flips, measured on one H100), beyond the llama
     # gate's 2e-2.  f32: the same forward through the kernels and through
     # the plain versions within 1e-4 of the logits' scale.
     def z_logits_and_lp(p, **kw):
