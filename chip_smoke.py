@@ -16,8 +16,13 @@ line, for a first check of new kernels):
             rollout's shapes, then timed beside ``F.rms_norm``.
 4. flash:   the CUDA flash-attention kernel against its plain version
             (causal, ragged, non-causal, sliding window, f32, and zamba2's
-            MHA with 32 query and 32 KV heads), then timed beside
-            ``F.scaled_dot_product_attention``.
+            MHA with 32 query and 32 KV heads; then the tensor-core
+            kernels' edges in bf16: Dh = 16, Sq = 1 and Skv = 1, S = 2048
+            at B = 1 (32 key tiles of online softmax), GQA groups of 1, 4
+            and 8, a window of 16), the same bits from a second call, the
+            path (tensor-core or FMA) that served each case and the HMMA
+            instructions of each flash kernel (``cuobjdump -sass``); then
+            timed beside ``F.scaled_dot_product_attention``.
 5. gram:    the CUDA Gram kernel against its plain version at the local
             step's shape (2, 3,407,872) f32 and off it (M = 3 and 8, ragged
             d, bf16, a misaligned row), twice for the same bits, then timed
@@ -46,8 +51,13 @@ line, for a first check of new kernels):
             then timed.
 10. rmsnorm_bwd, 11. flash_bwd: the backward kernels against their plain
             versions (autograd of the plain forward) at the local step's
-            shapes and off them (the forwards' extra cases), then timed
-            beside the backward of ``F.rms_norm`` and of SDPA.
+            shapes and off them (the forwards' extra cases, the flash
+            kernels' new edges included), the same bits twice, then timed
+            beside the backward of ``F.rms_norm`` and of SDPA.  flash_bwd
+            also sets the kernel's dq, dk, dv beside autograd of the plain
+            f32 forward and beside FlashAttention-2's formula with D from
+            the bf16 O, to measure what D from the bf16 O adds to the
+            kernel's distance from f32.
 12. rollout: ``fed.engine.rollout_batch`` on llama-3.2-1b at full width
             (random weights from a seeded generator): 16 prompts of 128
             tokens, 128 new tokens, 2 objectives.  The kernels' launch counts
@@ -115,6 +125,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -342,8 +353,10 @@ def run(torch, stop_after) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    def randn(shape, dtype, generator=None):
+        return torch.randn(
+            shape, generator=gen if generator is None else generator,
+            device=dev).to(dtype)
 
     # ----------------------------------------------------------- 3. rmsnorm
     def bf16_ulps(a, b) -> int:
@@ -409,13 +422,18 @@ def run(torch, stop_after) -> int:
     done("rmsnorm")
 
     # ------------------------------------------------------------- 4. flash
-    def qkv(b, sq, skv, hq, hkv, dh, dtype):
-        return (randn((b, sq, hq, dh), dtype),
-                randn((b, skv, hkv, dh), dtype),
-                randn((b, skv, hkv, dh), dtype))
+    def qkv(b, sq, skv, hq, hkv, dh, dtype, generator=None):
+        return tuple(randn(shape, dtype, generator) for shape in (
+            (b, sq, hq, dh), (b, skv, hkv, dh), (b, skv, hkv, dh)))
 
-    # (b, sq, skv, hq, hkv, dh); the last four cases cover the other head
-    # dims the kernel is built for and query and key lengths that differ
+    def identical(a, b) -> bool:
+        """The same dtype, shape and bits."""
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+    # (b, sq, skv, hq, hkv, dh); dh = 32 and 16 and the two Sq != Skv cases
+    # cover the other head dims the kernels are built for and query and key
+    # lengths that differ
     flash_cases = [
         ("rollout S=256 causal", (B, 256, 256, 32, 8, 64), torch.bfloat16,
          True, 0),
@@ -439,12 +457,43 @@ def run(torch, stop_after) -> int:
         ("zamba2 MHA S=256 causal", (B, 256, 256, 32, 32, 64),
          torch.bfloat16, True, 0),
     ]
-    flash_err = {}
-    for label, (b, sq, skv, hq, hkv, dh), dtype, causal, window in \
-            flash_cases:
-        q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype)
+    # the tensor-core kernels' edges (a single query or key, 32 key tiles of
+    # online softmax, GQA groups of 1, 4 and 8, a window of 16 that leaves
+    # rows of a tile with no key), drawn from a generator of their own so
+    # that the later phases' inputs stay as they were
+    edge_gen = torch.Generator(device=dev).manual_seed(1)
+    flash_edge_cases = [
+        ("dh=16 S=33 causal", (2, 33, 33, 4, 1, 16), torch.bfloat16, True,
+         0),
+        ("Sq=1 Skv=1 causal", (2, 1, 1, 32, 8, 64), torch.bfloat16, True, 0),
+        ("Sq=1 Skv=77 non-causal", (2, 1, 77, 32, 8, 64), torch.bfloat16,
+         False, 0),
+        ("Sq=77 Skv=1 non-causal", (2, 77, 1, 32, 8, 64), torch.bfloat16,
+         False, 0),
+        ("S=2048 B=1 causal", (1, 2048, 2048, 32, 8, 64), torch.bfloat16,
+         True, 0),
+        ("GQA group 1 S=128 causal", (2, 128, 128, 8, 8, 64), torch.bfloat16,
+         True, 0),
+        ("GQA group 4 S=128 causal", (2, 128, 128, 32, 8, 64),
+         torch.bfloat16, True, 0),
+        ("GQA group 8 S=128 causal", (2, 128, 128, 32, 4, 64),
+         torch.bfloat16, True, 0),
+        ("window 16 S=200", (2, 200, 200, 32, 8, 64), torch.bfloat16, True,
+         16),
+    ]
+    flash_err, flash_paths = {}, {}
+    for (label, (b, sq, skv, hq, hkv, dh), dtype, causal, window), g_ in [
+            (case, gen) for case in flash_cases] + [
+            (case, edge_gen) for case in flash_edge_cases]:
+        q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype, g_)
         got = fa_mod.flash_attention(q, k, v, causal=causal,
                                      sliding_window=window)
+        again, lse = fa_mod.flash_attention_fwd(q, k, v, causal=causal,
+                                                sliding_window=window,
+                                                with_lse=True)
+        _, lse2 = fa_mod.flash_attention_fwd(q, k, v, causal=causal,
+                                             sliding_window=window,
+                                             with_lse=True)
         want = ref.flash_attention(q, k, v, causal=causal,
                                    sliding_window=window)
         torch.cuda.synchronize()
@@ -452,7 +501,31 @@ def run(torch, stop_after) -> int:
         diff = (got.float() - want.float()).abs()
         ok = bool((diff <= tol + tol * want.float().abs()).all())
         flash_err[label] = float(diff.max())
+        flash_paths[label] = fa_mod.PATHS[dtype]
         check(ok, f"flash attention {label}: max abs err {float(diff.max())}")
+        check(identical(got, again) and identical(lse, lse2),
+              f"flash attention {label}: a second call gave other bits")
+
+    def sass_hmma(lib) -> dict:
+        """HMMA (tensor-core) instructions in each flash kernel of the
+        built library, from ``cuobjdump -sass``."""
+        sass = subprocess.run([build.tool("cuobjdump"), "-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {}
+        for section in sass.split("Function : ")[1:]:
+            m = re.search(r"(flash_[a-z_]+_kernel)ILi(\d+)E",
+                          section.split()[0])
+            if m:
+                counts[f"{m[1]}<{m[2]}>"] = sum(
+                    "HMMA" in ln for ln in section.splitlines())
+        return counts
+
+    flash_hmma = sass_hmma(lib_path)
+    tc_kernels = [f"flash_{part}_mma_kernel<{dh}>" for part in
+                  ("fwd", "bwd_dq", "bwd_dkv") for dh in (16, 32, 64)]
+    check(all(flash_hmma.get(name, 0) > 0 for name in tc_kernels),
+          f"a tensor-core flash kernel without HMMA: {flash_hmma}")
     s = 256
     q, k, v = qkv(B, s, s, 32, 8, 64, torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -481,8 +554,9 @@ def run(torch, stop_after) -> int:
     flash_row["bound_ms"], flash_row["bound_by"] = bound_ms(
         n_bytes, 4 * 64 * pairs, "bf16")
     emit(phase="flash", shape=[B, s, 32, 8, 64], dtype="bf16", causal=True,
-         checks=flash_err, tolerance="2e-2 bf16, 2e-4 f32 (atol and rtol)",
-         **flash_row)
+         checks=flash_err, paths=flash_paths, same_bits_twice=True,
+         hmma=flash_hmma,
+         tolerance="2e-2 bf16, 2e-4 f32 (atol and rtol)", **flash_row)
     done("flash")
 
     # -------------------------------------------------------------- 5. gram
@@ -977,7 +1051,9 @@ def run(torch, stop_after) -> int:
     done("rmsnorm_bwd")
 
     # -------------------------------------------------------- 11. flash_bwd
-    flash_bwd_err = {}
+    # the forward's cases but zamba2's, with the tensor-core kernels' edges
+    flash_bwd_err, flash_bwd_paths = {}, {}
+    edge_labels = {case[0] for case in flash_edge_cases}
     for label, (b, sq, skv, hq, hkv, dh), dtype, causal, window in [
             ("local step S=256 causal", (B, 256, 256, 32, 8, 64),
              torch.bfloat16, True, 0),
@@ -996,22 +1072,42 @@ def run(torch, stop_after) -> int:
             ("Sq=50 Skv=130 non-causal", (2, 50, 130, 32, 8, 64),
              torch.bfloat16, False, 0),
             ("Sq=130 Skv=50 causal", (2, 130, 50, 32, 8, 64),
-             torch.bfloat16, True, 0)]:
-        q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype)
-        do = randn((b, sq, hq, dh), dtype)
+             torch.bfloat16, True, 0)] + flash_edge_cases:
+        g_ = edge_gen if label in edge_labels else gen
+        q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype, g_)
+        do = randn((b, sq, hq, dh), dtype, g_)
         o, lse = fa_mod.flash_attention_fwd(q, k, v, causal=causal,
                                             sliding_window=window,
                                             with_lse=True)
         got = fa_mod.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                          sliding_window=window)
+        again = fa_mod.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal,
+                                           sliding_window=window)
         want = ref.flash_attention_bwd(q, k, v, do, causal=causal,
                                        sliding_window=window)
         torch.cuda.synchronize()
-        errs = {name: max_rel(a, w_) for name, a, w_ in zip(
-            ("dq", "dk", "dv"), got, want)}
+
+        def d_scale(i, want_i) -> float:
+            """max |plain|; where the plain gradient is exactly 0 (a single
+            key: P = 1, so dS = dP - D cancels), the size of the cancelling
+            terms, Dh^-0.5 max |dP| max |K| (dq) or max |Q| (dk)."""
+            size = float(want_i.float().abs().max())
+            if size > 0 or i == 2:
+                return size
+            dp = torch.einsum("bqhd,bkhd->bhqk", do.float(),
+                              v.float().repeat_interleave(hq // hkv, dim=2))
+            return (dh ** -0.5 * float(dp.abs().max())
+                    * float((k if i == 0 else q).float().abs().max()))
+        errs = {name: float((a.float() - w_.float()).abs().max())
+                / d_scale(i, w_) for i, (name, a, w_) in enumerate(zip(
+                    ("dq", "dk", "dv"), got, want))}
         flash_bwd_err[label] = errs
+        flash_bwd_paths[label] = fa_mod.PATHS[dtype]
         check(max(errs.values()) <= bwd_tol(dtype),
               f"flash_attention_bwd {label}: rel errs {errs}")
+        check(all(identical(a, a2) for a, a2 in zip(got, again)),
+              f"flash_attention_bwd {label}: a second call gave other bits")
     q, k, v = qkv(B, s, s, 32, 8, 64, torch.bfloat16)
     do = randn((B, s, 32, 64), torch.bfloat16)
     o, lse = fa_mod.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
@@ -1043,10 +1139,61 @@ def run(torch, stop_after) -> int:
     flash_bwd_row["bound_ms"], flash_bwd_row["bound_by"] = bound_ms(
         n_bytes, 10 * 64 * pairs, "bf16")
     del qt, kt, vt, ot
+
+    # What D = rowsum(dO * O) from the bf16 O (the kernel's choice, as in
+    # FlashAttention-2) adds to the kernel's distance from f32: the
+    # kernel's dq, dk, dv beside (a) autograd of the plain forward in f32,
+    # which uses the f32 O, and (b) FlashAttention-2's formula in plain f32
+    # with D from the kernel's bf16 O; (c), the formula with the f32 O,
+    # checks the formula against (a).
+    def fa2_grads(o_for_d):
+        hkv = k.shape[2]
+        qpk = q.shape[2] // hkv
+        qf = q.float().transpose(1, 2)
+        kf, vf = (t.float().repeat_interleave(qpk, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        dof = do.float().transpose(1, 2)
+        scale = q.shape[3] ** -0.5
+        causal_mask = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+        p_ = torch.softmax((qf @ kf.transpose(-1, -2) * scale).masked_fill(
+            ~causal_mask, ref.NEG_INF), dim=-1)
+        d_ = (dof * o_for_d.float().transpose(1, 2)).sum(-1, keepdim=True)
+        ds_ = p_ * (dof @ vf.transpose(-1, -2) - d_)
+
+        def group(t):  # (B, Hq, S, Dh) -> (B, S, Hkv, Dh), summed
+            return t.transpose(1, 2).unflatten(2, (hkv, qpk)).sum(3)
+        return ((ds_ @ kf * scale).transpose(1, 2),
+                group(ds_.transpose(-1, -2) @ qf * scale),
+                group(p_.transpose(-1, -2) @ dof))
+
+    def rel_l2(got, want) -> float:
+        return float((got.float() - want).norm() / want.norm())
+
+    kernel_g = fa_mod.flash_attention_bwd(q, k, v, o, lse, do)
+    grads_a = ref.flash_attention_bwd(q.float(), k.float(), v.float(),
+                                      do.float())
+    grads_b = fa2_grads(o)
+    grads_c = fa2_grads(ref.flash_attention(q.float(), k.float(), v.float()))
+    d_question = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        d_question[name] = {
+            "kernel_vs_a": rel_l2(kernel_g[i], grads_a[i]),
+            "kernel_vs_b": rel_l2(kernel_g[i], grads_b[i]),
+            "b_vs_a": rel_l2(grads_b[i], grads_a[i]),
+            "c_vs_a": rel_l2(grads_c[i], grads_a[i]),
+            "a_rounded_to_bf16_vs_a": rel_l2(grads_a[i].bfloat16(),
+                                             grads_a[i])}
+    check(max(v_["c_vs_a"] for v_ in d_question.values()) <= 1e-5,
+          f"the FlashAttention-2 formula with the f32 O is autograd's: "
+          f"{d_question}")
+    del kernel_g, grads_a, grads_b, grads_c
     emit(phase="flash_bwd", shape=[B, s, 32, 8, 64], dtype="bf16",
-         causal=True, checks=flash_bwd_err,
+         causal=True, checks=flash_bwd_err, same_bits_twice=True,
+         paths=flash_bwd_paths,
+         d_from_bf16_o=d_question,
          tolerance="max |d - plain| <= 2e-2 (bf16) or 1e-4 (f32) of max "
-         "|plain|, for each of dq, dk, dv", **flash_bwd_row)
+         "|plain|, for each of dq, dk, dv (where the plain dq or dk is "
+         "exactly 0, of Dh^-0.5 max|dP| max|K or Q|)", **flash_bwd_row)
     done("flash_bwd")
 
     # ---------------------------------------------------------- 12. rollout

@@ -68,13 +68,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"firm_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _nvcc() -> str:
+def tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
         or "/usr/local/cuda"
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+    for cand in (shutil.which(name), os.path.join(cuda_home, "bin", name)):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise RuntimeError(f"{name} not found: set CUDA_HOME or put it on PATH")
 
 
 def _run_all(cmds) -> tuple[str, bool]:
@@ -105,10 +106,10 @@ def build() -> Path:
     tag = f"{lib.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    log, ok = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    log, ok = _run_all([[tool(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                         for src, obj in zip(sources(), objs)])
     if ok:
-        link_log, ok = _run_all([[_nvcc(), "-shared", "-o", str(tmp),
+        link_log, ok = _run_all([[tool(), "-shared", "-o", str(tmp),
                                   *map(str, objs)]])
         log += link_log
     lib.with_suffix(".log").write_text(log)

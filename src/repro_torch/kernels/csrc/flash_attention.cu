@@ -8,28 +8,10 @@
 // tensor exists.  Query i and key j sit at absolute positions i and j; the
 // causal mask keeps i >= j and the sliding window keeps i - j < window.
 // Masked scores are -1e30, the softmax is online in f32 (running max m,
-// running sum l, accumulator acc), q is scaled by Dh^-0.5 in f32 before the
-// product, and the output is acc / max(l, 1e-30) rounded to the input
-// type: the arithmetic of the Pallas kernel.  Unlike the Pallas kernel,
-// which asserts S % block == 0, this one takes ragged Sq and Skv and masks
-// the edge tiles itself.
-//
-// What bounds it on the H100: at the rollout's shape (B=16, S=256, Hq=32,
-// Hkv=8, Dh=64, causal, bf16) the function needs about 4.3 GFLOP and moves
-// about 42 MB, so the card's floor is the 12.5 us of memory traffic at
-// 3.35 TB/s (4.4 us of bf16 tensor-core time).  This first version does not
-// reach that floor: its inner products are scalar f32 FMAs, not tensor-core
-// instructions, so it is bound by the FMA pipes and shared-memory reads.
-//
-// What the design does: one block of 64 threads per (batch x query head,
-// 64-row query tile); each thread owns one query row, keeping q and the
-// accumulator in registers.  The block walks 64-key tiles of K and V,
-// staged in shared memory as f32 with 16-byte coalesced loads, and skips
-// every tile that the causal or sliding-window mask removes for all of its
-// rows.  Within a tile a thread scores 16 keys at a time (broadcast
-// shared-memory reads, all threads read the same key) and updates its
-// online softmax once per 16 keys.  Moving the products to mma.sync or
-// wgmma with a TMA-fed ring of tiles is later work.  Given a non-null lse
+// running sum l, accumulator acc), and the output is acc / max(l, 1e-30)
+// rounded to the input type: the arithmetic of the Pallas kernel.  Unlike
+// the Pallas kernel, which asserts S % block == 0, this one takes ragged
+// Sq and Skv and masks the edge tiles itself.  Given a non-null lse
 // pointer the forward also writes the f32 log-sum-exp m + log(l) of every
 // query row, (B, Hq, Sq), which the backward reads; the rollout passes
 // null and moves no extra bytes.
@@ -39,32 +21,65 @@
 // and JAX differentiates the XLA twin.  FlashAttention-2 style, it
 // recomputes P = exp(s - lse) from the saved log-sum-exp, with s the
 // scaled score of the forward (-1e30 where masked), and uses
-// D = rowsum(dO * O) in f32:
+// D = rowsum(dO * O) in f32, O as the forward wrote it:
 //
 //   dV_j = sum_i P_ij dO_i      dP_ij = dO_i . V_j
 //   dS_ij = P_ij (dP_ij - D_i)
 //   dQ_i = scale * sum_j dS_ij K_j      dK_j = scale * sum_i dS_ij Q_i
 //
-// Two __global__ functions behind one C entry keep it deterministic
-// without atomics: flash_bwd_dq_kernel, one block per (batch x query head,
-// 64-row query tile), computes D (written to a scratch buffer) and dQ over
-// the key tiles the mask keeps; flash_bwd_dkv_kernel, launched after it on
-// the same stream, is one block per (batch x KV head, 64-key tile) and
-// loops over the group's Hq/Hkv query heads and the query tiles the mask
-// keeps, so GQA's sum over the group stays in registers.  Each row (query
-// or key) belongs to two neighbouring threads that hold alternating
-// 16-byte chunks of its Dh values; their partial dot products meet through
-// one warp shuffle.  The other operand streams through shared memory as
-// f32.  Products are scalar f32 FMAs, accumulated in f32; dq, dk and dv
-// are written in the input type.  A query row that sees no key (possible
+// Two kernels behind one C entry keep it deterministic without atomics:
+// a dq kernel, one block per (batch x query head, 64-row query tile),
+// computes D (written to a scratch buffer) and dQ over the key tiles the
+// mask keeps; a dk/dv kernel, launched after it on the same stream, is one
+// block per (batch x KV head, 64-key tile) and loops over the group's
+// Hq/Hkv query heads and the query tiles the mask keeps, so GQA's sum over
+// the group stays in registers.  A query row that sees no key (possible
 // only with a sliding window and Sq >= Skv + window) is refused by the
 // wrapper.
 //
-// Bound of the backward at the local step's shape (B=16, S=256, Hq=32,
-// Hkv=8, Dh=64, causal, bf16): it reads q, k, v, o, dO, lse and writes dq,
-// dk, dv (about 85 MB with D: 25 us at 3.35 TB/s) and does 10 * Dh flops
-// per kept (query, key) pair (10.9 GFLOP: 11 us at 989 TFLOP/s).  Like the
-// forward, this first version runs on the FMA pipes, not tensor cores.
+// What bounds them on the H100.  At the rollout's shape (B=16, S=256,
+// Hq=32, Hkv=8, Dh=64, causal, bf16) the forward needs 4.3 GFLOP and moves
+// 42 MB: the floor is the 12.5 us of memory traffic at 3.35 TB/s, against
+// 4.4 us of bf16 tensor-core time.  At the local step's shape the
+// backward reads q, k, v, o, dO, lse and writes dq, dk, dv (85 MB with D:
+// 25 us) and does 10 Dh flops per kept (query, key) pair (10.9 GFLOP:
+// 11 us at 989 TFLOP/s).  Both are bound by bytes, but only once their
+// products run on tensor cores: on the FMA pipes (67 TFLOP/s of f32) the
+// same flops take 64 and 163 us, which is why the first design, scalar
+// FMAs on f32 copies of the tiles, ran at 26x and 36x its bound.
+//
+// Which dtype takes which path, and why:
+//
+// * bf16: tensor cores.  Every product (S = Q K^T and O += P V forward;
+//   S, dP = dO V^T and dQ += dS K in the dq kernel; S^T = K Q^T,
+//   dV += P^T dO, dP^T = V dO^T and dK += dS^T Q in the dk/dv kernel) is
+//   an mma.sync.m16n8k16 with bf16 operands and f32 accumulators.  A block
+//   is 4 warps, 16 rows (queries, or keys in the dk/dv kernel) a warp, as
+//   in FlashAttention-2.  Tiles of 64 rows stay bf16 in shared memory,
+//   double-buffered: cp.async 16-byte copies fetch the next tile while the
+//   warps work on this one, and rows past S are zero-filled by the copy's
+//   src-size operand.  Each row is padded by 16 bytes, so the 8 rows an
+//   ldmatrix phase reads fall in 8 distinct bank groups (no conflicts,
+//   with or without .trans).  A warp's own rows (Q and dO, or K and V)
+//   stay in registers as A fragments for the whole kernel.  The online
+//   softmax runs on the accumulator fragments: a row's 4 lanes meet by
+//   two shuffles.  P (and dS) go to the next product as bf16 A fragments
+//   straight from the registers: an S accumulator fragment is laid out as
+//   the A fragment of the next m16n8k16.  The scale multiplies S in f32
+//   (1/sqrt(Dh) is not exact in bf16, so scaling q first would round it).
+//   Q, K, V and dO are bf16 already, so Q K^T and dO V^T are exact
+//   products summed in f32; the error this path adds to the FMA design's
+//   is the rounding of P and dS to bf16 (2^-9 relative) as operands.  The
+//   forward's l sums the rounded P, so its weights sum to 1.  Tiles that
+//   the causal or window mask removes whole are skipped; edge tiles are
+//   masked element by element.  The epilogues stage the output tile in
+//   shared memory for 16-byte coalesced stores.
+//
+// * f32: the FMA kernels of the first design (one thread per query row in
+//   the forward, two threads a row in the backward, f32 tiles in shared
+//   memory, scalar f32 FMAs).  f32 is the checking path (the card's f32
+//   gates hold it to 1e-4 of the plain f32 version): TF32 products would
+//   not meet them, and tensor cores have no exact f32 mode.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,35 +88,28 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;  // query rows per block, one per thread
-constexpr int kBlockK = 64;  // keys per shared-memory tile
-constexpr int kChunk = 16;   // keys per online-softmax update
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ bool kept(int qi, int kp, int sq, int skv,
+                                     int causal, int window) {
+  return qi < sq && kp < skv && (!causal || qi >= kp) &&
+         (!window || qi - kp < window);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+// =========================================================== f32: FMA path
 
-template <typename T, int DH>
+constexpr int kBlockQ = 64;  // query rows per forward block, one a thread
+constexpr int kBlockK = 64;  // keys per shared-memory tile
+constexpr int kChunk = 16;   // keys per online-softmax update
+
+template <int DH>
 __global__ void __launch_bounds__(kBlockQ)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int sq, int skv, int hq,
-                     int hkv, int causal, int window, float scale) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte access
-  constexpr int VPR = DH / V;        // 16-byte accesses per row
+    flash_fwd_fma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int sq, int skv, int hq,
+                         int hkv, int causal, int window, float scale) {
+  constexpr int VPR = DH / 4;  // 16-byte accesses per row
   __shared__ __align__(16) float ks[kBlockK][DH];
   __shared__ __align__(16) float vs[kBlockK][DH];
 
@@ -116,14 +124,15 @@ __global__ void __launch_bounds__(kBlockQ)
 #pragma unroll
   for (int d = 0; d < DH; ++d) acc[d] = 0.f;
   if (row_ok) {
-    const T* qp = q + (static_cast<size_t>(b) * sq + qi) * hq * DH +
-                  static_cast<size_t>(h) * DH;
+    const float* qp = q + (static_cast<size_t>(b) * sq + qi) * hq * DH +
+                      static_cast<size_t>(h) * DH;
 #pragma unroll
     for (int c = 0; c < VPR; ++c) {
-      const uint4 raw = reinterpret_cast<const uint4*>(qp)[c];
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < V; ++j) qr[c * V + j] = to_f(e[j]) * scale;
+      const float4 e = reinterpret_cast<const float4*>(qp)[c];
+      qr[4 * c] = e.x * scale;
+      qr[4 * c + 1] = e.y * scale;
+      qr[4 * c + 2] = e.z * scale;
+      qr[4 * c + 3] = e.w * scale;
     }
   } else {
 #pragma unroll
@@ -142,24 +151,15 @@ __global__ void __launch_bounds__(kBlockQ)
     for (int c = threadIdx.x; c < kBlockK * VPR; c += kBlockQ) {
       const int r = c / VPR, cv = c % VPR;
       const int kp = kbase + r;
-      float* kd = &ks[r][cv * V];
-      float* vd = &vs[r][cv * V];
+      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
       if (kp < skv) {
         const size_t off = (static_cast<size_t>(b) * skv + kp) * hkv * DH +
-                           static_cast<size_t>(kvh) * DH + cv * V;
-        const uint4 kraw = *reinterpret_cast<const uint4*>(k + off);
-        const uint4 vraw = *reinterpret_cast<const uint4*>(v + off);
-        const T* ke = reinterpret_cast<const T*>(&kraw);
-        const T* ve = reinterpret_cast<const T*>(&vraw);
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          kd[j] = to_f(ke[j]);
-          vd[j] = to_f(ve[j]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < V; ++j) kd[j] = vd[j] = 0.f;
+                           static_cast<size_t>(kvh) * DH + cv * 4;
+        kv4 = *reinterpret_cast<const float4*>(k + off);
+        vv4 = *reinterpret_cast<const float4*>(v + off);
       }
+      *reinterpret_cast<float4*>(&ks[r][cv * 4]) = kv4;
+      *reinterpret_cast<float4*>(&vs[r][cv * 4]) = vv4;
     }
     __syncthreads();
     if (!row_ok) continue;
@@ -177,9 +177,7 @@ __global__ void __launch_bounds__(kBlockQ)
           dot += qr[d] * kk.x + qr[d + 1] * kk.y + qr[d + 2] * kk.z +
                  qr[d + 3] * kk.w;
         }
-        const bool ok = kp < skv && (!causal || qi >= kp) &&
-                        (!window || qi - kp < window);
-        s[j] = ok ? dot : kNegInf;
+        s[j] = kept(qi, kp, sq, skv, causal, window) ? dot : kNegInf;
         cmax = fmaxf(cmax, s[j]);
       }
       const float m_new = fmaxf(m, cmax);
@@ -214,88 +212,23 @@ __global__ void __launch_bounds__(kBlockQ)
 
   if (row_ok) {
     const float denom = fmaxf(l, 1e-30f);
-    T* op = o + (static_cast<size_t>(b) * sq + qi) * hq * DH +
-            static_cast<size_t>(h) * DH;
+    float* op = o + (static_cast<size_t>(b) * sq + qi) * hq * DH +
+                static_cast<size_t>(h) * DH;
 #pragma unroll
-    for (int c = 0; c < VPR; ++c) {
-      uint4 out;
-      T* e = reinterpret_cast<T*>(&out);
-#pragma unroll
-      for (int j = 0; j < V; ++j) e[j] = from_f<T>(acc[c * V + j] / denom);
-      reinterpret_cast<uint4*>(op)[c] = out;
-    }
+    for (int c = 0; c < VPR; ++c)
+      reinterpret_cast<float4*>(op)[c] =
+          make_float4(acc[4 * c] / denom, acc[4 * c + 1] / denom,
+                      acc[4 * c + 2] / denom, acc[4 * c + 3] / denom);
     if (lse != nullptr)
       lse[static_cast<size_t>(bh) * sq + qi] = m + logf(l);
   }
 }
 
-template <typename T, int DH>
-void launch(const void* q, const void* k, const void* v, void* o,
-            float* lse, int b, int sq, int skv, int hq, int hkv, int causal,
-            int window, cudaStream_t stream) {
-  const dim3 grid(b * hq, (sq + kBlockQ - 1) / kBlockQ);
-  // Dh^-0.5 in double, rounded once to f32, as the Python side computes it
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(DH)));
-  flash_fwd_kernel<T, DH><<<grid, kBlockQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, hq, hkv,
-      causal, window, scale);
-}
-
-template <typename T>
-int dispatch_dh(const void* q, const void* k, const void* v, void* o,
-                float* lse, int b, int sq, int skv, int hq, int hkv, int dh,
-                int causal, int window, cudaStream_t s) {
-  switch (dh) {
-    case 16:
-      launch<T, 16>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, window, s);
-      break;
-    case 32:
-      launch<T, 32>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, window, s);
-      break;
-    case 64:
-      launch<T, 64>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, window, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------------------- backward
-constexpr int kRows = 64;              // query (dq) or key (dkv) rows a block
+constexpr int kRows = 64;               // query (dq) or key (dkv) rows a block
 constexpr int kBwdThreads = 2 * kRows;  // two threads per row
 
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
+__device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-  return make_float4(to_f(e[0]), to_f(e[1]), to_f(e[2]), to_f(e[3]));
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* p, float4 v);
-template <>
-__device__ __forceinline__ void store4<float>(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p,
-                                                      float4 v) {
-  uint2 raw;
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-  e[0] = from_f<__nv_bfloat16>(v.x);
-  e[1] = from_f<__nv_bfloat16>(v.y);
-  e[2] = from_f<__nv_bfloat16>(v.z);
-  e[3] = from_f<__nv_bfloat16>(v.w);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
@@ -313,26 +246,20 @@ __device__ __forceinline__ float4 scale4(float4 a, float s) {
   return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
 }
 
-__device__ __forceinline__ bool kept(int qi, int kp, int sq, int skv,
-                                     int causal, int window) {
-  return qi < sq && kp < skv && (!causal || qi >= kp) &&
-         (!window || qi - kp < window);
-}
-
 // Stage rows [row0, row0 + kRows) of a (B, S, H, DH) tensor at (b, h) in
-// shared memory as f32 times mul; rows at or past s are zero.
-template <typename T, int DH>
-__device__ __forceinline__ void stage(float (*dst)[DH], const T* src, int b,
-                                      int s, int h, int n_heads, int row0,
-                                      float mul) {
+// shared memory times mul; rows at or past s are zero.
+template <int DH>
+__device__ __forceinline__ void stage(float (*dst)[DH], const float* src,
+                                      int b, int s, int h, int n_heads,
+                                      int row0, float mul) {
   constexpr int CPR = DH / 4;  // 4-element chunks per row
   for (int c = threadIdx.x; c < kRows * CPR; c += blockDim.x) {
     const int r = c / CPR, cc = c % CPR;
     const int row = row0 + r;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < s)
-      val = scale4(load4<T>(src + ((static_cast<size_t>(b) * s + row) *
-                                       n_heads + h) * DH + 4 * cc),
+      val = scale4(load4(src + ((static_cast<size_t>(b) * s + row) *
+                                    n_heads + h) * DH + 4 * cc),
                    mul);
     *reinterpret_cast<float4*>(&dst[r][4 * cc]) = val;
   }
@@ -340,14 +267,17 @@ __device__ __forceinline__ void stage(float (*dst)[DH], const T* src, int b,
 
 // dQ and D = rowsum(dO * O).  Block: (batch x query head, query tile);
 // thread 2r + half owns the chunks {half, half + 2, ...} of query row r.
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout,
-                        const float* __restrict__ lse, float* __restrict__ dsum,
-                        T* __restrict__ dq, int sq, int skv, int hq, int hkv,
-                        int causal, int window, float scale) {
+    flash_bwd_dq_fma_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ o,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            float* __restrict__ dsum, float* __restrict__ dq,
+                            int sq, int skv, int hq, int hkv, int causal,
+                            int window, float scale) {
   constexpr int NC = DH / 8;  // chunks a thread owns
   __shared__ __align__(16) float ks[kRows][DH];
   __shared__ __align__(16) float vs[kRows][DH];
@@ -368,9 +298,9 @@ __global__ void __launch_bounds__(kBwdThreads)
     if (row_ok) {
       const size_t off = (static_cast<size_t>(b) * sq + qi) * hq * DH +
                          static_cast<size_t>(h) * DH + 4 * (2 * t + half);
-      qv[t] = scale4(load4<T>(q + off), scale);
-      dov[t] = load4<T>(dout + off);
-      dpart += dot4(dov[t], load4<T>(o + off));
+      qv[t] = scale4(load4(q + off), scale);
+      dov[t] = load4(dout + off);
+      dpart += dot4(dov[t], load4(o + off));
     }
   }
   const float dl = dpart + __shfl_xor_sync(0xffffffffu, dpart, 1);
@@ -385,8 +315,8 @@ __global__ void __launch_bounds__(kBwdThreads)
 
   for (int kbase = k_begin / kRows * kRows; kbase < k_end; kbase += kRows) {
     __syncthreads();  // the previous tile is consumed
-    stage<T, DH>(ks, k, b, skv, kvh, hkv, kbase, 1.f);
-    stage<T, DH>(vs, v, b, skv, kvh, hkv, kbase, 1.f);
+    stage<DH>(ks, k, b, skv, kvh, hkv, kbase, 1.f);
+    stage<DH>(vs, v, b, skv, kvh, hkv, kbase, 1.f);
     __syncthreads();
     const int n = min(kRows, k_end - kbase);
     for (int j = 0; j < n; ++j) {
@@ -415,7 +345,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     for (int t = 0; t < NC; ++t) {
       const size_t off = (static_cast<size_t>(b) * sq + qi) * hq * DH +
                          static_cast<size_t>(h) * DH + 4 * (2 * t + half);
-      store4<T>(dq + off, scale4(acc[t], scale));
+      *reinterpret_cast<float4*>(dq + off) = scale4(acc[t], scale);
     }
   }
 }
@@ -423,14 +353,17 @@ __global__ void __launch_bounds__(kBwdThreads)
 // dK and dV.  Block: (batch x KV head, key tile); thread 2r + half owns the
 // chunks {half, half + 2, ...} of key row r, and sums over the group's
 // query heads and every query tile the mask keeps.
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dsum, T* __restrict__ dk,
-                         T* __restrict__ dv, int sq, int skv, int hq, int hkv,
-                         int causal, int window, float scale) {
+    flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ dsum,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int sq, int skv, int hq, int hkv, int causal,
+                             int window, float scale) {
   constexpr int NC = DH / 8;
   __shared__ __align__(16) float qs[kRows][DH];
   __shared__ __align__(16) float dos[kRows][DH];
@@ -452,8 +385,8 @@ __global__ void __launch_bounds__(kBwdThreads)
     if (row_ok) {
       const size_t off = (static_cast<size_t>(b) * skv + kj) * hkv * DH +
                          static_cast<size_t>(kvh) * DH + 4 * (2 * t + half);
-      kv_k[t] = load4<T>(k + off);
-      kv_v[t] = load4<T>(v + off);
+      kv_k[t] = load4(k + off);
+      kv_v[t] = load4(v + off);
     }
   }
 
@@ -468,8 +401,8 @@ __global__ void __launch_bounds__(kBwdThreads)
     for (int qbase = q_begin / kRows * kRows; qbase < q_end;
          qbase += kRows) {
       __syncthreads();  // the previous tile is consumed
-      stage<T, DH>(qs, q, b, sq, h, hq, qbase, scale);
-      stage<T, DH>(dos, dout, b, sq, h, hq, qbase, 1.f);
+      stage<DH>(qs, q, b, sq, h, hq, qbase, scale);
+      stage<DH>(dos, dout, b, sq, h, hq, qbase, 1.f);
       if (threadIdx.x < kRows) {
         const int qi = qbase + threadIdx.x;
         lse_s[threadIdx.x] = qi < sq ? lse[bh * sq + qi] : 0.f;
@@ -507,77 +440,763 @@ __global__ void __launch_bounds__(kBwdThreads)
     for (int t = 0; t < NC; ++t) {
       const size_t off = (static_cast<size_t>(b) * skv + kj) * hkv * DH +
                          static_cast<size_t>(kvh) * DH + 4 * (2 * t + half);
-      store4<T>(dk + off, dkacc[t]);
-      store4<T>(dv + off, dvacc[t]);
+      *reinterpret_cast<float4*>(dk + off) = dkacc[t];
+      *reinterpret_cast<float4*>(dv + off) = dvacc[t];
     }
   }
 }
 
-template <typename T, int DH>
+// ================================================= bf16: tensor-core path
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 64;              // rows of a block, keys of a tile
+constexpr int kThreads = 128;          // 4 warps, 16 rows each
+constexpr int kPad = 8;                // bf16 padding a shared-memory row
+constexpr int kSub = 32;               // keys (dq) or queries (dk/dv) a step
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy to shared memory; zero-fills when !full (the
+// source address must still be valid).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a b: a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// two values (already bf16-exact, or rounded here) as one bf16x2 register,
+// the lower column in the lower half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int DH>
+using Tile = bf16[kTile][DH + kPad];
+
+// Fragment loads from a row-major tile t.  Lane l supplies the address of
+// one row of one of the four 8x8 matrices.
+//
+// load_a: the A fragment (16x16, row-major) of rows r0.. and columns c0..
+template <int DH>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const Tile<DH>& t,
+                                       int r0, int c0, int lane) {
+  ldsm_x4(a, &t[r0 + (lane & 15)][c0 + (lane >> 4) * 8]);
+}
+
+// load_b_nk: B fragments of two n-tiles (n0 and n0 + 8: b[0..1], b[2..3])
+// at k-step k0, from a tile stored [n][k] (rows are B's columns)
+template <int DH>
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4],
+                                          const Tile<DH>& t, int n0, int k0,
+                                          int lane) {
+  ldsm_x4(b, &t[n0 + (lane & 7) + ((lane >> 4) << 3)]
+               [k0 + ((lane >> 3) & 1) * 8]);
+}
+
+// load_b_kn: the same from a tile stored [k][n] (rows are B's rows)
+template <int DH>
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4],
+                                          const Tile<DH>& t, int k0, int n0,
+                                          int lane) {
+  ldsm_x4_trans(b, &t[k0 + (lane & 7) + ((lane >> 3) & 1) * 8]
+                     [n0 + (lane >> 4) * 8]);
+}
+
+// Start the copy of rows [row0, row0 + kTile) of a (B, S, H, DH) tensor at
+// (b, h) into t; rows at or past s are zero.
+template <int DH>
+__device__ __forceinline__ void load_tile(Tile<DH>& t, const bf16* src,
+                                          int b, int s, int h, int n_heads,
+                                          int row0) {
+  constexpr int CPR = DH / 8;  // 16-byte chunks a row
+  for (int c = threadIdx.x; c < kTile * CPR; c += kThreads) {
+    const int r = c / CPR, cc = c % CPR;
+    const int row = row0 + r;
+    const bool ok = row < s;
+    cp_async16(&t[r][8 * cc],
+               src + ((static_cast<size_t>(b) * s + (ok ? row : 0)) *
+                          n_heads + h) * DH + 8 * cc,
+               ok);
+  }
+}
+
+// Write a block's output tile, staged in t, to rows [row0, row0 + kTile)
+// of a (B, S, H, DH) tensor at (b, h), 16 bytes a thread at a time.
+template <int DH>
+__device__ __forceinline__ void store_tile(bf16* dst, const Tile<DH>& t,
+                                           int b, int s, int h, int n_heads,
+                                           int row0) {
+  constexpr int CPR = DH / 8;
+  for (int c = threadIdx.x; c < kTile * CPR; c += kThreads) {
+    const int r = c / CPR, cc = c % CPR;
+    const int row = row0 + r;
+    if (row < s)
+      *reinterpret_cast<uint4*>(
+          dst + ((static_cast<size_t>(b) * s + row) * n_heads + h) * DH +
+          8 * cc) = *reinterpret_cast<const uint4*>(&t[r][8 * cc]);
+  }
+}
+
+// Stage a warp's accumulator fragments (rows w0 + g and w0 + g + 8, DH
+// columns) times mul into t as bf16.
+template <int DH>
+__device__ __forceinline__ void stage_acc(Tile<DH>& t,
+                                          const float (&acc)[DH / 8][4],
+                                          int w0, int lane, float mul0,
+                                          float mul1) {
+  const int g = lane >> 2, c = 2 * (lane & 3);
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) {
+    *reinterpret_cast<__nv_bfloat162*>(&t[w0 + g][8 * nd + c]) =
+        __floats2bfloat162_rn(acc[nd][0] * mul0, acc[nd][1] * mul0);
+    *reinterpret_cast<__nv_bfloat162*>(&t[w0 + g + 8][8 * nd + c]) =
+        __floats2bfloat162_rn(acc[nd][2] * mul1, acc[nd][3] * mul1);
+  }
+}
+
+// Forward.  Block: (batch x query head, 64-row query tile), 4 warps of 16
+// query rows; the block walks the 64-key tiles of its KV head that the
+// mask keeps.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         float* __restrict__ lse, int sq, int skv, int hq,
+                         int hkv, int causal, int window, float scale) {
+  constexpr int KD = DH / 16;     // k-steps over the head dim
+  constexpr int ND = DH / 8;      // n-tiles over the head dim
+  constexpr int NK = kTile / 8;   // n-tiles over a key tile
+  __shared__ __align__(128) Tile<DH> qs;
+  __shared__ __align__(128) Tile<DH> ks[2];
+  __shared__ __align__(128) Tile<DH> vs[2];
+
+  const int lane = threadIdx.x & 31, w0 = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x, b = bh / hq, h = bh % hq;
+  const int kvh = h / (hq / hkv);
+  // the last query tiles see the most keys under a causal mask: start them
+  // first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int qi0 = q0 + w0 + g, qi1 = qi0 + 8;  // this thread's two rows
+
+  const int q_last = min(q0 + kTile, sq) - 1;
+  const int k_end = causal ? min(skv, q_last + 1) : skv;
+  const int k_begin = window ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / kTile;
+  const int t_end = k_end > k_begin ? (k_end + kTile - 1) / kTile : t_begin;
+
+  load_tile<DH>(qs, q, b, sq, h, hq, q0);
+  if (t_begin < t_end) {
+    load_tile<DH>(ks[0], k, b, skv, kvh, hkv, t_begin * kTile);
+    load_tile<DH>(vs[0], v, b, skv, kvh, hkv, t_begin * kTile);
+  }
+  cp_async_commit();
+
+  uint32_t qf[KD][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int it = t_begin; it < t_end; ++it) {
+    const int buf = (it - t_begin) & 1;
+    if (it + 1 < t_end) {
+      load_tile<DH>(ks[buf ^ 1], k, b, skv, kvh, hkv, (it + 1) * kTile);
+      load_tile<DH>(vs[buf ^ 1], v, b, skv, kvh, hkv, (it + 1) * kTile);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (it == t_begin) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) load_a<DH>(qf[kd], qs, w0, 16 * kd, lane);
+    }
+    const int kbase = it * kTile;
+
+    // S = Q K^T, 16 rows x 64 keys a warp
+    float s[NK][4];
+#pragma unroll
+    for (int nt = 0; nt < NK; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+      for (int np = 0; np < NK / 2; ++np) {
+        uint32_t bb[4];
+        load_b_nk<DH>(bb, ks[buf], 16 * np, 16 * kd, lane);
+        mma(s[2 * np], qf[kd], bb[0], bb[1]);
+        mma(s[2 * np + 1], qf[kd], bb[2], bb[3]);
+      }
+    }
+
+    // scale in f32, mask the edge tiles, and the rows' new maxima
+    const bool edge = kbase + kTile > skv ||
+                      (causal && kbase + kTile - 1 > q0) ||
+                      (window && q_last - kbase >= window);
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nt = 0; nt < NK; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kp = kbase + 8 * nt + 2 * tq + e;
+        float v0 = s[nt][e] * scale, v1 = s[nt][2 + e] * scale;
+        if (edge) {
+          if (!kept(qi0, kp, sq, skv, causal, window)) v0 = kNegInf;
+          if (!kept(qi1, kp, sq, skv, causal, window)) v1 = kNegInf;
+        }
+        s[nt][e] = v0;
+        s[nt][2 + e] = v1;
+        mx0 = fmaxf(mx0, v0);
+        mx1 = fmaxf(mx1, v1);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float c0 = exp2f((m0 - mx0) * kLog2e);
+    const float c1 = exp2f((m1 - mx1) * kLog2e);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      acc[nd][0] *= c0;
+      acc[nd][1] *= c0;
+      acc[nd][2] *= c1;
+      acc[nd][3] *= c1;
+    }
+
+    // P rounded to bf16: the A fragments of P V (keys as k), and l
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      float p[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        p[j][0] = round_bf16(exp2f((s[2 * kk + j][0] - m0) * kLog2e));
+        p[j][1] = round_bf16(exp2f((s[2 * kk + j][1] - m0) * kLog2e));
+        p[j][2] = round_bf16(exp2f((s[2 * kk + j][2] - m1) * kLog2e));
+        p[j][3] = round_bf16(exp2f((s[2 * kk + j][3] - m1) * kLog2e));
+        l0 += p[j][0] + p[j][1];
+        l1 += p[j][2] + p[j][3];
+      }
+      const uint32_t pf[4] = {pack(p[0][0], p[0][1]), pack(p[0][2], p[0][3]),
+                              pack(p[1][0], p[1][1]), pack(p[1][2], p[1][3])};
+      // O += P V, V stored [key][d]
+#pragma unroll
+      for (int np = 0; np < ND / 2; ++np) {
+        uint32_t bb[4];
+        load_b_kn<DH>(bb, vs[buf], 16 * kk, 16 * np, lane);
+        mma(acc[2 * np], pf, bb[0], bb[1]);
+        mma(acc[2 * np + 1], pf, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // buffer buf is refilled two tiles on
+  }
+
+  // a row's l is spread over its 4 lanes
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    acc[nd][0] /= d0;
+    acc[nd][1] /= d0;
+    acc[nd][2] /= d1;
+    acc[nd][3] /= d1;
+  }
+  if (lse != nullptr && tq == 0) {
+    if (qi0 < sq) lse[static_cast<size_t>(bh) * sq + qi0] = m0 + logf(l0);
+    if (qi1 < sq) lse[static_cast<size_t>(bh) * sq + qi1] = m1 + logf(l1);
+  }
+  cp_async_wait<0>();  // with no key tile, Q's copy may still be in flight
+  __syncthreads();
+  stage_acc<DH>(qs, acc, w0, lane, 1.f, 1.f);
+  __syncthreads();
+  store_tile<DH>(o, qs, b, sq, h, hq, q0);
+}
+
+// dQ and D = rowsum(dO * O).  Block: (batch x query head, 64-row query
+// tile), 4 warps of 16 query rows, Q and dO held as A fragments; the block
+// walks the key tiles the mask keeps, 32 keys a step.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ o,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            float* __restrict__ dsum, bf16* __restrict__ dq,
+                            int sq, int skv, int hq, int hkv, int causal,
+                            int window, float scale) {
+  constexpr int KD = DH / 16;
+  constexpr int ND = DH / 8;
+  constexpr int NS = kSub / 8;    // n-tiles over a step's keys
+  __shared__ __align__(128) Tile<DH> ks[2];
+  __shared__ __align__(128) Tile<DH> vs[2];
+  __shared__ float lse_s[kTile], d_s[kTile];
+
+  const int lane = threadIdx.x & 31, w0 = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x, b = bh / hq, h = bh % hq;
+  const int kvh = h / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const int qi0 = q0 + w0 + g, qi1 = qi0 + 8;
+
+  // Q and dO through the second buffers into registers
+  load_tile<DH>(ks[1], q, b, sq, h, hq, q0);
+  load_tile<DH>(vs[1], dout, b, sq, h, hq, q0);
+  cp_async_commit();
+  {
+    // D and lse of the tile's rows, two threads a row
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+    const int qi = q0 + r;
+    float dpart = 0.f;
+    if (qi < sq) {
+      const size_t off = (static_cast<size_t>(b) * sq + qi) * hq * DH +
+                         static_cast<size_t>(h) * DH + half * (DH / 2);
+#pragma unroll
+      for (int c = 0; c < DH / 16; ++c) {
+        const uint4 ro = *reinterpret_cast<const uint4*>(o + off + 8 * c);
+        const uint4 rd = *reinterpret_cast<const uint4*>(dout + off + 8 * c);
+        const __nv_bfloat162* eo = reinterpret_cast<const __nv_bfloat162*>(&ro);
+        const __nv_bfloat162* ed = reinterpret_cast<const __nv_bfloat162*>(&rd);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 fo = __bfloat1622float2(eo[j]);
+          const float2 fd = __bfloat1622float2(ed[j]);
+          dpart += fd.x * fo.x + fd.y * fo.y;
+        }
+      }
+    }
+    dpart += __shfl_xor_sync(0xffffffffu, dpart, 1);
+    if (half == 0) {
+      const size_t idx = static_cast<size_t>(bh) * sq + qi;
+      d_s[r] = dpart;
+      lse_s[r] = qi < sq ? lse[idx] : 0.f;
+      if (qi < sq) dsum[idx] = dpart;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KD][4], dof[KD][4];
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd) {
+    load_a<DH>(qf[kd], ks[1], w0, 16 * kd, lane);
+    load_a<DH>(dof[kd], vs[1], w0, 16 * kd, lane);
+  }
+  const float lse0 = lse_s[w0 + g], lse1 = lse_s[w0 + g + 8];
+  const float dd0 = d_s[w0 + g], dd1 = d_s[w0 + g + 8];
+  __syncthreads();  // every warp holds its fragments: the buffers are free
+
+  const int q_last = min(q0 + kTile, sq) - 1;
+  const int k_end = causal ? min(skv, q_last + 1) : skv;
+  const int k_begin = window ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / kTile;
+  const int t_end = k_end > k_begin ? (k_end + kTile - 1) / kTile : t_begin;
+  if (t_begin < t_end) {
+    load_tile<DH>(ks[0], k, b, skv, kvh, hkv, t_begin * kTile);
+    load_tile<DH>(vs[0], v, b, skv, kvh, hkv, t_begin * kTile);
+  }
+  cp_async_commit();
+
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+
+  for (int it = t_begin; it < t_end; ++it) {
+    const int buf = (it - t_begin) & 1;
+    if (it + 1 < t_end) {
+      load_tile<DH>(ks[buf ^ 1], k, b, skv, kvh, hkv, (it + 1) * kTile);
+      load_tile<DH>(vs[buf ^ 1], v, b, skv, kvh, hkv, (it + 1) * kTile);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int kbase = it * kTile;
+    const bool edge = kbase + kTile > skv ||
+                      (causal && kbase + kTile - 1 > q0) ||
+                      (window && q_last - kbase >= window);
+
+#pragma unroll
+    for (int sub = 0; sub < kTile; sub += kSub) {
+      // S = Q K^T and dP = dO V^T, 16 rows x 32 keys a warp
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bb[4];
+          load_b_nk<DH>(bb, ks[buf], sub + 16 * np, 16 * kd, lane);
+          mma(s[2 * np], qf[kd], bb[0], bb[1]);
+          mma(s[2 * np + 1], qf[kd], bb[2], bb[3]);
+          load_b_nk<DH>(bb, vs[buf], sub + 16 * np, 16 * kd, lane);
+          mma(dp[2 * np], dof[kd], bb[0], bb[1]);
+          mma(dp[2 * np + 1], dof[kd], bb[2], bb[3]);
+        }
+      }
+      // dS = P (dP - D), with P = exp(s - lse); as bf16 A fragments
+      // (keys as k) of dQ += dS K
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        float ds[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int nt = 2 * kk + j;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = e < 2 ? qi0 : qi1;
+            const int kp = kbase + sub + 8 * nt + 2 * tq + (e & 1);
+            const float p =
+                !edge || kept(qi, kp, sq, skv, causal, window)
+                    ? exp2f((s[nt][e] * scale - (e < 2 ? lse0 : lse1)) *
+                            kLog2e)
+                    : 0.f;
+            ds[j][e] = p * (dp[nt][e] - (e < 2 ? dd0 : dd1));
+          }
+        }
+        const uint32_t df[4] = {pack(ds[0][0], ds[0][1]),
+                                pack(ds[0][2], ds[0][3]),
+                                pack(ds[1][0], ds[1][1]),
+                                pack(ds[1][2], ds[1][3])};
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {
+          uint32_t bb[4];
+          load_b_kn<DH>(bb, ks[buf], sub + 16 * kk, 16 * np, lane);
+          mma(acc[2 * np], df, bb[0], bb[1]);
+          mma(acc[2 * np + 1], df, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // buffer buf is refilled two tiles on
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();
+  stage_acc<DH>(ks[0], acc, w0, lane, scale, scale);
+  __syncthreads();
+  store_tile<DH>(dq, ks[0], b, sq, h, hq, q0);
+}
+
+// One step of the dk/dv kernel: start the copy of query head h's Q and dO
+// rows [qbase, qbase + kTile) and load their lse and D (0 past sq).
+template <int DH>
+__device__ __forceinline__ void load_q_step(
+    Tile<DH>& qd, Tile<DH>& dod, float* lse_d, float* d_d, const bf16* q,
+    const bf16* dout, const float* lse, const float* dsum, int b, int sq,
+    int h, int hq, int qbase) {
+  load_tile<DH>(qd, q, b, sq, h, hq, qbase);
+  load_tile<DH>(dod, dout, b, sq, h, hq, qbase);
+  if (threadIdx.x < kTile) {
+    const int qi = qbase + threadIdx.x;
+    const size_t idx = (static_cast<size_t>(b) * hq + h) * sq + qi;
+    lse_d[threadIdx.x] = qi < sq ? lse[idx] : 0.f;
+    d_d[threadIdx.x] = qi < sq ? dsum[idx] : 0.f;
+  }
+}
+
+// dK and dV.  Block: (batch x KV head, 64-key tile), 4 warps of 16 keys,
+// K and V held as A fragments; the block walks the group's query heads
+// and, for each, the query tiles the mask keeps, 32 queries a step.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ dsum,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             int sq, int skv, int hq, int hkv, int causal,
+                             int window, float scale) {
+  constexpr int KD = DH / 16;
+  constexpr int ND = DH / 8;
+  constexpr int NS = kSub / 8;    // n-tiles over a step's queries
+  __shared__ __align__(128) Tile<DH> qs[2];
+  __shared__ __align__(128) Tile<DH> dos[2];
+  __shared__ float lse_s[2][kTile], d_s[2][kTile];
+
+  const int lane = threadIdx.x & 31, w0 = 16 * (threadIdx.x >> 5);
+  const int g = lane >> 2, tq = lane & 3;
+  const int bkh = blockIdx.x, b = bkh / hkv, kvh = bkh % hkv;
+  const int qpk = hq / hkv;
+  // the first key tiles are seen by the most queries under a causal mask
+  const int k0 = blockIdx.y * kTile;
+  const int kj0 = k0 + w0 + g, kj1 = kj0 + 8;  // this thread's two keys
+
+  // K and V through the second buffers into registers
+  load_tile<DH>(qs[1], k, b, skv, kvh, hkv, k0);
+  load_tile<DH>(dos[1], v, b, skv, kvh, hkv, k0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t kf[KD][4], vf[KD][4];
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd) {
+    load_a<DH>(kf[kd], qs[1], w0, 16 * kd, lane);
+    load_a<DH>(vf[kd], dos[1], w0, 16 * kd, lane);
+  }
+  __syncthreads();
+
+  // queries that may see a key of this tile
+  const int k_last = min(k0 + kTile, skv) - 1;
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window ? min(sq, k_last + window) : sq;
+  const int t_begin = q_begin / kTile;
+  const int n_tiles =
+      q_end > q_begin ? (q_end + kTile - 1) / kTile - t_begin : 0;
+  const int n_steps = qpk * n_tiles;  // (query head, query tile) pairs
+
+  if (n_steps > 0)
+    load_q_step<DH>(qs[0], dos[0], lse_s[0], d_s[0], q, dout, lse, dsum, b,
+                    sq, kvh * qpk, hq, t_begin * kTile);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < n_steps)
+      load_q_step<DH>(qs[buf ^ 1], dos[buf ^ 1], lse_s[buf ^ 1],
+                      d_s[buf ^ 1], q, dout, lse, dsum, b, sq,
+                      kvh * qpk + (i + 1) / n_tiles, hq,
+                      (t_begin + (i + 1) % n_tiles) * kTile);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int qbase = (t_begin + i % n_tiles) * kTile;
+    const bool edge = k0 + kTile > skv || qbase + kTile > sq ||
+                      (causal && qbase < k0 + kTile - 1) ||
+                      (window && qbase + kTile - 1 - k0 >= window);
+
+#pragma unroll
+    for (int sub = 0; sub < kTile; sub += kSub) {
+      // S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 queries a warp
+      float st[NS][4], dpt[NS][4];
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bb[4];
+          load_b_nk<DH>(bb, qs[buf], sub + 16 * np, 16 * kd, lane);
+          mma(st[2 * np], kf[kd], bb[0], bb[1]);
+          mma(st[2 * np + 1], kf[kd], bb[2], bb[3]);
+          load_b_nk<DH>(bb, dos[buf], sub + 16 * np, 16 * kd, lane);
+          mma(dpt[2 * np], vf[kd], bb[0], bb[1]);
+          mma(dpt[2 * np + 1], vf[kd], bb[2], bb[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        // P^T = exp(s - lse) and dS^T = P^T (dP^T - D), queries as columns
+        float p[2][4], ds[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int nt = 2 * kk + j;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = sub + 8 * nt + 2 * tq + (e & 1);
+            const int kj = e < 2 ? kj0 : kj1;
+            const float pe =
+                !edge || kept(qbase + col, kj, sq, skv, causal, window)
+                    ? exp2f((st[nt][e] * scale - lse_s[buf][col]) * kLog2e)
+                    : 0.f;
+            ds[j][e] = pe * (dpt[nt][e] - d_s[buf][col]);
+            p[j][e] = pe;
+          }
+        }
+        const uint32_t pf[4] = {pack(p[0][0], p[0][1]), pack(p[0][2], p[0][3]),
+                                pack(p[1][0], p[1][1]), pack(p[1][2], p[1][3])};
+        const uint32_t df[4] = {pack(ds[0][0], ds[0][1]),
+                                pack(ds[0][2], ds[0][3]),
+                                pack(ds[1][0], ds[1][1]),
+                                pack(ds[1][2], ds[1][3])};
+        // dV += P^T dO and dK += dS^T Q, dO and Q stored [query][d]
+#pragma unroll
+        for (int np = 0; np < ND / 2; ++np) {
+          uint32_t bb[4];
+          load_b_kn<DH>(bb, dos[buf], sub + 16 * kk, 16 * np, lane);
+          mma(dva[2 * np], pf, bb[0], bb[1]);
+          mma(dva[2 * np + 1], pf, bb[2], bb[3]);
+          load_b_kn<DH>(bb, qs[buf], sub + 16 * kk, 16 * np, lane);
+          mma(dka[2 * np], df, bb[0], bb[1]);
+          mma(dka[2 * np + 1], df, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // buffer buf is refilled two steps on
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();
+  stage_acc<DH>(qs[0], dka, w0, lane, scale, scale);
+  stage_acc<DH>(dos[0], dva, w0, lane, 1.f, 1.f);
+  __syncthreads();
+  store_tile<DH>(dk, qs[0], b, skv, kvh, hkv, k0);
+  store_tile<DH>(dv, dos[0], b, skv, kvh, hkv, k0);
+}
+
+// ================================================================ launches
+
+// both paths share a grid: one block per 64 query rows or keys
+static_assert(kBlockQ == kTile && kRows == kTile, "one tile size");
+
+// Dh^-0.5 in double, rounded once to f32, as the Python side computes it
+template <int DH>
+float head_scale() {
+  return static_cast<float>(1.0 / std::sqrt(static_cast<double>(DH)));
+}
+
+template <int DH>
+void launch_fwd(const void* q, const void* k, const void* v, void* o,
+                float* lse, int b, int sq, int skv, int hq, int hkv,
+                int causal, int window, int dtype, cudaStream_t stream) {
+  const float scale = head_scale<DH>();
+  const dim3 grid(b * hq, (sq + kTile - 1) / kTile);
+  if (dtype == 0)
+    flash_fwd_fma_kernel<DH><<<grid, kBlockQ, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, sq, skv,
+        hq, hkv, causal, window, scale);
+  else
+    flash_fwd_mma_kernel<DH><<<grid, kThreads, 0, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, skv,
+        hq, hkv, causal, window, scale);
+}
+
+template <int DH>
 void launch_bwd(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, float* dsum, void* dq,
                 void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
-                int causal, int window, cudaStream_t stream) {
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(DH)));
-  const dim3 grid_q(b * hq, (sq + kRows - 1) / kRows);
-  flash_bwd_dq_kernel<T, DH><<<grid_q, kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), sq, skv,
-      hq, hkv, causal, window, scale);
-  const dim3 grid_kv(b * hkv, (skv + kRows - 1) / kRows);
-  flash_bwd_dkv_kernel<T, DH><<<grid_kv, kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, hq, hkv, causal,
-      window, scale);
-}
-
-template <typename T>
-int dispatch_bwd(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, const float* lse, float* dsum, void* dq,
-                 void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
-                 int dh, int causal, int window, cudaStream_t s) {
-  switch (dh) {
-    case 16:
-      launch_bwd<T, 16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq, skv,
-                        hq, hkv, causal, window, s);
-      break;
-    case 32:
-      launch_bwd<T, 32>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq, skv,
-                        hq, hkv, causal, window, s);
-      break;
-    case 64:
-      launch_bwd<T, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, b, sq, skv,
-                        hq, hkv, causal, window, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+                int causal, int window, int dtype, cudaStream_t stream) {
+  const float scale = head_scale<DH>();
+  const dim3 grid_q(b * hq, (sq + kTile - 1) / kTile);
+  const dim3 grid_kv(b * hkv, (skv + kTile - 1) / kTile);
+  if (dtype == 0) {
+    using T = float;
+    flash_bwd_dq_fma_kernel<DH><<<grid_q, kBwdThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(o),
+        static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), sq, skv,
+        hq, hkv, causal, window, scale);
+    flash_bwd_dkv_fma_kernel<DH><<<grid_kv, kBwdThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
+        static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, hq, hkv, causal,
+        window, scale);
+  } else {
+    using T = bf16;
+    flash_bwd_dq_mma_kernel<DH><<<grid_q, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(o),
+        static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), sq, skv,
+        hq, hkv, causal, window, scale);
+    flash_bwd_dkv_mma_kernel<DH><<<grid_kv, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
+        static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, hq, hkv, causal,
+        window, scale);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; dh in {16, 32, 64}.  Pointers must be
-// 16-byte aligned and the tensors contiguous; lse is null or (b, hq, sq)
-// f32.  Returns cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel); dh
+// in {16, 32, 64}.  Pointers must be 16-byte aligned and the tensors
+// contiguous; lse is null or (b, hq, sq) f32.  Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int firm_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, void* lse, int b,
                                     int sq, int skv, int hq, int hkv, int dh,
                                     int causal, int window, int dtype,
                                     void* stream) {
-  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0)
+  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0)
-    return dispatch_dh<float>(q, k, v, o, l, b, sq, skv, hq, hkv, dh, causal,
-                              window, s);
-  if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(q, k, v, o, l, b, sq, skv, hq, hkv, dh,
-                                      causal, window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (dh) {
+    case 16:
+      launch_fwd<16>(q, k, v, o, l, b, sq, skv, hq, hkv, causal, window,
+                     dtype, s);
+      break;
+    case 32:
+      launch_fwd<32>(q, k, v, o, l, b, sq, skv, hq, hkv, causal, window,
+                     dtype, s);
+      break;
+    case 64:
+      launch_fwd<64>(q, k, v, o, l, b, sq, skv, hq, hkv, causal, window,
+                     dtype, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Gradients of firm_flash_attention: dq, dk, dv (the inputs' shapes and
@@ -590,17 +1209,27 @@ extern "C" int firm_flash_attention_bwd(
     const void* dout, const void* lse, void* dsum, void* dq, void* dk,
     void* dv, int b, int sq, int skv, int hq, int hkv, int dh, int causal,
     int window, int dtype, void* stream) {
-  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0)
+  if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* ds = static_cast<float*>(dsum);
-  if (dtype == 0)
-    return dispatch_bwd<float>(q, k, v, o, dout, l, ds, dq, dk, dv, b, sq,
-                               skv, hq, hkv, dh, causal, window, s);
-  if (dtype == 1)
-    return dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, l, ds, dq, dk, dv,
-                                       b, sq, skv, hq, hkv, dh, causal,
-                                       window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (dh) {
+    case 16:
+      launch_bwd<16>(q, k, v, o, dout, l, ds, dq, dk, dv, b, sq, skv, hq,
+                     hkv, causal, window, dtype, s);
+      break;
+    case 32:
+      launch_bwd<32>(q, k, v, o, dout, l, ds, dq, dk, dv, b, sq, skv, hq,
+                     hkv, causal, window, dtype, s);
+      break;
+    case 64:
+      launch_bwd<64>(q, k, v, o, dout, l, ds, dq, dk, dv, b, sq, skv, hq,
+                     hkv, causal, window, dtype, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

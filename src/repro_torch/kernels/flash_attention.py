@@ -6,7 +6,9 @@ kernel it takes ragged sequence lengths.  ``flash_attention_bwd`` computes
 its gradients, which the JAX package takes from autodiff of the XLA twin.
 ``flash_attention`` joins the two in an ``autograd.Function``.  The
 wrappers take CUDA tensors only; ``kernels.ops.flash_attention`` sends CPU
-tensors to the plain version in ``kernels.ref``.
+tensors to the plain version in ``kernels.ref``.  The C entries pick the
+kernel by dtype (``PATHS``): bf16 runs the tensor-core kernels, f32 the
+FMA kernels.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels each dtype's C entry launches (csrc/flash_attention.cu)
+PATHS = {torch.float32: "fma", torch.bfloat16: "tensor-core"}
 HEAD_DIMS = (16, 32, 64)
 
 # kernel launches so far (the backward counts one per call of its C entry,
@@ -26,11 +30,10 @@ launches = 0
 bwd_launches = 0
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           sliding_window: int, *more: torch.Tensor) -> None:
-    if not q.is_cuda or any(t.device != q.device for t in (k, v, *more)):
-        raise ValueError("flash_attention kernel needs CUDA q, k, v on one "
-                         f"device, got {q.device}, {k.device}, {v.device}")
+def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                sliding_window: int, *more: torch.Tensor) -> None:
+    """Refuse dtypes, shapes and windows the kernels do not take, on any
+    device."""
     if q.dtype not in DTYPES or any(t.dtype != q.dtype
                                     for t in (k, v, *more)):
         raise TypeError("flash_attention kernel takes float32 or bfloat16 "
@@ -52,13 +55,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{HEAD_DIMS}, got {dh}")
     if sliding_window < 0:
         raise ValueError(f"sliding_window must be >= 0, got {sliding_window}")
+    if max(q.numel(), k.numel()) >= 2 ** 31:
+        raise ValueError("flash_attention kernel takes < 2**31 elements")
+
+
+def _check_device(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  *more: torch.Tensor) -> None:
+    """Refuse tensors that are not on one CUDA device, contiguous and
+    16-byte aligned."""
+    if not q.is_cuda or any(t.device != q.device for t in (k, v, *more)):
+        raise ValueError("flash_attention kernel needs CUDA q, k, v on one "
+                         f"device, got {q.device}, {k.device}, {v.device}")
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(
             (f"operand {i}", t) for i, t in enumerate(more)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel needs {name} "
                              "contiguous and 16-byte aligned")
-    if max(q.numel(), k.numel()) >= 2 ** 31:
-        raise ValueError("flash_attention kernel takes < 2**31 elements")
 
 
 def _stream(t: torch.Tensor):
@@ -74,7 +86,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     log-sum-exp of the scaled scores that the backward reads.
     """
     global launches
-    _check(q, k, v, sliding_window)
+    _check_args(q, k, v, sliding_window)
+    _check_device(q, k, v)
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -100,7 +113,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of ``flash_attention_fwd`` given its o and lse and the
     output gradient ``do`` (o's shape and dtype)."""
     global bwd_launches
-    _check(q, k, v, sliding_window, o, do)
+    _check_args(q, k, v, sliding_window, o, do)
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if o.shape != q.shape or do.shape != q.shape:
@@ -113,6 +126,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"query rows past Skv + window - 2 = {skv + sliding_window - 2} "
             f"see no key (Sq = {sq}); the backward kernel does not take them")
+    _check_device(q, k, v, o, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
