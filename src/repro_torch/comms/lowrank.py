@@ -24,6 +24,16 @@ import torch.nn.functional as F
 from repro_torch.comms.codec import Codec
 
 
+# The f32 codec's decoded vector, and so its error-feedback residual, lies
+# within F32_ERROR_K * 2**-24 * cond(P) * max|flat| of the same math in
+# float64, P the range sample (``LowRankCodec.range_sample``): P's
+# condition number scales the rounding of its QR, and rank r cancels the
+# few dominant rows of a vector of mixed row scale almost exactly, so the
+# error is measured against the terms that cancel.  Held on the CPU over
+# draws of mixed row scale (tests/test_torch_lowrank_conditioning.py).
+F32_ERROR_K = 4.0
+
+
 def _matrix_shape(d: int):
     a = 1
     while a * a < d:
@@ -49,13 +59,20 @@ class LowRankCodec(Codec):
             key = torch.Generator(device=device).manual_seed(0)
         return torch.randn((b, self.rank), generator=key, device=key.device)
 
-    def encode_flat(self, flat, *, key=None, bits=None):
+    def range_sample(self, flat, omega):
+        """The padded (a, b) matrix X of ``flat`` and its (a, r) range
+        sample P = X (X^T X)^p Omega, whose orthonormal basis is Q."""
         d = flat.numel()
         a, b = _matrix_shape(d)
         x = F.pad(flat.float(), (0, a * b - d)).reshape(a, b)
-        p = x @ self._omega(b, key, bits, x.device)     # (a, r) range sample
+        p = x @ omega
         for _ in range(self.power_iters):
             p = x @ (x.T @ p)
+        return x, p
+
+    def encode_flat(self, flat, *, key=None, bits=None):
+        a, b = _matrix_shape(flat.numel())
+        x, p = self.range_sample(flat, self._omega(b, key, bits, flat.device))
         q, _ = torch.linalg.qr(p)                       # (a, r) orthonormal
         return {"q": q.contiguous(), "b": (q.T @ x).contiguous()}, \
             {"a": a, "b_cols": b}

@@ -48,11 +48,13 @@ SIGNATURES = {
     "firm_abs_threshold_count": (_P, _P, _P, _P, _I, _I, _P),
     # x, thresh, out, clients, rows, stream
     "firm_abs_threshold_mask": (_P, _P, _P, _I, _I, _P),
-    # x, bm, cm, dt, da, y, state (or null), batch, seqlen, nh, ds, the
-    # element strides of x (batch, seq, head), B and C (batch, seq), dt
-    # and da (batch, seq), stream
-    "firm_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    # x, bm, cm, dt, da, y, state (or null), final_state, batch, seqlen,
+    # nh, ds, the element strides of x (batch, seq, head), B and C (batch,
+    # seq), dt and da (batch, seq), stream
+    "firm_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # ds, int* blocks an SM (out), int* shared memory bytes a block (out)
+    "firm_ssd_occupancy": (_I, _P, _P),
 }
 
 

@@ -6,26 +6,33 @@
 // 1 <= M <= 8 (the Pallas kernel's M_PAD); G is (M, M) f32.  The Pallas
 // kernel pads M to 8 and carries one (8, 8) block across a sequential grid
 // over tiles of d.  Blocks of a CUDA grid run in parallel and in no order,
-// so the sum over d takes two passes instead:
+// so the sum over d is taken in one launch of two stages:
 //
-//   1. gram_partial_kernel: n_blocks blocks walk d in a grid-stride loop of
-//      16-byte loads (4 f32 or 8 bf16 per thread and row) and keep the
-//      M(M+1)/2 upper-triangle products in f32 registers; each block reduces
-//      them (warp shuffles, then one shared array) into its row of a
-//      (n_blocks, M(M+1)/2) partials buffer that the wrapper allocates.
-//   2. gram_finish_kernel: one block; thread p sums column p of the
-//      partials over the blocks in a fixed order and writes G[i][j] and
-//      G[j][i].
+//   1. every block walks d in a grid-stride loop of 16-byte loads (4 f32
+//      or 8 bf16 per thread and row), U of them a row issued together
+//      before any is used (U = 8 / M, at least 1: 8 loads in flight a
+//      thread), keeps the M(M+1)/2 upper-triangle products in f32
+//      registers, and reduces them (warp shuffles, then one shared array)
+//      into its column of a (M(M+1)/2, n_blocks) partials buffer that the
+//      wrapper allocates;
+//   2. the last block to finish, found by an integer ticket that every
+//      block takes after a __threadfence, sums the partials in block order
+//      and writes G[i][j] and G[j][i]; it sets the ticket back to 0, so
+//      the next call needs no reset of its own.
 //
 // No float atomics: every sum runs in an order fixed by the launch shape,
 // so G is the same bits from run to run.  Rows whose width or alignment
-// does not allow 16-byte loads take a scalar loop over the same grid.
+// does not allow 16-byte loads take a scalar loop over the same grid.  The
+// ticket is one counter on the device: calls run one at a time in stream
+// order, as the port makes them.
 //
 // What bounds it on the H100: memory bandwidth.  It reads M*d elements once
 // and does M(M+1)/2 FMAs per column; at the FIRM local step's shape
 // (M = 2, d = 3,407,872 f32 LoRA gradients) that is 27.3 MB, 8.1 us at
-// 3.35 TB/s, against 20 MFLOP of arithmetic.  The wrapper launches
-// n_blocks = 2 x 132 blocks of 256 threads: two on every SM of an H100.
+// 3.35 TB/s, against 20 MFLOP of arithmetic.  The first design
+// took two launches, a one-block finish kernel walking 264 partials in
+// turn, and one 16-byte load a row in flight per thread: 19.7 us.  The
+// wrapper launches n_blocks = 4 x 132 blocks of 256 threads: one wave.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,7 +40,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxM = 8;
+
+// blocks that have finished stage 1 of the current call
+__device__ unsigned int g_done = 0;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -51,13 +62,52 @@ __device__ __forceinline__ void accumulate(const float (&v)[M],
     for (int j = i; j < M; ++j) acc[p++] += v[i] * v[j];
 }
 
+// The columns held in the raw 16-byte units of M rows.
+template <typename T, int M>
+__device__ __forceinline__ void accumulate_units(const uint4 (&raw)[M],
+                                                 float (&acc)[M * (M + 1) /
+                                                              2]) {
+  constexpr int V = 16 / sizeof(T);
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    float v[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      v[i] = to_f(reinterpret_cast<const T*>(&raw[i])[e]);
+    accumulate<M>(v, acc);
+  }
+}
+
+// Sums acc[p] over the block in a fixed order; thread p < P gets sum p.
+template <int P>
+__device__ __forceinline__ float block_sum(float (&acc)[P],
+                                           float (&red)[kWarps][P]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    float s = acc[p];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) red[warp][p] = s;
+  }
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x < P) {
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
+  }
+  return s;
+}
+
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
-    gram_partial_kernel(const T* __restrict__ x, float* __restrict__ partials,
-                        long long d, bool vec) {
+    gram_kernel(const T* __restrict__ x, float* __restrict__ partials,
+                float* __restrict__ g, long long d, bool vec) {
   constexpr int P = M * (M + 1) / 2;
   constexpr int V = 16 / sizeof(T);
-  __shared__ float red[kThreads / 32][P];
+  constexpr int U = M >= 8 ? 1 : 8 / M;   // 16-byte loads a row in flight
+  __shared__ float red[kWarps][P];
+  __shared__ bool last;
   float acc[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) acc[p] = 0.f;
@@ -67,19 +117,24 @@ __global__ void __launch_bounds__(kThreads)
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   if (vec) {
     const long long nv = d / V;
-    for (long long c = tid; c < nv; c += stride) {
+    long long c = tid;
+    for (; c + (U - 1) * stride < nv; c += U * stride) {
+      uint4 raw[U][M];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int i = 0; i < M; ++i)
+          raw[u][i] =
+              reinterpret_cast<const uint4*>(x + i * d)[c + u * stride];
+#pragma unroll
+      for (int u = 0; u < U; ++u) accumulate_units<T, M>(raw[u], acc);
+    }
+    for (; c < nv; c += stride) {
       uint4 raw[M];
 #pragma unroll
       for (int i = 0; i < M; ++i)
         raw[i] = reinterpret_cast<const uint4*>(x + i * d)[c];
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        float v[M];
-#pragma unroll
-        for (int i = 0; i < M; ++i)
-          v[i] = to_f(reinterpret_cast<const T*>(&raw[i])[e]);
-        accumulate<M>(v, acc);
-      }
+      accumulate_units<T, M>(raw, acc);
     }
   } else {
     for (long long c = tid; c < d; c += stride) {
@@ -90,40 +145,42 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    float s = acc[p];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) red[warp][p] = s;
-  }
+  // stage 1: this block's sums into its column of the partials
+  const float part = block_sum<P>(acc, red);
+  if (threadIdx.x < P)
+    partials[static_cast<size_t>(threadIdx.x) * gridDim.x + blockIdx.x] =
+        part;
+  __threadfence();
   __syncthreads();
-  if (threadIdx.x < P) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w][threadIdx.x];
-    partials[static_cast<size_t>(blockIdx.x) * P + threadIdx.x] = s;
-  }
-}
+  if (threadIdx.x == 0)
+    last = atomicAdd(&g_done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
 
-template <int M>
-__global__ void gram_finish_kernel(const float* __restrict__ partials,
-                                   float* __restrict__ g, int n_blocks) {
-  constexpr int P = M * (M + 1) / 2;
-  const int p = threadIdx.x;
-  if (p >= P) return;
-  float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += partials[b * P + p];
-  // packed upper-triangle index p -> (i, j), i <= j
-  int i = 0, row_start = 0;
-  while (p >= row_start + (M - i)) {
-    row_start += M - i;
-    ++i;
+  // stage 2, the last block: the partials in block order, thread b taking
+  // blocks b, b + 256, ...; read past L1, which may hold none of them
+  float sum[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) sum[p] = 0.f;
+  for (int blk = threadIdx.x; blk < gridDim.x; blk += kThreads)
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      sum[p] += __ldcg(partials + static_cast<size_t>(p) * gridDim.x + blk);
+  __syncthreads();   // red is reused
+  const float total = block_sum<P>(sum, red);
+  if (threadIdx.x < P) {
+    // packed upper-triangle index p -> (i, j), i <= j
+    const int p = threadIdx.x;
+    int i = 0, row_start = 0;
+    while (p >= row_start + (M - i)) {
+      row_start += M - i;
+      ++i;
+    }
+    const int j = i + (p - row_start);
+    g[i * M + j] = total;
+    g[j * M + i] = total;
   }
-  const int j = i + (p - row_start);
-  g[i * M + j] = s;
-  g[j * M + i] = s;
+  if (threadIdx.x == 0) g_done = 0;
 }
 
 template <typename T, int M>
@@ -132,9 +189,8 @@ void launch(const void* x, float* partials, float* g, long long d,
   constexpr int V = 16 / sizeof(T);
   const bool vec =
       (reinterpret_cast<uintptr_t>(x) & 15) == 0 && d % V == 0;
-  gram_partial_kernel<T, M><<<n_blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), partials, d, vec);
-  gram_finish_kernel<M><<<1, 64, 0, stream>>>(partials, g, n_blocks);
+  gram_kernel<T, M><<<n_blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), partials, g, d, vec);
 }
 
 template <typename T>
@@ -157,8 +213,8 @@ int dispatch_m(const void* x, float* partials, float* g, int m, long long d,
 }  // namespace
 
 // x: (m, d) contiguous; partials: scratch of n_blocks * m * (m + 1) / 2
-// f32; g: (m, m) f32.  dtype: 0 = float32, 1 = bfloat16.  Returns
-// cudaGetLastError() after the launches (0 on success).
+// f32; g: (m, m) f32.  dtype: 0 = float32, 1 = bfloat16.  One kernel
+// launch.  Returns cudaGetLastError() after it (0 on success).
 extern "C" int firm_gram(const void* x, void* partials, void* g, int m,
                          int d, int n_blocks, int dtype, void* stream) {
   if (m < 1 || m > kMaxM || d <= 0 || n_blocks <= 0)

@@ -17,292 +17,624 @@
 //   y_inter[i] = (C_i . state) exp(L_i)
 //   state     <- state exp(L_end) + sum_j (x_j dt_j exp(L_end - L_j)) B_j^T
 //
-// One block of 256 threads per (batch row, head) walks the chunks in order;
-// the (ds, hd) f32 state stays in shared memory from one chunk to the next,
-// as the Pallas kernel keeps it in VMEM scratch across its sequential grid.
-// A chunk's x, B^T, C^T, dt, L and the (128, 128) score tile (transposed,
-// st[j][i]) sit in shared memory too: 180 KB at ds = 64, so one block per
-// SM, set with cudaFuncSetAttribute.  Three register-tiled f32 products
-// follow, each on operands laid out with the summed index first:
+// What bounds it on the H100: bytes, once the products run on tensor
+// cores.  At the rollout's reference forward (B = 16, S = 256, nh = 64,
+// hd = ds = 64) the function moves 155 MB (46.3 us at 3.35 TB/s) and needs
+// 6.5 GFLOP: 13 us at 495 TFLOP/s TF32, 39 us as three TF32 products a
+// product, but 97 us on the FMA pipes (67 TFLOP/s of f32).  The first
+// design ran there: three register-tiled f32 FMA products, C B^T
+// recomputed for each head, a 64 KB score tile in 180 KB of shared memory
+// (one block an SM) and the cumsum of L taken by one thread: 0.59 ms.
 //
-//   A: scores = C B^T, an 8x8 tile a thread, tiles above the diagonal
-//      skipped; the decay is masked BEFORE exp (j > i gives 0 without
-//      evaluating exp(L_i - L_j), which overflows there), and L_i - L_j is
-//      formed before exp (exp(L_i) exp(-L_j) overflows at L ~ -1400).
-//   B: y = scores x + (C state^T) exp(L), an 8x4 tile a thread, the j loop
-//      ending at the tile's last row (causal).
-//   C: the state update, a (ds/16)x4 tile a thread.
+// This design, one block of 8 warps per (batch row, group of 4 heads),
+// walking the chunks in order; per chunk:
 //
-// Ragged S: positions past S in the last chunk are loaded as zeros, as the
-// reference pads them; a zero dt and a zero da leave the state unchanged,
-// so the final state is exact, and rows past S are not stored.  C B^T is
-// recomputed for each head (it is head-independent: sharing it across the
-// 64 heads is later work).  No atomics: every sum runs in a fixed order,
-// so the same inputs give the same bits.
+// 1. cp.async brings C and B, the first head's x, and (after the first
+//    chunk) its state and da.
+// 2. After the first chunk, each head's y_inter = (C state^T) exp(L_i)
+//    goes to y; each head's state lives in the state
+//    buffer in device memory between chunks (the output, or scratch from
+//    the wrapper; L2-resident at these sizes).
+// 3. C B^T, once for the 4 heads: 72 tiles of 16 x 8 on or below the
+//    diagonal, into the shared memory that C and the state held, in
+//    A-fragment order.
+// 4. Each head: its scores, C B^T times exp(L_i - L_j) (masked to -inf
+//    before exp for j > i) times dt_j, element by element from those
+//    tiles; y = y_inter (read back by the thread that wrote it) + scores
+//    x; then state <- state exp(L_end) + (x w)^T B.
 //
-// What bounds it on the H100: the f32 operations.  At the rollout's
-// reference forward (B = 16, S = 256, nh = 64, hd = ds = 64) the function
-// moves ~155 MB (46 us at 3.35 TB/s) and needs ~6.5 GFLOP (about 0.1 ms at
-// 67 TFLOP/s), without tensor cores; this first version also recomputes
-// C B^T per head and runs on CUDA cores only.
+// * Tensor cores.  Every product is mma.sync.m16n8k8 on TF32 operands
+//   with f32 accumulators.  TF32 keeps 10 mantissa bits, so C B^T, the
+//   scores times x and the state update are each split (hi = tf32(v),
+//   lo = tf32(v - hi); hi hi + hi lo + lo hi), which holds them to f32's
+//   error; single TF32 gave 2.6e-4 to 5.0e-4 of y's or the state's scale
+//   in a CPU model of this kernel's arithmetic (tests/
+//   test_torch_ssd_rules.py), against a 1e-4 gate.  C state^T is split
+//   too: one TF32 product there holds that gate (2.6e-5) but moves y from
+//   the plain version 100x further than the split does, which 32 Mamba2
+//   layers compound past zamba2's f32 logits gate.  Inside each 8-wide k
+//   step the k
+//   index is permuted (even j to the first four columns, odd to the last
+//   four), so that the accumulator layout of C B^T is the A-fragment
+//   layout of the scores and no shuffle is needed.
+// * Balanced causal work: warps q and q + 4 share the 16-row slabs q and
+//   7 - q (18 tiles a pair), each taking 4 of y's 8 column tiles.
+// * 113 KB of shared memory a block (C and one head's state, whose room C
+//   B^T takes over in step 3; B; one head's x; L and dt: 115,712 bytes at
+//   ds = 64) and at most 128 registers a thread, so two blocks of 8 warps
+//   fit an SM.  Every tile is XOR-swizzled in 16-byte units (no padding)
+//   so that the fragment loads are free of bank conflicts at ds = 64.
+// * L by one thread in order, through registers (scan_L says why not
+//   in parallel); past S on a ragged last chunk it stays exactly at
+//   L[S - 1], so the last position's weight dt exp(L_end - L_j) is dt
+//   exactly and the final state is as exact as the padded reference's.
+//   exp is expf on the plain version's arguments, so the decays have its
+//   bits.
+//
+// Ragged S: positions past S are loaded as zeros (x, B, C, dt and da), as
+// the reference pads them, and rows past S are not stored.  No atomics:
+// every sum runs in a fixed order, so the same inputs give the same bits,
+// whatever their strides.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // 8 warps
 constexpr int kChunk = 128;
 constexpr int kHd = 64;
-constexpr int kLdt = kChunk + 4;   // row length of the transposed B and C
+constexpr int kGroup = 4;       // heads a block
+constexpr int kTiles = 72;      // 16 x 8 tiles of C B^T on or below the
+                                // diagonal of 16 x 16 blocks
 
 template <int DS>
 struct Smem {
-  float ct[DS][kLdt];            // C^T of the chunk: ct[s][i]
-  float bt[DS][kLdt];            // B^T of the chunk: bt[s][j]
-  float x[kChunk][kHd];          // x[j][d]
-  float st[kChunk][kChunk];      // masked scores, transposed: st[j][i]
-  float state[DS][kHd];          // the carried state, transposed: [s][d]
+  union {
+    struct {
+      float c[kChunk * DS];      // C of the chunk, [i][s], swizzled
+      float state[kHd * DS];     // one head's state before the chunk
+    } in;                        // steps 1-2
+    float4 cb[kTiles * 32];      // C B^T tiles in A-fragment order, 3-4
+  } u;
+  float b[kChunk * DS];          // B of the chunk, [j][s], swizzled
+  float x[kChunk * kHd];         // x of one head, [j][d], swizzled
   float L[kChunk];               // inclusive cumsum of da
   float dt[kChunk];
-  float w[kChunk];               // dt_j exp(L_end - L_j)
 };
 
 struct Strides {
   int xb, xs, xh;                // x: batch, position, head
   int bb, bs, cb, cs;            // B and C: batch, position
-  int db, ds, ab, as;            // dt and da: batch, position (head: 1)
+  int dtb, dts, dab, das;        // dt and da: batch, position (head: 1)
 };
 
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 lo = *reinterpret_cast<const float4*>(p);
-  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+// Element offset of (row, col) in a [rows][COLS] f32 tile whose 16-byte
+// units are XOR-swizzled by row, so that the 8 rows x 4 columns that an
+// mma fragment load touches fall in 32 distinct banks (at COLS = 64).
+template <int COLS>
+__device__ __forceinline__ int swz(int row, int col) {
+  static_assert(COLS == 64 || COLS == 16, "64 or 16 columns");
+  if constexpr (COLS == 64) return row * 64 + (col ^ ((row & 7) << 2));
+  return row * COLS + (col ^ (((row >> 1) & 3) << 2));
 }
 
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// asynchronous copies to shared memory; zero-fill when !full (the source
+// address must still be valid)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [0, rows) of a tile from src (row r at src + r * rstride); rows
+// at or past nvalid are zeros.  vec: 16-byte copies (aligned rows).  The
+// loops stay rolled: unrolled, their addresses are hoisted out of the
+// chunk loop and spilled.
+template <int COLS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long rstride, int rows,
+                                          int nvalid, bool vec) {
+  if (vec) {
+    constexpr int kUnits = COLS / 4;
+#pragma unroll 1
+    for (int e = threadIdx.x; e < rows * kUnits; e += kThreads) {
+      const int r = e / kUnits, c = (e % kUnits) * 4;
+      const bool in = r < nvalid;
+      cp_async16(dst + swz<COLS>(r, c), in ? src + r * rstride + c : src,
+                 in);
+    }
+  } else {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < rows * COLS; e += kThreads) {
+      const int r = e / COLS, c = e % COLS;
+      const bool in = r < nvalid;
+      cp_async4(dst + swz<COLS>(r, c), in ? src + r * rstride + c : src, in);
+    }
+  }
+}
+
+__device__ __forceinline__ float neg_inf() {
+  return __uint_as_float(0xff800000u);
+}
+
+// v rounded to TF32 as cvt.rna.tf32.f32 rounds a finite value: the
+// mantissa to 10 bits, ties away from zero (half of the 13 dropped bits
+// added to the magnitude, then cleared).  Two integer instructions, where
+// cvt.rna compiles to four (it also keeps Inf and NaN, which no input of
+// this kernel holds).
+__device__ __forceinline__ uint32_t tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo, both TF32
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(v - __uint_as_float(hi));
+}
+
+// d += a b: a 16x8 (row), b 8x8 (col), TF32 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b on split operands: the small terms first, then hi hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma(d, al, bh[0], bh[1]);
+  mma(d, ah, bl[0], bl[1]);
+  mma(d, ah, bh[0], bh[1]);
+}
+
+// d[j] += a b[j] for j < N on split operands, in the order of mma3, the
+// N accumulators' products interleaved so that no two in a row depend on
+// each other
+template <int N>
+__device__ __forceinline__ void mma3n(float (&d)[N][4],
+                                      const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4],
+                                      const uint32_t (&bh)[N][2],
+                                      const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(d[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(d[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma(d[j], ah, bh[j][0], bh[j][1]);
+}
+
+// Inclusive cumsum of L[0..128) in place, by one thread, in order: the
+// order of torch.cumsum over a non-innermost axis on the card, so L has
+// the plain version's bits.  |L| reaches ~1800 in a chunk, where one ulp
+// is ~1e-4, so another order moves exp(L_i - L_j), and y, by ~1.5e-5 of
+// its scale, which 32 Mamba2 layers compound.  The values pass through
+// registers (16-byte loads and stores); a zero da past S leaves L exactly
+// at L[S - 1].
+__device__ __forceinline__ void scan_L(float* L) {
+  float4* p = reinterpret_cast<float4*>(L);
+  float run = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < kChunk / 4; ++k) {
+    float4 v = p[k];
+    v.x = run = run + v.x;
+    v.y = run = run + v.y;
+    v.z = run = run + v.z;
+    v.w = run = run + v.w;
+    p[k] = v;
+  }
 }
 
 template <int DS>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
     ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ bm,
                     const float* __restrict__ cm, const float* __restrict__ dt,
                     const float* __restrict__ da, float* __restrict__ y,
-                    float* __restrict__ state_out, int seqlen, int nh,
-                    Strides st) {
-  static_assert(DS % 16 == 0 && DS <= 64, "ds must be 16 or 64");
-  constexpr int SPT = DS / 16;   // state rows (s) a thread in phase C
+                    float* __restrict__ state, int seqlen, int nh,
+                    Strides st, bool vec, bool final_state) {
+  static_assert(DS == 16 || DS == 64, "ds must be 16 or 64");
+  constexpr int KS = DS / 8;     // 8-wide steps over s
+  constexpr int NSW = KS / 2;    // the warp's 8-wide state columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<DS>& sm = *reinterpret_cast<Smem<DS>*>(smem_raw);
 
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  const long long b = blockIdx.x / nh, h = blockIdx.x % nh;
-  const float* xb = x + b * st.xb + h * st.xh;
-  const float* bb = bm + b * st.bb;
-  const float* cb = cm + b * st.cb;
-  const float* dtb = dt + b * st.db + h;
-  const float* dab = da + b * st.ab + h;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // warps q and q + 4 share the row slabs q and 7 - q, so that every pair
+  // has 18 causal tiles; each takes 4 of y's 8 column tiles
+  const int q = warp & 3, half = warp >> 2;
+  const int slab[2] = {q, 7 - q};
+  const int lim[2] = {2 * q + 1, 15 - 2 * q};   // last causal tile a slab
+  const int nt0 = 4 * half;
+  const int ngroups = (nh + kGroup - 1) / kGroup;
+  const long long b = blockIdx.x / ngroups;
+  const int h0 = (blockIdx.x % ngroups) * kGroup;
+  const int h1 = min(nh, h0 + kGroup);
   const long long y_row = static_cast<long long>(nh) * kHd;
-  float* yb = y + b * seqlen * y_row + h * kHd;
-
-  for (int e = t; e < DS * kHd; e += kThreads) (&sm.state[0][0])[e] = 0.f;
+  const float* xb = x + b * st.xb;
 
   for (int c0 = 0; c0 < seqlen; c0 += kChunk) {
     const int n = min(kChunk, seqlen - c0);
-    // ---- load the chunk; positions past S are zeros
-    for (int e = t; e < kChunk * kHd; e += kThreads) {
-      const int j = e / kHd, d = e % kHd;
-      sm.x[j][d] = j < n ? xb[static_cast<long long>(c0 + j) * st.xs + d]
-                         : 0.f;
-    }
-    for (int e = t; e < kChunk * DS; e += kThreads) {
-      const int j = e / DS, s = e % DS;
-      const bool in = j < n;
-      sm.bt[s][j] = in ? bb[static_cast<long long>(c0 + j) * st.bs + s] : 0.f;
-      sm.ct[s][j] = in ? cb[static_cast<long long>(c0 + j) * st.cs + s] : 0.f;
-    }
-    if (t < kChunk) {
-      const bool in = t < n;
-      sm.dt[t] = in ? dtb[static_cast<long long>(c0 + t) * st.ds] : 0.f;
-      sm.L[t] = in ? dab[static_cast<long long>(c0 + t) * st.as] : 0.f;
-    }
-    __syncthreads();
-    // ---- L: inclusive cumsum of da, in order by one thread: past S, L
-    // stays exactly at L[S-1], so the last position's weight
-    // dt exp(L_end - L_j) is dt exactly, as in the padded reference
-    if (t == 0) {
-      float run = 0.f;
-      for (int k = 0; k < kChunk; ++k) {
-        run += sm.L[k];
-        sm.L[k] = run;
-      }
-    }
-    __syncthreads();
+    const bool first = c0 == 0;
+    const bool update = c0 + kChunk < seqlen || final_state;
+    float* yc = y + (b * seqlen + c0) * y_row;
 
-    // ---- A: masked scores, rows i0..i0+7, columns j0..j0+7
-    {
-      const int i0 = 8 * ty, j0 = 8 * tx;
-      if (tx <= ty) {
-        float acc[8][8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-        for (int s = 0; s < DS; ++s) {
-          float cv[8], bv[8];
-          load8(&sm.ct[s][i0], cv);
-          load8(&sm.bt[s][j0], bv);
-#pragma unroll
-          for (int r = 0; r < 8; ++r)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(cv[r], bv[c], acc[r][c]);
+    // copies of one head's state, of one (B, S, nh) column of it (da into
+    // L, or dt), and of its x
+    auto load_state = [&](int h) {
+      load_rows<DS>(sm.u.in.state, state + (b * nh + h) * kHd * DS, DS,
+                    kHd, kHd, true);
+    };
+    auto load_col = [&](float* dst, const float* src, int sb, int ss,
+                        int h) {
+      if (tid < kChunk) {
+        const float* p = src + b * sb + h;
+        const bool in = tid < n;
+        cp_async4(dst + tid, in ? p + static_cast<long long>(c0 + tid) * ss
+                                : p, in);
+      }
+    };
+    auto load_x = [&](int h) {
+      load_rows<kHd>(sm.x, xb + static_cast<long long>(c0) * st.xs +
+                               static_cast<long long>(h) * st.xh,
+                     st.xs, kChunk, n, vec);
+    };
+
+    // ---- 1. copies: C and B, the first head's state and da, its x
+    load_rows<DS>(sm.u.in.c, cm + b * st.cb + static_cast<long long>(c0) *
+                  st.cs, st.cs, kChunk, n, vec);
+    load_rows<DS>(sm.b, bm + b * st.bb + static_cast<long long>(c0) * st.bs,
+                  st.bs, kChunk, n, vec);
+    cp_async_commit();
+    if (!first) {
+      load_state(h0);
+      load_col(sm.L, da, st.dab, st.das, h0);
+      cp_async_commit();
+    }
+    load_x(h0);
+    cp_async_commit();
+
+    // ---- 2. y_inter = (C state^T) exp(L_i) of every head, split TF32,
+    // into y; C and the state leave shared memory after this
+    if (!first) {
+      for (int h = h0; h < h1; ++h) {
+        if (h > h0) {
+          __syncthreads();   // the previous head is done with state and L
+          load_state(h);
+          load_col(sm.L, da, st.dab, st.das, h);
+          cp_async_commit();
+          cp_async_wait<0>();
+        } else {
+          cp_async_wait<1>();   // x may still be in flight
         }
+        __syncthreads();
+        if (tid == 0) scan_L(sm.L);
+        __syncthreads();
+        float acc[2][4][4];
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const int i = i0 + r;
-          const float li = sm.L[i];
+        for (int p = 0; p < 2; ++p)
 #pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const int j = j0 + c;
-            acc[r][c] = j <= i ? acc[r][c] * expf(li - sm.L[j]) * sm.dt[j]
-                               : 0.f;
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[p][j][r] = 0.f;
+#pragma unroll 1
+        for (int ks = 0; ks < KS; ++ks) {
+          const int s0 = 8 * ks + t;
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int d = 8 * (nt0 + j) + g;
+            split(sm.u.in.state[swz<DS>(d, s0)], bh[j][0], bl[j][0]);
+            split(sm.u.in.state[swz<DS>(d, s0 + 4)], bh[j][1], bl[j][1]);
+          }
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const int i = 16 * slab[p] + g;
+            uint32_t ah[4], al[4];
+            split(sm.u.in.c[swz<DS>(i, s0)], ah[0], al[0]);
+            split(sm.u.in.c[swz<DS>(i + 8, s0)], ah[1], al[1]);
+            split(sm.u.in.c[swz<DS>(i, s0 + 4)], ah[2], al[2]);
+            split(sm.u.in.c[swz<DS>(i + 8, s0 + 4)], ah[3], al[3]);
+            mma3n<4>(acc[p], ah, al, bh, bl);
           }
         }
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          *reinterpret_cast<float4*>(&sm.st[j0 + c][i0]) =
-              make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]);
-          *reinterpret_cast<float4*>(&sm.st[j0 + c][i0 + 4]) =
-              make_float4(acc[4][c], acc[5][c], acc[6][c], acc[7][c]);
+        for (int p = 0; p < 2; ++p) {
+          const int i1 = 16 * slab[p] + g, i2 = i1 + 8;
+          const float e1 = expf(sm.L[i1]), e2 = expf(sm.L[i2]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float* yp = yc + h * kHd + 8 * (nt0 + j) + 2 * t;
+            if (i1 < n)
+              *reinterpret_cast<float2*>(yp + i1 * y_row) =
+                  make_float2(acc[p][j][0] * e1, acc[p][j][1] * e1);
+            if (i2 < n)
+              *reinterpret_cast<float2*>(yp + i2 * y_row) =
+                  make_float2(acc[p][j][2] * e2, acc[p][j][3] * e2);
+          }
         }
       }
     }
+
+    // ---- 3. C B^T, split TF32, once for the group: each warp computes 9
+    // of its pair's 18 causal tiles (tile k: the pair's tile 2k + half)
+    cp_async_wait<1>();   // C and B (x may still be in flight)
     __syncthreads();
-
-    // ---- B: y rows i0..i0+7, columns d0..d0+3
     {
-      const int i0 = 8 * ty, d0 = 4 * tx;
-      float acc[8][4], inter[8][4];
+      float cbacc[9][4];
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
+      for (int k = 0; k < 9; ++k)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = inter[r][c] = 0.f;
-      const int jend = min(i0 + 8, n);
-      for (int j = 0; j < jend; ++j) {
-        float sv[8], xv[4];
-        load8(&sm.st[j][i0], sv);
-        load4(&sm.x[j][d0], xv);
+        for (int r = 0; r < 4; ++r) cbacc[k][r] = 0.f;
+#pragma unroll 1
+      for (int ks = 0; ks < KS; ++ks) {
+        const int s0 = 8 * ks + t;
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
+        for (int p = 0; p < 2; ++p) {
+          const int i = 16 * slab[p] + g;
+          split(sm.u.in.c[swz<DS>(i, s0)], ah[p][0], al[p][0]);
+          split(sm.u.in.c[swz<DS>(i + 8, s0)], ah[p][1], al[p][1]);
+          split(sm.u.in.c[swz<DS>(i, s0 + 4)], ah[p][2], al[p][2]);
+          split(sm.u.in.c[swz<DS>(i + 8, s0 + 4)], ah[p][3], al[p][3]);
+        }
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(sv[r], xv[c], acc[r][c]);
-      }
-      for (int s = 0; s < DS; ++s) {
-        float cv[8], hv[4];
-        load8(&sm.ct[s][i0], cv);
-        load4(&sm.state[s][d0], hv);
+        for (int k = 0; k < 9; ++k) {
+          const int idx = 2 * k + half;
+          const bool second = idx > lim[0];
+          const int jt = second ? idx - lim[0] - 1 : idx;
+          uint32_t bh[2], bl[2];
+          split(sm.b[swz<DS>(8 * jt + g, s0)], bh[0], bl[0]);
+          split(sm.b[swz<DS>(8 * jt + g, s0 + 4)], bh[1], bl[1]);
+          uint32_t th[4], tl[4];
 #pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            inter[r][c] = fmaf(cv[r], hv[c], inter[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int i = i0 + r;
-        if (i < n) {
-          const float e = expf(sm.L[i]);
-          *reinterpret_cast<float4*>(yb + (c0 + i) * y_row + d0) =
-              make_float4(acc[r][0] + inter[r][0] * e,
-                          acc[r][1] + inter[r][1] * e,
-                          acc[r][2] + inter[r][2] * e,
-                          acc[r][3] + inter[r][3] * e);
+          for (int r = 0; r < 4; ++r) {
+            th[r] = second ? ah[1][r] : ah[0][r];
+            tl[r] = second ? al[1][r] : al[0][r];
+          }
+          mma3(cbacc[k], th, tl, bh, bl);
         }
       }
-      if (t < kChunk)
-        sm.w[t] = sm.dt[t] * expf(sm.L[kChunk - 1] - sm.L[t]);
+      __syncthreads();   // every warp is done with C and the state
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const int idx = 2 * k + half;
+        const bool second = idx > lim[0];
+        const int r = second ? slab[1] : slab[0];
+        const int jt = second ? idx - lim[0] - 1 : idx;
+        // in A-fragment order: (i1, j1), (i2, j1), (i1, j2), (i2, j2)
+        sm.u.cb[(r * (r + 1) + jt) * 32 + lane] = make_float4(
+            cbacc[k][0], cbacc[k][2], cbacc[k][1], cbacc[k][3]);
+      }
     }
-    __syncthreads();   // C overwrites the state that B read
 
-    // ---- C: state rows s0..s0+SPT-1, columns d0..d0+3
-    {
-      const int s0 = SPT * ty, d0 = 4 * tx;
-      float acc[SPT][4];
+    // ---- 4. each head: y = y_inter + its scores times x; the state
+    for (int h = h0; h < h1; ++h) {
+      __syncthreads();   // C B^T stored; the previous head is done with x
+      if (h > h0) load_x(h);
+      load_col(sm.dt, dt, st.dtb, st.dts, h);
+      load_col(sm.L, da, st.dab, st.das, h);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (tid == 0) scan_L(sm.L);
+      __syncthreads();
+
 #pragma unroll
-      for (int r = 0; r < SPT; ++r)
+      for (int p = 0; p < 2; ++p) {
+        const int r = slab[p];
+        const int i1 = 16 * r + g, i2 = i1 + 8;
+        float* yp = yc + h * kHd + 8 * nt0 + 2 * t;
+        // y_inter from step 2, read back by the thread that wrote it; the
+        // loads are issued here and used after the products
+        float2 yi[4][2];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-      for (int j = 0; j < n; ++j) {   // past S, w_j = 0 and x_j = 0
-        const float wj = sm.w[j];
-        float xv[4];
-        load4(&sm.x[j][d0], xv);
+        for (int j = 0; j < 4; ++j) {
+          yi[j][0] = yi[j][1] = make_float2(0.f, 0.f);
+          if (!first && i1 < n)
+            yi[j][0] =
+                *reinterpret_cast<const float2*>(yp + i1 * y_row + 8 * j);
+          if (!first && i2 < n)
+            yi[j][1] =
+                *reinterpret_cast<const float2*>(yp + i2 * y_row + 8 * j);
+        }
+        float acc[4][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) xv[c] *= wj;
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int r = 0; r < SPT; ++r) {
-          const float bv = sm.bt[s0 + r][j];
+          for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+        const float li1 = sm.L[i1], li2 = sm.L[i2];
+#pragma unroll 2
+        for (int jt = 0; jt <= lim[p]; ++jt) {
+          const float4 c = sm.u.cb[(r * (r + 1) + jt) * 32 + lane];
+          const int j1 = 8 * jt + 2 * t, j2 = j1 + 1;
+          const float lj1 = sm.L[j1], lj2 = sm.L[j2];
+          const float d1 = sm.dt[j1], d2 = sm.dt[j2];
+          // exp(L_i - L_j) masked to -inf before exp for j > i
+          uint32_t ah[4], al[4];
+          split(c.x * expf(j1 <= i1 ? li1 - lj1 : neg_inf()) * d1, ah[0],
+                al[0]);
+          split(c.y * expf(j1 <= i2 ? li2 - lj1 : neg_inf()) * d1, ah[1],
+                al[1]);
+          split(c.z * expf(j2 <= i1 ? li1 - lj2 : neg_inf()) * d2, ah[2],
+                al[2]);
+          split(c.w * expf(j2 <= i2 ? li2 - lj2 : neg_inf()) * d2, ah[3],
+                al[3]);
+          uint32_t bh[4][2], bl[4][2];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xv[c], bv, acc[r][c]);
+          for (int j = 0; j < 4; ++j) {
+            const int d = 8 * (nt0 + j) + g;
+            split(sm.x[swz<kHd>(j1, d)], bh[j][0], bl[j][0]);
+            split(sm.x[swz<kHd>(j2, d)], bh[j][1], bl[j][1]);
+          }
+          mma3n<4>(acc, ah, al, bh, bl);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (i1 < n)
+            *reinterpret_cast<float2*>(yp + i1 * y_row + 8 * j) =
+                make_float2(yi[j][0].x + acc[j][0], yi[j][0].y + acc[j][1]);
+          if (i2 < n)
+            *reinterpret_cast<float2*>(yp + i2 * y_row + 8 * j) =
+                make_float2(yi[j][1].x + acc[j][2], yi[j][1].y + acc[j][3]);
         }
       }
-      const float e = expf(sm.L[kChunk - 1]);
-#pragma unroll
-      for (int r = 0; r < SPT; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          sm.state[s0 + r][d0 + c] = sm.state[s0 + r][d0 + c] * e + acc[r][c];
-    }
-    __syncthreads();   // the next chunk's loads overwrite x, B, C and L
-  }
 
-  if (state_out != nullptr) {
-    float* out = state_out + (b * nh + h) * kHd * DS;
-    for (int e = t; e < kHd * DS; e += kThreads) {
-      const int d = e / DS, s = e % DS;
-      out[e] = sm.state[s][d];
+      // state <- state exp(L_end) + (x w)^T B, split TF32: the warp owns
+      // state rows d0..d0+15 and NSW of the 8-wide column tiles
+      if (update) {
+        const float lend = sm.L[kChunk - 1];
+        const int d0 = 16 * q;
+        float* out = state + (b * nh + h) * kHd * DS;
+        // the state this thread wrote here in the previous chunk, loaded
+        // now and used after the products
+        float2 old[NSW][2];
+#pragma unroll
+        for (int j = 0; j < NSW; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int d = d0 + g + 8 * hf;
+            const int s = 8 * (half * NSW + j) + 2 * t;
+            old[j][hf] = first ? make_float2(0.f, 0.f)
+                               : *reinterpret_cast<const float2*>(
+                                     out + d * DS + s);
+          }
+        float sacc[NSW][4];
+#pragma unroll
+        for (int j = 0; j < NSW; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) sacc[j][r] = 0.f;
+#pragma unroll 2
+        for (int ks = 0; ks < kChunk / 8; ++ks) {
+          const int j1 = 8 * ks + 2 * t, j2 = j1 + 1;
+          const float w1 = sm.dt[j1] * expf(lend - sm.L[j1]);
+          const float w2 = sm.dt[j2] * expf(lend - sm.L[j2]);
+          uint32_t ah[4], al[4];
+          split(sm.x[swz<kHd>(j1, d0 + g)] * w1, ah[0], al[0]);
+          split(sm.x[swz<kHd>(j1, d0 + g + 8)] * w1, ah[1], al[1]);
+          split(sm.x[swz<kHd>(j2, d0 + g)] * w2, ah[2], al[2]);
+          split(sm.x[swz<kHd>(j2, d0 + g + 8)] * w2, ah[3], al[3]);
+          uint32_t bh[NSW][2], bl[NSW][2];
+#pragma unroll
+          for (int j = 0; j < NSW; ++j) {
+            const int s = 8 * (half * NSW + j) + g;
+            split(sm.b[swz<DS>(j1, s)], bh[j][0], bl[j][0]);
+            split(sm.b[swz<DS>(j2, s)], bh[j][1], bl[j][1]);
+          }
+          mma3n<NSW>(sacc, ah, al, bh, bl);
+        }
+        const float e = expf(lend);
+#pragma unroll
+        for (int j = 0; j < NSW; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int d = d0 + g + 8 * hf;
+            const int s = 8 * (half * NSW + j) + 2 * t;
+            // state e + new, each rounded, as the plain version has it
+            *reinterpret_cast<float2*>(out + d * DS + s) = make_float2(
+                __fadd_rn(__fmul_rn(old[j][hf].x, e), sacc[j][2 * hf]),
+                __fadd_rn(__fmul_rn(old[j][hf].y, e), sacc[j][2 * hf + 1]));
+          }
+      }
     }
+    __syncthreads();   // the next chunk's copies overwrite C, B, x
   }
+}
+
+template <int DS>
+cudaError_t configure() {
+  static bool configured = false;
+  if (configured) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_kernel<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(Smem<DS>)));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_scan_kernel<DS>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) configured = true;
+  return err;
 }
 
 template <int DS>
 cudaError_t launch(const float* x, const float* bm, const float* cm,
                    const float* dt, const float* da, float* y, float* state,
                    int batch, int seqlen, int nh, const Strides& st,
-                   cudaStream_t stream) {
-  const int bytes = static_cast<int>(sizeof(Smem<DS>));
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel<DS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  ssd_scan_kernel<DS><<<batch * nh, kThreads, bytes, stream>>>(
-      x, bm, cm, dt, da, y, state, seqlen, nh, st);
+                   bool vec, bool final_state, cudaStream_t stream) {
+  const cudaError_t err = configure<DS>();
+  if (err != cudaSuccess) return err;
+  const int blocks = batch * ((nh + kGroup - 1) / kGroup);
+  ssd_scan_kernel<DS><<<blocks, kThreads, sizeof(Smem<DS>), stream>>>(
+      x, bm, cm, dt, da, y, state, seqlen, nh, st, vec, final_state);
   return cudaGetLastError();
+}
+
+template <int DS>
+int occupancy(int* blocks_per_sm, int* smem_bytes) {
+  cudaError_t err = configure<DS>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, ssd_scan_kernel<DS>, kThreads, sizeof(Smem<DS>));
+  *smem_bytes = static_cast<int>(sizeof(Smem<DS>));
+  return static_cast<int>(err);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
 // x, bm, cm: f32 with unit stride on their last axis; dt, da: f32 (B, S, nh)
-// with unit head stride; y: contiguous (B, S, nh, 64) f32; state: null or
-// contiguous (B, nh, 64, ds) f32.  hd is 64 and the chunk 128; ds is 64
+// with unit head stride; y: contiguous (B, S, nh, 64) f32; state: contiguous
+// (B, nh, 64, ds) f32, where the kernel keeps each head's state between
+// chunks; null only if S <= 128 and final_state is 0.  With final_state
+// the final state is left there.  hd is 64 and the chunk 128; ds is 64
 // (zamba2) or 16 (its smoke preset).  Returns cudaGetLastError() after the
 // launch.
 extern "C" int firm_ssd_scan(const void* x, const void* bm, const void* cm,
                              const void* dt, const void* da, void* y,
-                             void* state, int batch, int seqlen, int nh,
-                             int ds, int x_sb, int x_ss, int x_sh, int b_sb,
-                             int b_ss, int c_sb, int c_ss, int dt_sb,
-                             int dt_ss, int da_sb, int da_ss, void* stream) {
-  if (batch <= 0 || seqlen <= 0 || nh <= 0 || batch > (1 << 24) / nh)
+                             void* state, int final_state, int batch,
+                             int seqlen, int nh, int ds, int x_sb, int x_ss,
+                             int x_sh, int b_sb, int b_ss, int c_sb,
+                             int c_ss, int dt_sb, int dt_ss, int da_sb,
+                             int da_ss, void* stream) {
+  if (batch <= 0 || seqlen <= 0 || nh <= 0 ||
+      batch > (1 << 24) / ((nh + kGroup - 1) / kGroup) ||
+      (state == nullptr && (final_state || seqlen > kChunk)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss,
                    dt_sb, dt_ss, da_sb, da_ss};
+  // 16-byte copies need 16-byte aligned rows of x, B and C
+  const bool vec = aligned16(x) && aligned16(bm) && aligned16(cm) &&
+                   (x_sb | x_ss | x_sh | b_sb | b_ss | c_sb | c_ss) % 4 == 0;
   const auto* xf = static_cast<const float*>(x);
   const auto* bf = static_cast<const float*>(bm);
   const auto* cf = static_cast<const float*>(cm);
@@ -311,16 +643,27 @@ extern "C" int firm_ssd_scan(const void* x, const void* bm, const void* cm,
   auto* yf = static_cast<float*>(y);
   auto* sf = static_cast<float*>(state);
   const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (ds) {
     case 16:
-      err = launch<16>(xf, bf, cf, dtf, daf, yf, sf, batch, seqlen, nh, st, s);
-      break;
+      return static_cast<int>(launch<16>(xf, bf, cf, dtf, daf, yf, sf, batch,
+                                         seqlen, nh, st, vec, final_state != 0,
+                                         s));
     case 64:
-      err = launch<64>(xf, bf, cf, dtf, daf, yf, sf, batch, seqlen, nh, st, s);
-      break;
+      return static_cast<int>(launch<64>(xf, bf, cf, dtf, daf, yf, sf, batch,
+                                         seqlen, nh, st, vec, final_state != 0,
+                                         s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+}
+
+// Blocks of the scan kernel that fit one SM, and its shared memory a
+// block, for state dimension ds.  Returns a CUDA error code (0 on success).
+extern "C" int firm_ssd_occupancy(int ds, int* blocks_per_sm,
+                                  int* smem_bytes) {
+  switch (ds) {
+    case 16: return occupancy<16>(blocks_per_sm, smem_bytes);
+    case 64: return occupancy<64>(blocks_per_sm, smem_bytes);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,8 +1,9 @@
 """Wrapper of the Hopper Gram-matrix kernel (``csrc/gram.cu``).
 
-Replaces the Pallas TPU kernel ``repro/kernels/gram.py:gram_pallas``.  The
-wrapper takes a CUDA tensor only; ``kernels.ops.gram`` sends CPU tensors to
-the plain version in ``kernels.ref``.
+Replaces the Pallas TPU kernel ``repro/kernels/gram.py:gram_pallas``, in
+one kernel launch a call.  The wrapper takes a CUDA tensor only;
+``kernels.ops.gram`` sends CPU tensors to the plain version in
+``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 M_MAX = 8             # the Pallas kernel's M_PAD
-N_BLOCKS = 2 * 132    # first-pass blocks: two on every SM of an H100
+N_BLOCKS = 4 * 132    # blocks of the one launch: four on every SM of an H100
 
 # kernel launches so far; chip_smoke.py zeroes it around the main path
 launches = 0

@@ -12,6 +12,8 @@ backward: a gradient request raises.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -71,18 +73,35 @@ def ssd_scan(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         if sum((n - 1) * st for n, st in zip(t.shape, t.stride())) >= 2 ** 31:
             raise ValueError(f"ssd kernel takes < 2**31 elements ({k})")
     y = torch.empty((b, s, nh, hd), dtype=torch.float32, device=x.device)
-    state = (torch.zeros((b, nh, hd, ds), dtype=torch.float32,
-                         device=x.device) if return_state else None)
     if y.numel() == 0:
+        state = torch.zeros((b, nh, hd, ds), dtype=torch.float32,
+                            device=x.device)
         return (y, state) if return_state else y
     if y.numel() >= 2 ** 31:
         raise ValueError("ssd kernel takes < 2**31 output elements")
+    # the kernel keeps each head's state here between chunks: the output,
+    # or scratch when the final state is not wanted and S spans chunks
+    state = (torch.empty((b, nh, hd, ds), dtype=torch.float32,
+                         device=x.device) if return_state or s > CHUNK
+             else None)
     err = build.load().firm_ssd_scan(
         x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
         da.data_ptr(), y.data_ptr(),
-        state.data_ptr() if state is not None else None, b, s, nh, ds,
-        *strides, torch.cuda.current_stream(x.device).cuda_stream)
+        state.data_ptr() if state is not None else None, int(return_state),
+        b, s, nh, ds, *strides,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     launches += 1
     return (y, state) if return_state else y
+
+
+def occupancy(ds: int) -> dict:
+    """The scan kernel's blocks an SM on this card and its shared memory a
+    block, for state dimension ``ds`` (a query, not a launch)."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = build.load().firm_ssd_occupancy(ds, ctypes.byref(blocks),
+                                          ctypes.byref(smem))
+    if err:
+        raise RuntimeError(f"ssd occupancy query failed: CUDA error {err}")
+    return {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
