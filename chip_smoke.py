@@ -66,7 +66,18 @@ line, for a first check of new kernels):
             f32 forward and beside FlashAttention-2's formula with D from
             the bf16 O, to measure what D from the bf16 O adds to the
             kernel's distance from f32.
-12. rollout: ``fed.engine.rollout_batch`` on llama-3.2-1b at full width
+12. ssd_bwd: the SSD backward kernels (``ssd_scan_bwd``: states, the
+            reverse sweep, the sum of dB and dC over head groups) against
+            the plain version (autograd of ``ref.ssd_chunked``) and the
+            kernels' formulas written out (``ref.ssd_chunked_bwd``), dx,
+            dB, dC, d(dt) and d(da), at the ssd phase's cases with and
+            without a d(final state); the same bits twice and from
+            contiguous inputs; one forward and one backward launch through
+            ``ops.ssd_scan`` with inputs that need a gradient; three CUDA
+            kernels a call (a captured graph's nodes); registers and
+            spills; timed held and with the L2 flushed, beside the plain
+            backward and the bound.
+13. rollout: ``fed.engine.rollout_batch`` on llama-3.2-1b at full width
             (random weights from a seeded generator): 16 prompts of 128
             tokens, 128 new tokens, 2 objectives.  The kernels' launch counts
             are zeroed just before it and must be exactly 4290 (rmsnorm)
@@ -77,7 +88,7 @@ line, for a first check of new kernels):
             plain one is.  Then, uncounted: the rollout's steps timed one by
             one, and 8 decode steps under ``torch.profiler`` for the
             device's idle share.
-13. rollout_hybrid: the same rollout on zamba2-1.2b at full width (32
+14. rollout_hybrid: the same rollout on zamba2-1.2b at full width (32
             Mamba2 layers, 6 applications of one shared attention block).
             The counts are zeroed just before it and must be exactly 64
             (ssd: 32 in prefill, 32 in the reference forward; decode runs
@@ -89,7 +100,7 @@ line, for a first check of new kernels):
             of the logits' scale; the decode logits after prefill(200)
             match an f32 forward at position 200.  Then the steps timed one by one and 8
             profiled decode steps.
-14. local_step: ``fed.engine.client_local_steps`` on the same model, one
+15. local_step: ``fed.engine.client_local_steps`` on the same model, one
             client, K=2 local steps of B=16 prompts (each a rollout, then
             ``firm_local_step`` with FIRMConfig's defaults).  The counts are
             zeroed just before it and must be exact just after.  Then,
@@ -99,7 +110,15 @@ line, for a first check of new kernels):
             part, peak memory and device idle share, and the M gradients
             through the kernels, through the plain versions and through an
             f32 copy of the model.
-15. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
+16. local_step_hybrid: the same on zamba2-1.2b at full width: the counts
+            exact (per step the rollout's, one forward's and per pull 27
+            SSD backwards, 6 attention backwards and 39 norm backwards);
+            lora_A gradients 0 while lora_B = 0, one firm_local_step's
+            time by part, peak memory and idle share, the kernels' bf16
+            gradients as close to an f32 copy as the plain bf16 path's and
+            the f32 gradients through the kernels within 1e-3 (relative L2)
+            of the plain f32 path's.
+17. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
             K=1, R=2 rounds, first the ``wan`` preset (int8+ef uplink,
             identity downlink), then the ``extreme`` preset (topk:0.05+ef
             uplink, int8 downlink).  Each preset's counts are zeroed just
@@ -111,7 +130,17 @@ line, for a first check of new kernels):
             Seconds per round by part, the uplink codec's share, peak
             memory, and a third wan round under ``torch.profiler`` for the
             device's idle share.
-16. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+18. round_hybrid: one ``wan`` round (C=2, K=1) on zamba2-1.2b at full
+            width: the counts exact, comm_bytes exactly 2,623,488 (the
+            reference's ledger, tests/test_torch_hybrid_training.py),
+            lambda on the simplex, drift > 0, residuals carried; seconds by
+            part and peak memory.
+19. round_parity: R=3 carried ``wan`` rounds of a tiny f32 llama and a
+            tiny f32 zamba2 (hd 64, ds 16: the SSD kernels forward and
+            backward) on the card and on the CPU, the same weights and
+            injected draws, both decoding with an f32 K/V cache; the
+            summaries held within tests/test_torch_round.py's tolerances.
+20. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             delta bit for bit; low-rank on the script's usual draw and five
@@ -120,8 +149,9 @@ line, for a first check of new kernels):
             max |flat + state|, cond(P) of the card's range sample in
             float64; the low-rank payload's bytes equal ``nbytes_static``
             (59,392).
-17. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round.
-18. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+21. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
+            for llama-3.2-1b and for zamba2-1.2b.
+22. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
             llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
@@ -135,6 +165,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -186,8 +217,9 @@ def ssd_flops(b: int, s: int, nh: int, hd: int, ds: int, chunk: int) -> int:
 
 
 PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
-          "dequantize", "topk", "ssd", "rmsnorm_bwd", "flash_bwd", "rollout",
-          "rollout_hybrid", "local_step", "round", "codecs", "train",
+          "dequantize", "topk", "ssd", "rmsnorm_bwd", "flash_bwd", "ssd_bwd",
+          "rollout", "rollout_hybrid", "local_step", "local_step_hybrid",
+          "round", "round_hybrid", "round_parity", "codecs", "train",
           "serve")
 TOPK_PASSES = 32               # bisection passes of one top-k selection
 
@@ -239,6 +271,8 @@ def run(torch, stop_after) -> int:
     from repro_torch.rlhf import critic, local, ppo, rewards
     from repro_torch.rlhf.sampling import generate
     from repro_torch.train import optim
+
+    import numpy as np
 
     dev = torch.device("cuda")
     F = torch.nn.functional
@@ -326,7 +360,8 @@ def run(torch, stop_after) -> int:
                 "dequantize": (q_mod, "dequantize_launches"),
                 "abs_threshold_count": (q_mod, "threshold_count_launches"),
                 "abs_threshold_mask": (q_mod, "threshold_mask_launches"),
-                "ssd": (ssd_mod, "launches")}
+                "ssd": (ssd_mod, "launches"),
+                "ssd_bwd": (ssd_mod, "bwd_launches")}
 
     def zero_counts() -> None:
         for mod, attr in counters.values():
@@ -336,7 +371,7 @@ def run(torch, stop_after) -> int:
         return {name: getattr(mod, attr)
                 for name, (mod, attr) in counters.items()}
 
-    # ------------------------------------------------------------ 1. device
+    # --------------------------------------------------------------- 1. device
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -352,7 +387,7 @@ def run(torch, stop_after) -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     done("device")
 
-    # ------------------------------------------------------------- 2. build
+    # ---------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
     lib_path = build.build()
     build.load()
@@ -465,7 +500,7 @@ def run(torch, stop_after) -> int:
             shape, generator=gen if generator is None else generator,
             device=dev).to(dtype)
 
-    # ----------------------------------------------------------- 3. rmsnorm
+    # -------------------------------------------------------------- 3. rmsnorm
     def bf16_ulps(a, b) -> int:
         """Largest distance between two bf16 tensors in units in the last
         place (bit patterns mapped to a monotonic integer scale)."""
@@ -528,7 +563,7 @@ def run(torch, stop_after) -> int:
          "f32: 1e-5 relative", **rms_row)
     done("rmsnorm")
 
-    # ------------------------------------------------------------- 4. flash
+    # ---------------------------------------------------------------- 4. flash
     def qkv(b, sq, skv, hq, hkv, dh, dtype, generator=None):
         return tuple(randn(shape, dtype, generator) for shape in (
             (b, sq, hq, dh), (b, skv, hkv, dh), (b, skv, hkv, dh)))
@@ -667,7 +702,7 @@ def run(torch, stop_after) -> int:
          tolerance="2e-2 bf16, 2e-4 f32 (atol and rtol)", **flash_row)
     done("flash")
 
-    # -------------------------------------------------------------- 5. gram
+    # ----------------------------------------------------------------- 5. gram
     cfg = get_config("llama-3.2-1b")
     r_lora = cfg.lora.rank
     dq_w, dkv_w = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
@@ -730,7 +765,7 @@ def run(torch, stop_after) -> int:
          "same bits on two runs", **gram_row)
     done("gram")
 
-    # ---------------------------------------------------------- 6. quantize
+    # ------------------------------------------------------------- 6. quantize
     # the round's uplink: C = 2 clients' LoRA deltas, (C * 3328, 1024) rows.
     # The kernel must give the plain version's bits: codes equal, scales
     # equal as bit patterns.
@@ -809,7 +844,7 @@ def run(torch, stop_after) -> int:
          **quant_row)
     done("quantize")
 
-    # -------------------------------------------------------- 7. dequantize
+    # ----------------------------------------------------------- 7. dequantize
     # codes * scale, and with the error-feedback epilogue the residual
     # fma(-code, scale, adj); both bit-identical to the plain versions
     dequant_checks = {}
@@ -860,7 +895,7 @@ def run(torch, stop_after) -> int:
          "ms_without_residual)", **dequant_row)
     done("dequantize")
 
-    # -------------------------------------------------------------- 8. topk
+    # ----------------------------------------------------------------- 8. topk
     # the threshold count and mask against their plain versions, exactly:
     # counts equal (integers in f32), masks equal bit for bit (-0.0 kept
     # at t <= 0, dropped entries +0.0); at the round's uplink shape (C = 2
@@ -1004,7 +1039,7 @@ def run(torch, stop_after) -> int:
          "values equal bit for bit", count=count_row, mask=mask_row)
     done("topk")
 
-    # --------------------------------------------------------------- 9. ssd
+    # ------------------------------------------------------------------ 9. ssd
     # the SSD kernel against its plain version (ref.ssd_chunked, the
     # reference model's chunk body) and both against the exact per-step
     # recurrence (ref.ssd_scan), y and the final state; within 1e-4 of
@@ -1093,15 +1128,6 @@ def run(torch, stop_after) -> int:
                 (y_k[:, :, zero] == 0).all() and (st_k[:, zero] == 0).all())
             check(c_["zero_dt_head_y_and_state_zero"],
                   f"ssd {label}: a head with dt = 0 keeps a zero state")
-    # a gradient request on the card raises (the kernel has no backward)
-    xs_ = ssd_inputs(1, 8, z_nh, z_ds)
-    try:
-        with torch.enable_grad():
-            ssd_mod.ssd_scan(xs_[0].clone().requires_grad_(), *xs_[1:])
-        grad_refused = False
-    except NotImplementedError:
-        grad_refused = True
-    check(grad_refused, "ssd kernel must refuse a gradient request")
     xs_ = ssd_inputs(B, 256, z_nh, z_ds)
     ssd_row = {
         "name": "ssd", "route": "cuda",
@@ -1147,7 +1173,7 @@ def run(torch, stop_after) -> int:
     check(ssd_occupancy[64]["blocks_per_sm"] >= 2,
           f"ssd at ds 64: fewer than two blocks an SM {ssd_occupancy}")
     emit(phase="ssd", shape={"x": [B, 256, z_nh, z_hd], "ds": z_ds},
-         checks=ssd_checks, grad_request_refused=grad_refused,
+         checks=ssd_checks,
          bytes=ssd_bytes, flops=ssd_ops, hmma=ssd_hmma,
          occupancy=ssd_occupancy, ptxas=ptxas_by_kernel("ssd_scan_kernel"),
          graph_nodes_a_call=ssd_nodes,
@@ -1157,7 +1183,7 @@ def run(torch, stop_after) -> int:
          "bits twice and from contiguous inputs", **ssd_row)
     done("ssd")
 
-    # ------------------------------------------------------ 10. rmsnorm_bwd
+    # --------------------------------------------------------- 10. rmsnorm_bwd
     # bf16: dx is rounded once from f32 on both sides, after reductions in
     # another order, so it may differ by an ulp: 2e-2 of dx's scale.  f32:
     # 1e-4 of the scale.  The last three cases take the scalar path.
@@ -1204,7 +1230,7 @@ def run(torch, stop_after) -> int:
          "1e-4 (f32) of max |plain|", **rms_bwd_row)
     done("rmsnorm_bwd")
 
-    # -------------------------------------------------------- 11. flash_bwd
+    # ----------------------------------------------------------- 11. flash_bwd
     # the forward's cases but zamba2's, with the tensor-core kernels' edges
     flash_bwd_err, flash_bwd_paths = {}, {}
     edge_labels = {case[0] for case in flash_edge_cases}
@@ -1350,7 +1376,143 @@ def run(torch, stop_after) -> int:
          "exactly 0, of Dh^-0.5 max|dP| max|K or Q|)", **flash_bwd_row)
     done("flash_bwd")
 
-    # ---------------------------------------------------------- 12. rollout
+    # ------------------------------------------------------------- 12. ssd_bwd
+    # the SSD backward kernels against the plain version (autograd of
+    # ref.ssd_chunked) and against the kernels' formulas written out
+    # (ref.ssd_chunked_bwd), dx, dB, dC, d(dt) and d(da), each within 1e-4
+    # of its scale (d(da)'s at least max |dt d(dt)|: its terms are those
+    # of dt d(dt), and where they cancel, at S = 1, the f32 sums leave a
+    # residue of their size); the plain f32 autograd itself lies within
+    # 1e-4 of a float64 recurrence (tests/test_torch_ssd_bwd.py), so no
+    # float64 rule is needed.  The ssd phase's inputs and cases, with and
+    # without a d(final state); dy and d(final state) N(0, 1); drawn from a
+    # generator of the phase's own, so the later phases keep their inputs.
+    bwd_gen = torch.Generator(device=dev).manual_seed(12)
+    def ssd_bwd_scales(want, dt_):
+        sc = [float(w.abs().max()) for w in want]
+        sc[4] = max(sc[4], float((dt_ * want[3]).abs().max()))
+        return sc
+
+    def ssd_plain_bwd(xs_, dy_, dst_):
+        leaves = [t.detach().clone().requires_grad_() for t in xs_]
+        with torch.enable_grad():
+            y_, st_ = ref.ssd_chunked(*leaves)
+            outs = (y_, st_) if dst_ is not None else (y_,)
+            return torch.autograd.grad(
+                outs, leaves, (dy_, dst_) if dst_ is not None else (dy_,))
+
+    grad_names = ("dx", "dB", "dC", "d(dt)", "d(da)")
+    ssd_bwd_checks = {}
+    for k_case, (label, (b_, s_, nh_, ds_), zero) in enumerate(ssd_cases):
+        xs_ = (ssd_inputs(b_, s_, nh_, ds_, offset=1,
+                          generator=misaligned_gen)
+               if label == ssd_misaligned else
+               ssd_inputs(b_, s_, nh_, ds_, zero, generator=bwd_gen))
+        dy_ = randn((b_, s_, nh_, z_hd), torch.float32, bwd_gen)
+        for with_state in ((False, True) if k_case == 0 else
+                           (k_case % 2 == 1,)):
+            dst_ = (randn((b_, nh_, z_hd, ds_), torch.float32, bwd_gen)
+                    if with_state else None)
+            got = ssd_mod.ssd_scan_bwd(*xs_, dy_, dst_)
+            again = ssd_mod.ssd_scan_bwd(*xs_, dy_, dst_)
+            contig = ssd_mod.ssd_scan_bwd(*(t.contiguous() for t in xs_),
+                                          dy_, dst_)
+            plain = ssd_plain_bwd(xs_, dy_, dst_)
+            formulas = ref.ssd_chunked_bwd(*xs_, dy_, dst_)
+            torch.cuda.synchronize()
+            scales = ssd_bwd_scales(plain, xs_[3])
+            c_ = {"vs_plain": {n: float((a - w).abs().max()) / sc
+                               for n, a, w, sc in zip(grad_names, got,
+                                                      plain, scales)},
+                  "vs_formulas": {n: float((a - w).abs().max()) / sc
+                                  for n, a, w, sc in zip(
+                                      grad_names, got, formulas, scales)},
+                  "same_bits_twice": all(identical(a, a2) for a, a2 in
+                                         zip(got, again)),
+                  "same_bits_contiguous": all(identical(a, a2) for a, a2
+                                              in zip(got, contig))}
+            key = label + (" with d(final state)" if with_state else "")
+            ssd_bwd_checks[key] = c_
+            check(max(c_["vs_plain"].values()) <= 1e-4
+                  and max(c_["vs_formulas"].values()) <= 1e-4
+                  and c_["same_bits_twice"] and c_["same_bits_contiguous"],
+                  f"ssd_bwd {key}: {c_}")
+            if zero is not None:
+                c_["zero_dt_head_dx_zero"] = bool((got[0][:, :, zero]
+                                                   == 0).all())
+                check(c_["zero_dt_head_dx_zero"],
+                      f"ssd_bwd {key}: x gets no gradient through dt = 0")
+    # through ops.ssd_scan: inputs that need a gradient run the forward
+    # kernel and, at the pull, the backward kernels
+    xs_ = ssd_inputs(B, 256, z_nh, z_ds, generator=bwd_gen)
+    dy_ = randn((B, 256, z_nh, z_hd), torch.float32, bwd_gen)
+    leaves = [t.detach().clone().requires_grad_() for t in xs_]
+    launches_before = (ssd_mod.launches, ssd_mod.bwd_launches)
+    with torch.enable_grad():
+        y_ = ops.ssd_scan(*leaves)
+        through_ops = torch.autograd.grad(y_, leaves, dy_)
+    direct = ssd_mod.ssd_scan_bwd(*xs_, dy_)
+    check((ssd_mod.launches - launches_before[0],
+           ssd_mod.bwd_launches - launches_before[1]) == (1, 2)
+          and all(identical(a, b_) for a, b_ in zip(through_ops, direct)),
+          "ops.ssd_scan: one forward and one backward launch, the "
+          "backward's bits")
+    del leaves, y_, through_ops, direct
+    # the training shape, timed: held, with the L2 flushed, the plain
+    # version's backward on a kept graph
+    p_leaves = [t.detach().clone().requires_grad_() for t in xs_]
+    with torch.enable_grad():
+        p_out = ref.ssd_chunked(*p_leaves)[0]
+    ssd_bwd_row = {
+        "name": "ssd_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+        "replaces": "src/repro/kernels/ssd.py:82 (its gradient)",
+        "max_abs_err": max(float((a - w).abs().max()) for a, w in zip(
+            ssd_mod.ssd_scan_bwd(*xs_, dy_), ssd_plain_bwd(xs_, dy_, None))),
+        "ms": timed_ms(lambda: ssd_mod.ssd_scan_bwd(*xs_, dy_), iters=20),
+        "plain_ms": timed_ms(lambda: torch.autograd.grad(
+            p_out, p_leaves, dy_, retain_graph=True), iters=5, warmup=1),
+        # no one PyTorch call computes the scan's gradient
+        "library_ms": None,
+        "cold_l2_ms": cold_ms(lambda: ssd_mod.ssd_scan_bwd(*xs_, dy_)),
+    }
+    del p_leaves, p_out
+    # bytes: x, B, C, dt, da and dy read once, dx, dB, dC, d(dt) and d(da)
+    # written once; operations: per chunk and head 4 hd a causal pair (dS,
+    # and dx from the scores) and 10 hd ds a position (the chunk-start
+    # state recomputed, dy^T h0, x^T dh, dh B and the new dh), per chunk
+    # and batch row 6 ds a causal pair (C B^T, and dC and dB from the
+    # gradient of C B^T, once for the heads)
+    ssd_bwd_bytes = 4 * (3 * ssd_b * ssd_s * z_nh * z_hd
+                         + 4 * ssd_b * ssd_s * z_ds
+                         + 4 * ssd_b * ssd_s * z_nh)
+    ssd_bwd_ops = 0
+    for c0 in range(0, ssd_s, zcfg.ssm_chunk):
+        n_ = min(zcfg.ssm_chunk, ssd_s - c0)
+        pairs_ = n_ * (n_ + 1) // 2
+        ssd_bwd_ops += ssd_b * (z_nh * (4 * z_hd * pairs_
+                                        + 10 * n_ * z_hd * z_ds)
+                                + 6 * z_ds * pairs_)
+    ssd_bwd_row["bound_ms"], ssd_bwd_row["bound_by"] = bound_ms(
+        ssd_bwd_bytes, ssd_bwd_ops, "tf32")
+    ssd_bwd_row["bound_ms_fma_f32"], _ = bound_ms(ssd_bwd_bytes, ssd_bwd_ops,
+                                                  "f32")
+    ssd_bwd_nodes = graph_nodes_per_call(lambda: ssd_mod.ssd_scan_bwd(
+        *xs_, dy_))
+    check(ssd_bwd_nodes == [graph_kernel_node] * ssd_mod.BWD_KERNELS,
+          f"ssd_bwd: {ssd_mod.BWD_KERNELS} kernels a call expected, a "
+          f"call's graph {ssd_bwd_nodes}")
+    ssd_bwd_ptxas = {**ptxas_by_kernel("ssd_bwd_states_kernel"),
+                     **ptxas_by_kernel("ssd_bwd_sweep_kernel")}
+    emit(phase="ssd_bwd", shape={"x": [B, 256, z_nh, z_hd], "ds": z_ds},
+         checks=ssd_bwd_checks, bytes=ssd_bwd_bytes, flops=ssd_bwd_ops,
+         ptxas=ssd_bwd_ptxas, graph_nodes_a_call=ssd_bwd_nodes,
+         tolerance="max |kernel - plain| and |kernel - formulas| <= 1e-4 of "
+         "each gradient's scale (d(da): at least max |dt d(dt)|); the same "
+         "bits twice and from contiguous inputs", **ssd_bwd_row)
+    done("ssd_bwd")
+
+    # ------------------------------------------------------------- 13. rollout
     fc = FIRMConfig()
     check(fc.batch_size == B and fc.n_objectives == N_OBJ,
           "FIRMConfig defaults changed")
@@ -1383,7 +1545,7 @@ def run(torch, stop_after) -> int:
     want_launches = dict(rollout_launches, rmsnorm_bwd=0,
                          flash_attention_bwd=0, gram=0, quantize=0,
                          dequantize=0, abs_threshold_count=0,
-                         abs_threshold_mask=0, ssd=0)
+                         abs_threshold_mask=0, ssd=0, ssd_bwd=0)
     check(launches == want_launches,
           f"launch counts {launches}, expected {want_launches}")
 
@@ -1485,7 +1647,7 @@ def run(torch, stop_after) -> int:
     emit(phase="decode_profile", profile=device_profile(decode_8, 8))
     done("rollout")
 
-    # --------------------------------------------------- 13. rollout_hybrid
+    # ------------------------------------------------------ 14. rollout_hybrid
     # the same rollout on zamba2-1.2b at full width: 32 Mamba2 layers (the
     # SSD kernel in every sequence forward) and 6 applications of the one
     # shared attention block (MHA, 32 query and 32 KV heads)
@@ -1638,10 +1800,11 @@ def run(torch, stop_after) -> int:
                       "generate": z_generate_s, "rewards": z_rewards_s,
                       "reference_logprobs": z_ref_s},
          decode_profile=z_profile)
-    del z_cache, z_batch, z_policy, z_train, z_frozen, z_ref
+    # the reference weights, the adapters and the batch stay for training
+    del z_cache, z_policy, z_frozen
     done("rollout_hybrid")
 
-    # ------------------------------------------------------- 14. local step
+    # ---------------------------------------------------------- 15. local step
     # one client from the reference (lora_B = 0), K local steps, each a
     # rollout of B prompts and one firm_local_step, with FIRMConfig's
     # defaults (M = 2, B = 16, beta = 0.01, pgd with 100 iterations)
@@ -1668,7 +1831,8 @@ def run(torch, stop_after) -> int:
         "rmsnorm_bwd": k_steps * N_OBJ * 2 * cfg.n_layers,
         "flash_attention_bwd": k_steps * N_OBJ * cfg.n_layers,
         "gram": k_steps, "quantize": 0, "dequantize": 0,
-        "abs_threshold_count": 0, "abs_threshold_mask": 0, "ssd": 0}
+        "abs_threshold_count": 0, "abs_threshold_mask": 0, "ssd": 0,
+        "ssd_bwd": 0}
     check(local_launches == want_local,
           f"local-step launch counts {local_launches}, expected {want_local}")
     lam = kept["lam"]
@@ -1834,7 +1998,195 @@ def run(torch, stop_after) -> int:
          "(1 - cosine) <= 1.6x the plain bf16 path's; gram 1e-5 of scale")
     done("local_step")
 
-    # ------------------------------------------------------------ 15. round
+    # --------------------------------------------------- 16. local_step_hybrid
+    # zamba2 at full width, one client from the reference (lora_B = 0), K
+    # local steps of B prompts.  The adapters are the shared attention
+    # block's; the Mamba2 layers before its first slot need no gradient,
+    # the others their input's (the SSD backward kernels).  Per step: the
+    # rollout's launches, one forward (32 SSD scans, 6 attentions, 45
+    # norms), then per pull 27 SSD backwards, 6 attention backwards and the
+    # backward of every norm whose input needs a gradient (all but the
+    # first five Mamba2 layers' and the first shared slot's ln1).
+    first_shared = zcfg.pattern.index("shared_attn")
+    z_pull = {"ssd_bwd": n_mamba - first_shared,
+              "flash_attention_bwd": n_attn,
+              "rmsnorm_bwd": z_per_forward - first_shared - 1}
+    check(z_pull == {"ssd_bwd": 27, "flash_attention_bwd": 6,
+                     "rmsnorm_bwd": 39}, f"zamba2's pulls changed {z_pull}")
+    z_step = {name: 0 for name in counters}
+    z_step.update(rmsnorm=want_z["rmsnorm"] + z_per_forward,
+                  flash_attention=want_z["flash_attention"] + n_attn,
+                  ssd=want_z["ssd"] + n_mamba, gram=1,
+                  **{k: N_OBJ * v for k, v in z_pull.items()})
+    z_train0, z_frozen0 = common.split_trainable(z_ref)
+    z_state0 = local.init_client_state(z_train0, fc.n_objectives,
+                                       zcfg.d_model, kl_coef=fc.kl_coef_init,
+                                       device=dev)
+    # a generator of the phase's own, so the later phases keep their inputs
+    z_gen = torch.Generator(device=dev).manual_seed(16)
+    z_ds_local = make_client_datasets(1, zcfg.vocab, P, generator=z_gen,
+                                      device=dev)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    (z_final, z_kept), z_local_s = wall(lambda: client_local_steps(
+        zcfg, fc, z_state0, z_frozen0, z_ref, z_band_h, z_band_x,
+        k_steps=k_steps, max_new=MAX_NEW, length_tol=length_tol,
+        dataset=z_ds_local, generators=[z_gen] * k_steps))
+    z_local_launches = read_counts()
+    z_local_peak = torch.cuda.max_memory_allocated()
+    want_zlocal = {k: k_steps * v for k, v in z_step.items()}
+    check(z_local_launches == want_zlocal,
+          f"zamba2 local-step launch counts {z_local_launches}, expected "
+          f"{want_zlocal}")
+    z_lam = z_kept["lam"]
+    check(tuple(z_lam.shape) == (k_steps, N_OBJ) and bool((z_lam >= 0).all())
+          and float((z_lam.sum(-1) - 1).abs().max()) < 1e-5,
+          f"zamba2 lambda on the simplex: {z_lam.tolist()}")
+    check(bool(z_kept["kl"].isfinite().all()
+               & z_kept["rewards"].isfinite().all()),
+          "zamba2 finite kl and rewards")
+    check(int(z_final.step) == k_steps and int(z_final.opt.count) == k_steps,
+          "zamba2 step and Adam count advanced")
+    z_moved = [bool((a != b).any()) for a, b in zip(
+        common.tree_leaves(z_final.trainable), common.tree_leaves(z_train0))]
+    check(all(z_moved) and len(z_moved) == 8,
+          f"every zamba2 adapter moved ({sum(z_moved)}/{len(z_moved)})")
+    del z_final
+
+    def shared_leaves(tree, name):
+        """The ``name`` (lora_A or lora_B) leaves of the shared block's wq,
+        wk, wv, wo."""
+        attn = tree["shared"]["attn"]
+        return [attn[w][name] for w in sorted(attn)]
+
+    # uncounted, on the rollout_hybrid phase's batch: at lora_B = 0 every
+    # lora_A gradient is exactly 0
+    z_grads0, _, _ = ppo.per_objective_grads(
+        zcfg, fc, z_train0, z_frozen0, z_state0.critic, z_batch,
+        z_state0.kl_coef)
+    for j, g_j in enumerate(z_grads0):
+        check(all(bool((t == 0).all()) for t in shared_leaves(g_j,
+                                                              "lora_A")),
+              f"zamba2 objective {j}: a lora_A gradient is not 0 while "
+              "lora_B = 0")
+        check(all(bool((t != 0).any()) for t in shared_leaves(g_j,
+                                                              "lora_B")),
+              f"zamba2 objective {j}: a lora_B gradient is 0")
+    del z_grads0
+    # one firm_local_step from non-zero lora_B (the rollout_hybrid phase's
+    # adapters), with its time by part
+    z_state1 = z_state0._replace(trainable=z_train)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    z_mem_before = torch.cuda.memory_allocated()
+    (z_new, z_metrics), z_update_s = wall(lambda: local.firm_local_step(
+        zcfg, fc, z_state1, z_frozen0, z_batch))
+    z_update_peak = torch.cuda.max_memory_allocated()
+    for key in ("losses", "grad_norm", "kl", "ratio_mean", "td_err"):
+        check(bool(z_metrics[key].isfinite().all()), f"zamba2 {key} finite")
+    z_lam1 = z_metrics["lam"]
+    check(bool((z_lam1 >= 0).all()) and abs(float(z_lam1.sum()) - 1) < 1e-5,
+          f"zamba2 lambda on the simplex: {z_lam1.tolist()}")
+    check(all(bool((a != b).any()) for a, b in zip(
+        common.tree_leaves(z_new.trainable), common.tree_leaves(z_train))),
+        "every zamba2 adapter moved")
+    with torch.enable_grad():
+        z_tr = common.tree_map(lambda t: t.detach().requires_grad_(), z_train)
+        (z_losses, z_extras), z_fwd_s = wall(
+            lambda: ppo.multi_objective_losses(
+                zcfg, fc, z_tr, z_frozen0, z_state0.critic, z_batch,
+                z_state0.kl_coef))
+        z_leaves = common.tree_leaves(z_tr)
+        z_pulls, z_pulls_s = wall(lambda: [torch.autograd.grad(
+            z_losses[j], z_leaves, retain_graph=j < N_OBJ - 1)
+            for j in range(N_OBJ)])
+    z_g = []
+    for flat in z_pulls:
+        it = iter(flat)
+        z_g.append(common.tree_map(lambda _: next(it), z_tr))
+    _, z_gram_s = wall(lambda: ops.gram_from_pytrees(z_g))
+    z_res, z_resolve_s = wall(lambda: firm.resolve(
+        z_g, fc, prev_lam=z_state0.lam,
+        eta=firm.eta_schedule(z_state0.step + 1)))
+    _, z_adam_s = wall(lambda: optim.adam_update(
+        z_res.direction, z_state0.opt, z_train, lr=fc.actor_lr,
+        max_grad_norm=1.0))
+    _, z_feats, z_rtok, _, z_mask_ = z_extras
+    _, z_critic_s = wall(lambda: critic.td_update(
+        z_state0.critic, z_feats, z_rtok, z_mask_, fc.gamma, fc.critic_lr,
+        critic.r_w_bound(r_max=1.0)))
+    del z_tr, z_losses, z_extras, z_pulls, z_leaves, z_g, z_res
+    z_update_profile = device_profile(lambda: local.firm_local_step(
+        zcfg, fc, z_state1, z_frozen0, z_batch), 1)
+    if z_update_profile is not None:
+        z_update_profile["device_busy_share_of_unprofiled_wall"] = (
+            z_update_profile["device_busy_us_per_step"] / (z_update_s * 1e6))
+
+    # the M gradients on the fixed batch through the kernels, through the
+    # plain versions and through an f32 copy of the model: the kernels'
+    # bf16 path as close to f32 as the plain bf16 path (the llama rule),
+    # and in f32 the kernels' gradients within 1e-3 relative L2 of the
+    # plain f32 path's
+    def z_flat_grads(frz, **kw):
+        g, _, _ = ppo.per_objective_grads(zcfg, fc, z_train, frz,
+                                          z_state0.critic, z_batch,
+                                          z_state0.kl_coef, **kw)
+        out = [torch.cat([t.float().reshape(-1)
+                          for t in common.tree_leaves(g_j)]) for g_j in g]
+        torch.cuda.empty_cache()
+        return out
+
+    zg_kernel = z_flat_grads(z_frozen0)
+    zg_plain = z_flat_grads(z_frozen0, use_kernel=False)
+    z_frozen32 = common.tree_map(lambda t: t.float(), z_frozen0)
+    zg_f32 = z_flat_grads(z_frozen32, use_kernel=False)
+    zg_kernel32 = z_flat_grads(z_frozen32)
+    del z_frozen32
+    z_grad_check = []
+    for j in range(N_OBJ):
+        e = {"kernels_vs_f32": compare(zg_kernel[j], zg_f32[j]),
+             "plain_vs_f32": compare(zg_plain[j], zg_f32[j]),
+             "kernels_vs_plain": compare(zg_kernel[j], zg_plain[j]),
+             "f32_kernels_vs_f32_plain": compare(zg_kernel32[j], zg_f32[j]),
+             "norm_f32": float(zg_f32[j].norm())}
+        z_grad_check.append(e)
+        k_, p_ = e["kernels_vs_f32"], e["plain_vs_f32"]
+        check(k_["rel_l2"] <= 1.25 * p_["rel_l2"]
+              and 1 - k_["cosine"] <= 1.6 * (1 - p_["cosine"]),
+              f"zamba2 objective {j}: kernels' gradient further from f32 "
+              f"than the plain path's: {e}")
+        check(e["f32_kernels_vs_f32_plain"]["rel_l2"] <= 1e-3,
+              f"zamba2 objective {j}: f32 gradients through the kernels "
+              f"vs plain: {e}")
+    del zg_kernel, zg_plain, zg_f32, zg_kernel32
+    emit(phase="local_step_hybrid", model=zcfg.name, k_steps=k_steps,
+         n_objectives=N_OBJ, batch=B, prompt_len=P, max_new=MAX_NEW,
+         gradient_width=sum(t.numel() for t in common.tree_leaves(z_train)),
+         seconds=z_local_s, launches=z_local_launches,
+         per_pull=z_pull, peak_memory_bytes=z_local_peak,
+         lam=z_lam.tolist(), kl=z_kept["kl"].tolist(),
+         rewards=z_kept["rewards"].tolist(),
+         update={"seconds": z_update_s,
+                 "peak_memory_bytes": z_update_peak,
+                 "memory_before_bytes": z_mem_before,
+                 "losses": z_metrics["losses"].tolist(),
+                 "grad_norm": float(z_metrics["grad_norm"]),
+                 "lam_star": z_metrics["lam_star"].tolist(),
+                 "breakdown_s": {"forward_and_losses": z_fwd_s,
+                                 "backward_pulls": z_pulls_s,
+                                 "gram": z_gram_s,
+                                 "resolve_with_gram": z_resolve_s,
+                                 "adam": z_adam_s, "critic_td": z_critic_s},
+                 "profile": z_update_profile},
+         gradient_check=z_grad_check,
+         tolerance="kernels' bf16 gradient vs f32: rel L2 <= 1.25x and "
+         "(1 - cosine) <= 1.6x the plain bf16 path's; f32 kernels vs f32 "
+         "plain: rel L2 <= 1e-3")
+    del z_new, z_state1
+    done("local_step_hybrid")
+
+    # --------------------------------------------------------------- 17. round
     # the federated round at full width: C = 2 clients, K = 1 local step,
     # R = 2 rounds so that the error-feedback residual carries into round
     # 2; first the ``wan`` preset (int8+ef uplink, identity downlink), then
@@ -2010,7 +2362,213 @@ def run(torch, stop_after) -> int:
     del trainer
     done("round")
 
-    # ----------------------------------------------------------- 16. codecs
+    # -------------------------------------------------------- 18. round_hybrid
+    # the wan round on zamba2 at full width: C = 2 clients, K = 1, R = 1,
+    # from the rollout_hybrid phase's reference weights.  comm_bytes is the
+    # value tests/test_torch_hybrid_training.py takes from the reference's
+    # codecs and ledger for this config (ZAMBA2_WAN_COMM_BYTES there).
+    fc_zround = dataclasses.replace(fc, n_clients=N_CLIENTS, local_steps=1,
+                                    rounds=1)
+    up, down = CODEC_PRESETS["wan"]
+    z_trainer = FederatedTrainer(
+        zcfg, fc_zround, EngineConfig(prompt_len=P, max_new=MAX_NEW,
+                                      uplink_codec=up, downlink_codec=down),
+        params=z_ref, device=dev)
+    z_part_s = {}
+
+    def z_timed_part(name, fn):
+        def run_part(*a, **kw):
+            out, sec = wall(lambda: fn(*a, **kw))
+            z_part_s[names[name]] = sec
+            return out
+        return run_part
+
+    for name in names:
+        setattr(z_trainer, name, z_timed_part(name, getattr(z_trainer, name)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    z_summary, z_round_s = wall(z_trainer.run_round)
+    z_round_launches = read_counts()
+    z_round_peak = torch.cuda.max_memory_allocated()
+    want_zround = {k: N_CLIENTS * v for k, v in z_step.items()}
+    want_zround.update(quantize=1, dequantize=1)
+    check(z_round_launches == want_zround,
+          f"zamba2 round launch counts {z_round_launches}, expected "
+          f"{want_zround}")
+    z_d = z_trainer.d_trainable
+    check(z_d == 262_144 and z_summary["comm_bytes"] == 2_623_488
+          == N_CLIENTS * (z_trainer.uplink_codec.nbytes_static(z_d)
+                          + z_trainer.downlink_codec.nbytes_static(z_d)),
+          f"zamba2 wan comm_bytes {z_summary['comm_bytes']} (d = {z_d})")
+    z_lam_pc = z_summary["per_client_lam"]
+    check(z_lam_pc.shape == (N_CLIENTS, N_OBJ) and (z_lam_pc >= 0).all()
+          and abs(z_lam_pc.sum(-1) - 1).max() < 1e-5,
+          f"zamba2 per-client lambda on the simplex: {z_lam_pc.tolist()}")
+    check(z_summary["param_drift"] > 0, "zamba2 clients drifted apart")
+    z_res_norms = [float(r.norm()) for r in z_trainer._uplink_state]
+    check(all(0 < r < float("inf") for r in z_res_norms),
+          f"zamba2 error-feedback residuals carried: {z_res_norms}")
+    check(all(bool(t.isfinite().all()) for t in
+              common.tree_leaves(z_trainer.global_trainable))
+          and any(bool((a != b).any()) for a, b in zip(
+              common.tree_leaves(z_trainer.global_trainable),
+              common.tree_leaves(z_train0))),
+          "zamba2 global adapters finite and moved")
+    emit(phase="round_hybrid", model=zcfg.name, preset="wan",
+         clients=N_CLIENTS, local_steps=1, rounds=1, batch=B, prompt_len=P,
+         max_new=MAX_NEW, uplink=up, downlink=down, d_trainable=z_d,
+         seconds_per_round=z_round_s, breakdown_s=z_part_s,
+         launches=z_round_launches, peak_memory_bytes=z_round_peak,
+         comm_bytes=z_summary["comm_bytes"],
+         up_nbytes=z_summary["up_nbytes"],
+         down_nbytes=z_summary["down_nbytes"],
+         param_drift=z_summary["param_drift"],
+         lam_disagreement=z_summary["lam_disagreement"],
+         per_client_lam=z_lam_pc.tolist(), kl=z_summary["kl"],
+         rewards=z_summary["rewards"].tolist(), residual_norms=z_res_norms)
+    del z_trainer
+    done("round_hybrid")
+
+    # -------------------------------------------------------- 19. round_parity
+    # a round on the card against the port's CPU round (which the CPU tests
+    # hold to the JAX package), at a tiny f32 config of each trained
+    # model: R = 3 carried wan rounds of C = 2 clients, K = 1, B = 2, 8
+    # prompt and 12 new tokens, the same weights and the same injected
+    # draws (prompts, Gumbel noise, rounding bits) on both sides, from a
+    # generator of the phase's own.  Both sides decode with an f32 K/V
+    # cache (generate's default is bf16, on both sides of the CPU tests
+    # too, where the sampling logprobs agree to the bf16 tolerance): a
+    # last-bit difference of an f32 key or value flips its bf16 rounding,
+    # which moves the behaviour logprobs, and through the PPO ratio lambda
+    # and drift, by more than the kernels do (on an H100, tiny zamba2 on
+    # the bf16 cache: lambda 7.1e-4 and drift 1.07e-4 of their scale; a
+    # llama client's Adam step 9.9e-2 of its scale).  Held within
+    # tests/test_torch_round.py's tolerances: bytes, participants and
+    # rewards exact; drift 1e-4 of its scale; KL 1e-6 absolute; lambda 1e-4
+    # and the clients' and the global's steps (moves over actor_lr) 1e-2,
+    # each over min(1, D), D the curvature of the MGDA problem at the
+    # round's worst step (from the CPU steps' Gram matrices).  The zamba2
+    # config runs the SSD kernels forward and backward (hd 64, ds 16).
+    def parity_rounds(cfg_p):
+        pb, pp, pnew, pc = 2, 8, 12, 2
+        fc_p = dataclasses.replace(FIRMConfig(), n_clients=pc, local_steps=1,
+                                   batch_size=pb, n_objectives=N_OBJ)
+        ec_p = EngineConfig(prompt_len=pp, max_new=pnew,
+                            uplink_codec="int8+ef")
+        g_cpu = torch.Generator().manual_seed(19)
+        p_cpu = transformer.init_params(cfg_p, generator=g_cpu,
+                                        device="cpu", dtype=torch.float32)
+        tr_p, fr_p = common.split_trainable(p_cpu)
+        tr_p = common.tree_map(lambda t: t + 0.05 * torch.randn(
+            t.shape, generator=g_cpu), tr_p)
+        p_cpu = common.merge_trainable(tr_p, fr_p)
+        sides = {"cpu": FederatedTrainer(cfg_p, fc_p, ec_p, params=p_cpu,
+                                         device="cpu"),
+                 "cuda": FederatedTrainer(
+                     cfg_p, fc_p, ec_p, device=dev, params=common.tree_map(
+                         lambda t: t.to(dev), p_cpu))}
+        grams, uplinks = {"cpu": [], "cuda": []}, {"cpu": [], "cuda": []}
+        step_fn = local.firm_local_step
+        side_of = {}
+
+        def spy_step(cfg_, fc_, state, *a, **kw):
+            st, met = step_fn(cfg_, fc_, state, *a, **kw)
+            grams[side_of["now"]].append(
+                met["gram"].detach().double().cpu().numpy())
+            return st, met
+        for side, tr in sides.items():
+            rt = tr.uplink_codec.roundtrip_stacked
+
+            def spy_up(flats, spec, states, _rt=rt, _side=side, **kw):
+                out = _rt(flats, spec, states, **kw)
+                uplinks[_side].append(flats.detach().cpu().clone())
+                return out
+            tr.uplink_codec.roundtrip_stacked = spy_up
+        rows = -(-sides["cpu"].d_trainable // q_mod.BLOCK)
+        lr = fc_p.actor_lr
+        records = []
+        local.firm_local_step = spy_step
+        transformer.prefill = f32_prefill
+        for r in range(3):
+            draws = {
+                "prompts": torch.randint(0, cfg_p.vocab, (1, pc, pb, pp),
+                                         generator=g_cpu),
+                "gumbel": -torch.log(-torch.log(torch.rand(
+                    (1, pc, pnew, pb, cfg_p.vocab), generator=g_cpu).clamp(
+                        1e-12, 1 - 1e-7))),
+                "up_bits": torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                         (pc, rows, 1024), dtype=torch.int32,
+                                         generator=g_cpu)}
+            before = {s: torch.cat([t.reshape(-1).cpu() for t in
+                                    common.tree_leaves(tr.global_trainable)])
+                      for s, tr in sides.items()}
+            summ, sec = {}, {}
+            for side, tr in sides.items():
+                side_of["now"] = side
+                dev_s = torch.device("cpu") if side == "cpu" else dev
+                summ[side], sec[side] = wall(lambda: tr.run_round(
+                    **{k: v.to(dev_s) for k, v in draws.items()}))
+            after = {s: torch.cat([t.reshape(-1).cpu() for t in
+                                   common.tree_leaves(tr.global_trainable)])
+                     for s, tr in sides.items()}
+            curv = []
+            for g in grams["cpu"][-pc:]:
+                q = g / (np.trace(g) / N_OBJ) + 0.5 * fc_p.beta * np.eye(N_OBJ)
+                curv.append(q[0, 0] + q[1, 1] - 2 * q[0, 1])
+            slack = 1 / min(1.0, float(min(curv)))
+            got, want = summ["cuda"], summ["cpu"]
+
+            def of_scale(a, b):
+                a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+                return float(np.abs(a - b).max() / np.abs(b).max())
+            rec = {
+                "round": r + 1, "curvature": float(min(curv)),
+                "seconds": sec,
+                "exact": all(got[k] == want[k] for k in (
+                    "comm_bytes", "up_bytes", "down_bytes", "participants",
+                    "up_nbytes", "down_nbytes")) and bool(np.array_equal(
+                        got["rewards_per_client"],
+                        want["rewards_per_client"])),
+                "drift": of_scale(got["param_drift"], want["param_drift"]),
+                "kl_abs": abs(got["kl"] - want["kl"]),
+                "lam": max(of_scale(got[k], want[k]) for k in (
+                    "lam_mean", "per_client_lam", "lam_disagreement")),
+                "client_steps": of_scale(uplinks["cuda"][-1] / lr,
+                                         uplinks["cpu"][-1] / lr),
+                "global_step": of_scale((after["cuda"] - before["cuda"]) / lr,
+                                        (after["cpu"] - before["cpu"]) / lr)}
+            records.append(rec)
+            check(rec["exact"] and rec["drift"] <= 1e-4
+                  and rec["kl_abs"] <= 1e-6 and rec["lam"] <= 1e-4 * slack
+                  and rec["client_steps"] <= 1e-2 * slack
+                  and rec["global_step"] <= 1e-2 * slack,
+                  f"round_parity {cfg_p.name} round {r + 1}: {rec}")
+        local.firm_local_step = step_fn
+        transformer.prefill = prefill_fn
+        return records
+
+    prefill_fn = transformer.prefill
+    f32_prefill = functools.partial(prefill_fn, cache_dtype=torch.float32)
+
+    parity = {}
+    for cfg_p in (dataclasses.replace(
+            get_config("llama-3.2-1b").reduced(n_layers=2, d_model=64,
+                                               vocab=256), n_kv_heads=2),
+                  get_config("zamba2-1.2b").reduced(n_layers=2, d_model=64,
+                                                    vocab=64)):
+        zero_counts()
+        parity[cfg_p.name] = {"rounds": parity_rounds(cfg_p),
+                              "card_launches": read_counts()}
+    check(parity["zamba2-1.2b-smoke"]["card_launches"]["ssd_bwd"] > 0,
+          "the zamba2 round on the card ran the SSD backward")
+    emit(phase="round_parity", models=parity,
+         tolerance="exact bytes, participants and rewards; drift 1e-4 of "
+         "its scale; KL 1e-6 absolute; lambda 1e-4 and the steps over "
+         "actor_lr 1e-2 of their scale, each over min(1, D)")
+    done("round_parity")
+
+    # -------------------------------------------------------------- 20. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -2113,7 +2671,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # ------------------------------------------------------------ 17. train
+    # --------------------------------------------------------------- 21. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -2127,11 +2685,24 @@ def run(torch, stop_after) -> int:
         # the launcher's codecs are identity both ways
         check(hist[0]["comm_bytes"] == 2 * 2 * 4 * d_lora,
               f"launch.train comm_bytes {hist[0]['comm_bytes']}")
-    del tr_cli
-    emit(phase="train", seconds=train_s, report=report.getvalue())
+    # zamba2 at full width through the same CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        z_report = io.StringIO()
+        with contextlib.redirect_stdout(z_report):
+            z_cli, z_train_s = wall(lambda: train_cli.main(
+                ["--arch", "zamba2-1.2b", "--preset", "full", "--clients",
+                 "2", "--local-steps", "1", "--rounds", "1", "--batch-size",
+                 "4", "--max-new", "8", "--device", "cuda", "--out", tmp]))
+        hist = json.loads(Path(tmp, "history.json").read_text())["history"]
+        check(len(hist) == 1 and Path(tmp, "adapters.npz").exists()
+              and hist[0]["comm_bytes"] == 2 * 2 * 4 * z_cli.d_trainable,
+              f"launch.train on zamba2: {hist}")
+    del tr_cli, z_cli
+    emit(phase="train", seconds=train_s, report=report.getvalue(),
+         zamba2={"seconds": z_train_s, "report": z_report.getvalue()})
     done("train")
 
-    # ------------------------------------------------------------ 18. serve
+    # --------------------------------------------------------------- 22. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(
@@ -2164,9 +2735,11 @@ def run(torch, stop_after) -> int:
         row["launches"] = round_launches[row["name"]]
     for row in (count_row, mask_row):
         row["launches"] = extreme_launches[row["name"]]
-    # the SSD kernel's: the zamba2 rollout's
+    # the SSD kernel's: the zamba2 rollout's; its backward's: the zamba2
+    # round's
     ssd_row["launches"] = z_launches["ssd"]
-    rows += (count_row, mask_row, ssd_row)
+    ssd_bwd_row["launches"] = z_round_launches["ssd_bwd"]
+    rows += (count_row, mask_row, ssd_row, ssd_bwd_row)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

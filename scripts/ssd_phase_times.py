@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Where the SSD kernel's time goes: the kernel timed with one step of it
+"""Where the SSD kernels' time goes: a kernel timed with one step of it
 removed at a time, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with the card and ``nvcc``:
 
     python3 scripts/ssd_phase_times.py
 
-Each variant is ``src/repro_torch/kernels/csrc/ssd.cu`` with one step's
-work cut out by a text substitution (its output is wrong by construction;
-nothing checks it), built with ``nvcc`` into ``build/ssd_phases/`` and
-timed at the reference forward's shape (B = 16, S = 256, nh = 64,
-hd = ds = 64, with the final state) with CUDA events over 50 calls, in
-two rounds.  ``copies_only`` keeps the copies, waits, scans and stores
-and cuts every product.  Prints the card's name and power limit, then one
-line per variant.
+Each variant is ``src/repro_torch/kernels/csrc/ssd.cu`` (the forward) or
+``ssd_bwd.cu`` (the backward) with one step's work cut out by a text
+substitution (its output is wrong by construction; nothing checks it),
+built with ``nvcc`` into ``build/ssd_phases/`` and timed at the training
+shape (B = 16, S = 256, nh = 64, hd = ds = 64; the forward with the final
+state, the backward without a d(final state)) with CUDA events over 50
+calls, in two rounds.  Forward: ``copies_only`` keeps the copies, waits,
+scans and stores and cuts every product.  Backward: the states kernel,
+C B^T, the row and column passes' pair loops, dy^T h0, x^T dh, dh B_j,
+the new dh and the serial d(da) sum, one at a time.  Prints the card's
+name and power limit, then one line per variant of each kernel.
 """
 from __future__ import annotations
 
@@ -39,17 +42,42 @@ SCAN = ("if (tid == 0) scan_L(sm.L);", "")
 VARIANTS = {"base": [], "no_inter": [P2], "no_intra": [INTRA],
             "no_state": [STATE], "no_cb": [CB], "no_scan": [SCAN],
             "copies_only": [P2, INTRA, STATE, CB]}
+BWD_VARIANTS = {
+    "base": [],
+    "no_states": [("  for (int c = 0; c + 1 < nchunks; ++c) {",
+                   "  for (int c = 0; c + 1 < 0; ++c) {")],
+    "no_cb": [("      if (j <= i) {\n        float s0",
+               "      if (false) {\n        float s0")],
+    "no_row_pairs": [("const int jmax = min(16 * warp + 15, n - 1);",
+                      "const int jmax = -1;")],
+    "no_col_pairs": [("for (int i = 16 * warp; i < n; ++i) {",
+                      "for (int i = 16 * warp; i < 0; ++i) {")],
+    "no_dyT_h0": [("        if (h0h) {\n          float4 u[kVS];",
+                   "        if (false) {\n          float4 u[kVS];")],
+    "no_xT_dh": [("row_times_state<DS, HS::kRow, HS::kOff>(v, sm.x + j * "
+                  "HD::kRow,\n                                                "
+                  "sm.state, p);", "for (int k = 0; k < kVS; ++k) v[k] = "
+                  "make_float4(0.f, 0.f, 0.f, 0.f);")],
+    "no_dh_B": [("for (int s = 0; s < DS; s += 4) {\n            const "
+                 "float4 b4", "for (int s = 0; s < 0; s += 4) {\n         "
+                 "   const float4 b4")],
+    "no_new_dh": [("      for (int i = 0; i < n; ++i) {\n        const float "
+                   "eli", "      for (int i = 0; i < 0; ++i) {\n        "
+                   "const float eli")],
+    "no_dda_sum": [("        if (tid == 0) {\n          // d(da)_k",
+                    "        if (false) {\n          // d(da)_k")]}
 
 
-def build_variants(out: Path) -> None:
-    src = (build.CSRC / "ssd.cu").read_text()
+def build_variants(out: Path, source: str, variants: dict) -> None:
+    src = (build.CSRC / source).read_text()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in variants.items():
         text = src
         for old, new in subs:
             if old not in text:
-                raise RuntimeError(f"{name}: ssd.cu no longer holds {old!r}")
+                raise RuntimeError(f"{name}: {source} no longer holds "
+                                   f"{old!r}")
             text = text.replace(old, new)
         (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
@@ -62,40 +90,16 @@ def build_variants(out: Path) -> None:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("ssd_phase_times: no CUDA device is available", file=sys.stderr)
-        return 1
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
-    out = build.BUILD_DIR / "ssd_phases"
-    build_variants(out)
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    b, s, nh, hd, ds = 16, 256, 64, 64, 64
-    F = torch.nn.functional
-    xbc = F.silu(torch.randn((b, s, nh * hd + 2 * ds), generator=gen,
-                             device=dev))
-    x = xbc[..., :nh * hd].view(b, s, nh, hd)
-    bm, cm = xbc[..., nh * hd:nh * hd + ds], xbc[..., nh * hd + ds:]
-    dt = F.softplus(torch.randn((b, s, nh), generator=gen, device=dev))
-    da = dt * -torch.linspace(1.0, 16.0, nh, device=dev)
-    y = torch.empty((b, s, nh, hd), device=dev)
-    state = torch.empty((b, nh, hd, ds), device=dev)
-    strides = [*x.stride()[:3], *bm.stride()[:2], *cm.stride()[:2],
-               *dt.stride()[:2], *da.stride()[:2]]
-    times = {name: [] for name in VARIANTS}
+def time_variants(out: Path, entry: str, args: list, variants) -> dict:
+    """Mean ms of each variant's ``entry`` over 50 calls, in two rounds."""
+    times = {name: [] for name in variants}
     for _ in range(2):
-        for name in VARIANTS:
-            fn = ctypes.CDLL(str(out / f"{name}.so")).firm_ssd_scan
-            fn.argtypes = build.SIGNATURES["firm_ssd_scan"]
+        for name in variants:
+            fn = getattr(ctypes.CDLL(str(out / f"{name}.so")), entry)
+            fn.argtypes = build.SIGNATURES[entry]
 
             def call():
-                err = fn(x.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                         dt.data_ptr(), da.data_ptr(), y.data_ptr(),
-                         state.data_ptr(), 1, b, s, nh, ds, *strides,
-                         torch.cuda.current_stream().cuda_stream)
+                err = fn(*args, torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
             for _ in range(5):
@@ -109,8 +113,56 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             times[name].append(start.elapsed_time(end) / 50)
-    for name, ms in times.items():
-        print(f"{name:12s} " + " ".join(f"{t:.4f} ms" for t in ms))
+    return times
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("ssd_phase_times: no CUDA device is available", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    out = build.BUILD_DIR / "ssd_phases"
+    build_variants(out / "fwd", "ssd.cu", VARIANTS)
+    build_variants(out / "bwd", "ssd_bwd.cu", BWD_VARIANTS)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, s, nh, hd, ds = 16, 256, 64, 64, 64
+    F = torch.nn.functional
+    xbc = F.silu(torch.randn((b, s, nh * hd + 2 * ds), generator=gen,
+                             device=dev))
+    x = xbc[..., :nh * hd].view(b, s, nh, hd)
+    bm, cm = xbc[..., nh * hd:nh * hd + ds], xbc[..., nh * hd + ds:]
+    dt = F.softplus(torch.randn((b, s, nh), generator=gen, device=dev))
+    da = dt * -torch.linspace(1.0, 16.0, nh, device=dev)
+    dy = torch.randn((b, s, nh, hd), generator=gen, device=dev)
+    strides = [*x.stride()[:3], *bm.stride()[:2], *cm.stride()[:2],
+               *dt.stride()[:2], *da.stride()[:2]]
+    groups = ctypes.c_int(0)
+    build.load().firm_ssd_bwd_groups(nh, ctypes.byref(groups))
+    fwd_out = [torch.empty(shape, device=dev) for shape in (
+        (b, s, nh, hd), (b, nh, hd, ds))]
+    bwd_out = [torch.empty(shape, device=dev) for shape in (
+        (b, s, nh, hd), (b, s, ds), (b, s, ds), (b, s, nh), (b, s, nh),
+        (b, -(-s // 128) - 1, nh, hd, ds), (b, nh, hd, ds),
+        (b, groups.value, s, ds), (b, groups.value, s, ds))]
+    ins = [t.data_ptr() for t in (x, bm, cm, dt, da)]
+    for label, times in (
+            ("forward", time_variants(
+                out / "fwd", "firm_ssd_scan",
+                ins + [t.data_ptr() for t in fwd_out] + [1, b, s, nh, ds,
+                                                         *strides],
+                VARIANTS)),
+            ("backward", time_variants(
+                out / "bwd", "firm_ssd_scan_bwd",
+                ins + [dy.data_ptr(), None]
+                + [t.data_ptr() for t in bwd_out] + [b, s, nh, ds,
+                                                     *strides],
+                BWD_VARIANTS))):
+        print(label)
+        for name, ms in times.items():
+            print(f"  {name:12s} " + " ".join(f"{t:.4f} ms" for t in ms))
     return 0
 
 

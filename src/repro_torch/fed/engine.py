@@ -3,9 +3,10 @@
 ``rollout_batch`` is what every FIRM local step runs before any gradient:
 generation (prefill, then decode and sample), banded rewards, and the
 frozen reference model's logprobs (``FederatedTrainer._make_batch`` and the
-first lines of ``one_client`` in the reference's ``_make_round_fn``).  It
-runs on every ported pattern, the zamba2 hybrid included; the training
-below runs on the dense ``("attn",)`` pattern only.
+first lines of ``one_client`` in the reference's ``_make_round_fn``).
+Everything here runs on every ported pattern: the dense llama pattern and
+the zamba2 hybrid, whose training differentiates the Mamba2 layers through
+the SSD backward kernel.
 ``client_local_steps`` runs K local steps of one client, each a rollout
 then ``firm_local_step``: ``one_client`` and the scan ``body`` of
 ``_make_round_fn`` for a single client.
@@ -176,12 +177,6 @@ class FederatedTrainer:
         if ec.algorithm != "firm":
             raise NotImplementedError(
                 f"algorithm {ec.algorithm!r} is not ported yet; ported: firm")
-        if tuple(cfg.pattern) != ("attn",):
-            raise NotImplementedError(
-                f"training on the block pattern {cfg.pattern} is not ported "
-                "yet (the SSD kernel has no backward): the port trains the "
-                "dense ('attn',) pattern; training on zamba2 is the next "
-                "slice (ROADMAP Queue 1 item 1)")
         if fc.client_local_steps is not None and \
                 len(set(fc.client_local_steps)) > 1:
             raise NotImplementedError(

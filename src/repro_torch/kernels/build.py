@@ -55,6 +55,12 @@ SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # ds, int* blocks an SM (out), int* shared memory bytes a block (out)
     "firm_ssd_occupancy": (_I, _P, _P),
+    # x, bm, cm, dt, da, dy, dstate (or null), dx, dB, dC, d(dt), d(da),
+    # scratch h0, dh, the partials of dB and dC, batch, seqlen, nh, ds, the
+    # element strides of x, B, C, dt and da as firm_ssd_scan's, stream
+    "firm_ssd_scan_bwd": (_P,) * 16 + (_I,) * 15 + (_P,),
+    # nh, int* head groups of the backward's sweep (out)
+    "firm_ssd_bwd_groups": (_I, _P),
 }
 
 

@@ -4,11 +4,11 @@ Mirrors ``repro.kernels.ops`` with ``use_kernel`` in place of
 ``use_pallas``.  The choice follows the tensor's device: a CPU tensor goes
 to the plain PyTorch version in ``kernels.ref`` (differentiated by
 autograd); any other tensor goes to the kernel's wrapper, which launches
-on a CUDA tensor and raises on anything else.  On CUDA ``rmsnorm`` and
-``flash_attention`` are ``autograd.Function``s whose backward runs the
-backward kernels.  ``use_kernel=False`` forces the plain version and
-exists for the tests and for ``chip_smoke.py``'s comparisons; the model's
-main path never passes it.
+on a CUDA tensor and raises on anything else.  On CUDA ``rmsnorm``,
+``flash_attention`` and ``ssd_scan`` are ``autograd.Function``s whose
+backward runs the backward kernels.  ``use_kernel=False`` forces the
+plain version and exists for the tests and for ``chip_smoke.py``'s
+comparisons; the model's main path never passes it.
 """
 from __future__ import annotations
 
@@ -135,10 +135,11 @@ def ssd_scan(x, bmat, cmat, dt, da, *, chunk: int = 128,
     """The Mamba2 chunked SSD scan in the model's layout: x (B, S, nh, hd),
     B and C (B, S, ds) shared by the heads, dt and da (B, S, nh), f32 ->
     y (B, S, nh, hd) [, final state (B, nh, hd, ds)].  A CPU tensor takes
-    ``ref.ssd_chunked`` (differentiable by autograd); a CUDA tensor the
-    kernel, which has no backward."""
+    ``ref.ssd_chunked`` (differentiated by autograd); a CUDA tensor the
+    forward kernel, and its backward kernels when a gradient is asked
+    for."""
     if _kernel(x, use_kernel):
-        return _ssd.ssd_scan(x, bmat, cmat, dt, da, chunk=chunk,
-                             return_state=return_state)
+        return _ssd.ssd_scan_trainable(x, bmat, cmat, dt, da, chunk=chunk,
+                                       return_state=return_state)
     y, state = ref.ssd_chunked(x, bmat, cmat, dt, da, chunk=chunk)
     return (y, state) if return_state else y

@@ -231,3 +231,119 @@ def ssd_chunked(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         ys.append(y_intra + y_inter)
     y = torch.cat(ys, dim=1)[:, :s] if ys else x.new_zeros(x.shape)
     return y, state
+
+
+def ssd_chunked_bwd(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                    dt: torch.Tensor, da: torch.Tensor, dy: torch.Tensor,
+                    dstate=None, *, chunk: int = 128):
+    """The gradient of ``ssd_chunked`` written out, as the backward kernel
+    computes it: (dx, dB, dC, d(dt), d(da)), all f32, in the inputs'
+    shapes, given dy (B, S, nh, hd) and an optional d(final state) (B, nh,
+    hd, ds).
+
+    The chunk-start states h0 are recomputed by the forward recurrence,
+    then the chunks are walked last to first carrying dh, the gradient of
+    the state at the chunk's end (d(final state), or zero, at the last).
+    Per chunk, with L the inclusive cumsum of da, g_ij = exp(L_i - L_j)
+    (j <= i, else 0), S_ij = (C_i . B_j) g_ij dt_j the scores and w_j =
+    dt_j exp(L_end - L_j):
+
+      dS_ij = dy_i . x_j                 T_ij = dS_ij g_ij
+      dx_j  = sum_i S_ij dy_i + w_j (dh B_j)
+      G_ij  = sum_heads T_ij dt_j        (the gradient of C B^T)
+      dC_i  = sum_j G_ij B_j + sum_heads exp(L_i) dy_i^T h0
+      dB_j  = sum_i G_ij C_i + sum_heads w_j x_j^T dh
+      d(dt)_j = sum_i T_ij (C_i . B_j) + exp(L_end - L_j) dw_j,
+                with dw_j = x_j^T dh B_j
+      dL_i  = sum_j dS_ij S_ij - sum_k dS_ki S_ki + dy_i . y_inter_i
+              - dw_i w_i
+      dL_end = sum_j dw_j w_j + exp(L_end) sum(dh * h0)
+      d(da)_k = dL_end + sum_{i >= k} dL_i, summed from the chunk's end
+      dh    <- exp(L_end) dh + sum_i exp(L_i) dy_i C_i^T
+
+    The plain version of the backward kernel is autograd of
+    ``ssd_chunked``; this one states the kernel's formulas so that the
+    CPU tests can hold them to it.
+    """
+    b, s, nh, hd = x.shape
+    ds = bmat.shape[-1]
+    nchunks = -(-s // chunk)
+    pad = nchunks * chunk - s
+
+    def rs(t):        # (B, S, ...) -> (B, n, chunk, ...), zero-padded
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((b, pad) + t.shape[2:])], dim=1)
+        return t.reshape((b, nchunks, chunk) + t.shape[2:])
+
+    xs_c, b_c, c_c, dt_c, da_c, dy_c = (rs(t) for t in (x, bmat, cmat, dt,
+                                                        da, dy))
+    ii = torch.arange(chunk, device=x.device)
+    causal = ii[:, None] >= ii[None, :]
+    neg_inf = torch.tensor(float("-inf"), device=x.device)
+    Ls = [torch.cumsum(da_c[:, k], dim=1) for k in range(nchunks)]
+
+    # the chunk-start states, by the forward recurrence
+    h0s, state = [], torch.zeros((b, nh, hd, ds), dtype=torch.float32,
+                                 device=x.device)
+    for k in range(nchunks):
+        h0s.append(state)
+        L = Ls[k]
+        w = dt_c[:, k] * torch.exp(L[:, -1:, :] - L)
+        state = state * torch.exp(L[:, -1])[:, :, None, None] + \
+            torch.einsum("bjhd,bjs->bhds", xs_c[:, k] * w[..., None],
+                         b_c[:, k])
+
+    dh = (torch.zeros((b, nh, hd, ds), dtype=torch.float32, device=x.device)
+          if dstate is None else dstate.float())
+    dxs, dbs, dcs, ddts, ddas = [], [], [], [], []
+    for k in reversed(range(nchunks)):
+        xck, bck, cck, dtk, dyk = (xs_c[:, k], b_c[:, k], c_c[:, k],
+                                   dt_c[:, k], dy_c[:, k])
+        L, h0 = Ls[k], h0s[k]
+        lend = L[:, -1]                                        # (B, nh)
+        cb = torch.einsum("bis,bjs->bij", cck, bck)            # (B, i, j)
+        g = torch.exp(torch.where(causal[None, :, :, None],
+                                  L[:, :, None, :] - L[:, None, :, :],
+                                  neg_inf))                    # (B, i, j, nh)
+        scores = cb[..., None] * g * dtk[:, None, :, :]
+        w = dtk * torch.exp(lend[:, None, :] - L)              # (B, j, nh)
+        el = torch.exp(L)                                      # (B, i, nh)
+        dS = torch.einsum("bihd,bjhd->bijh", dyk, xck) * causal[None, :, :,
+                                                                 None]
+        T = dS * g
+        G = (T * dtk[:, None, :, :]).sum(-1)                   # (B, i, j)
+        u = torch.einsum("bihd,bhds->bihs", dyk, h0)           # dy_i^T h0
+        v = torch.einsum("bjhd,bhds->bjhs", xck, dh)           # x_j^T dh
+        dw = torch.einsum("bjhs,bjs->bjh", v, bck)
+        dx = torch.einsum("bijh,bihd->bjhd", scores, dyk) + \
+            w[..., None] * torch.einsum("bhds,bjs->bjhd", dh, bck)
+        dC = torch.einsum("bij,bjs->bis", G, bck) + \
+            torch.einsum("bih,bihs->bis", el, u)
+        dB = torch.einsum("bij,bis->bjs", G, cck) + \
+            torch.einsum("bjh,bjhs->bjs", w, v)
+        ddt = torch.einsum("bijh,bij->bjh", T, cb) + \
+            dw * torch.exp(lend[:, None, :] - L)
+        P = dS * scores
+        y_dot = el * torch.einsum("bihs,bis->bih", u, cck)     # dy_i.y_inter
+        dL = P.sum(2) - P.sum(1) + y_dot - dw * w
+        dlend = (dw * w).sum(1) + torch.exp(lend) * (dh * h0).sum((-2, -1))
+        dda = torch.flip(torch.cumsum(torch.flip(
+            torch.cat([dL[:, :-1], dL[:, -1:] + dlend[:, None]], dim=1),
+            [1]), dim=1), [1])
+        dh = dh * torch.exp(lend)[:, :, None, None] + \
+            torch.einsum("bih,bihd,bis->bhds", el, dyk, cck)
+        dxs.append(dx)
+        dbs.append(dB)
+        dcs.append(dC)
+        ddts.append(ddt)
+        ddas.append(dda)
+
+    def cat(ts):
+        return torch.cat(ts[::-1], dim=1)[:, :s].contiguous()
+    if not nchunks:
+        z = x.new_zeros
+        return (z(x.shape).float(), z(bmat.shape).float(),
+                z(cmat.shape).float(), z(dt.shape).float(),
+                z(da.shape).float())
+    return cat(dxs), cat(dbs), cat(dcs), cat(ddts), cat(ddas)

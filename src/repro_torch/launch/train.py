@@ -2,12 +2,15 @@
 ``repro.launch.train``), with the same flags plus ``--device``.
 
 Runs the FIRM protocol (generation, synthetic rewards, multi-objective PPO,
-in-client regularized MGDA, FedAvg) on llama-3.2-1b.  ``--preset smoke``
-runs a reduced config; ``--preset full`` the model at its published widths.
+in-client regularized MGDA, FedAvg) on llama-3.2-1b or, with ``--arch
+zamba2-1.2b``, on the zamba2 hybrid.  ``--preset smoke`` runs a reduced
+config; ``--preset full`` the model at its published widths.
 
 Example, on the card at full width:
   PYTHONPATH=src python -m repro_torch.launch.train --preset full \\
       --rounds 1 --clients 2 --local-steps 1 --batch-size 4 --max-new 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --preset full --rounds 1 --clients 2 --local-steps 1 --batch-size 4
 """
 from __future__ import annotations
 

@@ -5,7 +5,11 @@ chunked SSD scan through ``kernels.ops.ssd_scan`` (the Hopper kernel on
 CUDA; on the CPU its plain version ``ref.ssd_chunked``, which is the
 reference's chunk body); decode is the exact single-step recurrence in
 plain PyTorch.  The D skip and the ``silu(z)`` gate stay outside the
-kernel, as in the reference.
+kernel, as in the reference.  Gradients: on the CPU autograd differentiates
+the plain version; on CUDA ``ops.ssd_scan`` is an ``autograd.Function``
+whose backward runs the SSD backward kernels, and a layer none of whose
+inputs needs a gradient (the Mamba2 layers before the first trainable
+adapter) saves nothing for it and launches none.
 
 The rounding follows the reference's: the sequence-mode convolution runs
 in the projection's dtype (bf16 products and sums, plus ``conv_b``) and

@@ -18,8 +18,8 @@ unchanged:
 
 The periods and their slots run in Python loops, eagerly.
 ``forward_seq`` records gradients (the PPO losses differentiate it; the
-kernels' backward runs through their ``autograd.Function``s; the SSD
-kernel has none yet) and keeps every activation: nothing is
+kernels' backward runs through their ``autograd.Function``s, the SSD
+scan's included) and keeps every activation: nothing is
 rematerialised, where the reference checkpoints each period
 (``cfg.remat``).  ``prefill`` and ``decode_step`` run under
 ``torch.no_grad()``, and the decode cache is updated in place: each

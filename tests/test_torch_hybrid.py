@@ -502,6 +502,15 @@ def test_serve_cli_runs_zamba2_on_the_cpu(capsys):
 
 
 def test_federated_trainer_refuses_a_hybrid_config():
+    """The trainer takes the zamba2 hybrid (training it is held to the JAX
+    package in ``test_torch_hybrid_training.py``) and still refuses a
+    hybrid with a block kind that is not ported (Mamba2 beside MoE)."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        FederatedTrainer(tcfg, FIRMConfig(n_clients=2), device="cpu")
+    tr = FederatedTrainer(tcfg, FIRMConfig(n_clients=2), device="cpu")
+    assert tr.d_trainable == sum(
+        t.numel() for t in common.tree_leaves(tr.global_trainable))
+    assert all(t is None for t in common.tree_leaves(
+        tr.global_trainable["slots"]))
+    moe = dataclasses.replace(tcfg, pattern=("mamba2", "moe"), n_layers=2)
+    with pytest.raises(NotImplementedError, match="model-families slice"):
+        FederatedTrainer(moe, FIRMConfig(n_clients=2), device="cpu")
