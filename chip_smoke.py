@@ -66,17 +66,20 @@ line, for a first check of new kernels):
             f32 forward and beside FlashAttention-2's formula with D from
             the bf16 O, to measure what D from the bf16 O adds to the
             kernel's distance from f32.
-12. ssd_bwd: the SSD backward kernels (``ssd_scan_bwd``: states, the
-            reverse sweep, the sum of dB and dC over head groups) against
-            the plain version (autograd of ``ref.ssd_chunked``) and the
+12. ssd_bwd: the SSD backward kernels (``ssd_scan_bwd``: the chunk
+            boundary states, one block a (batch row, group of heads,
+            chunk), the sum of dB and dC over head groups) against the
+            plain version (autograd of ``ref.ssd_chunked``) and the
             kernels' formulas written out (``ref.ssd_chunked_bwd``), dx,
-            dB, dC, d(dt) and d(da), at the ssd phase's cases with and
-            without a d(final state); the same bits twice and from
-            contiguous inputs; one forward and one backward launch through
-            ``ops.ssd_scan`` with inputs that need a gradient; three CUDA
-            kernels a call (a captured graph's nodes); registers and
-            spills; timed held and with the L2 flushed, beside the plain
-            backward and the bound.
+            dB, dC, d(dt) and d(da), at the ssd phase's cases and at two of
+            many chunks (S = 1000 in 8 chunks, and ds = 16 at S = 640 in
+            5), with and without a d(final state); the same bits twice and
+            from contiguous inputs; one forward and one backward launch
+            through ``ops.ssd_scan`` with inputs that need a gradient;
+            ``BWD_KERNELS`` CUDA kernels a call (a captured graph's nodes);
+            registers and spills, the chunk kernel's blocks an SM and
+            shared memory a block; timed held and with the L2 flushed,
+            beside the plain backward and the bound.
 13. rollout: ``fed.engine.rollout_batch`` on llama-3.2-1b at full width
             (random weights from a seeded generator): 16 prompts of 128
             tokens, 128 new tokens, 2 objectives.  The kernels' launch counts
@@ -1402,15 +1405,25 @@ def run(torch, stop_after) -> int:
                 outs, leaves, (dy_, dst_) if dst_ is not None else (dy_,))
 
     grad_names = ("dx", "dB", "dC", "d(dt)", "d(da)")
+    # the ssd phase's cases (the first with and without a d(final state),
+    # then every other one with it), then two of many chunks, each with and
+    # without: the chunks run in parallel, each from the first launch's
+    # boundary states
+    ssd_bwd_cases = [(label, dims, zero, (False, True) if k_case == 0 else
+                      (k_case % 2 == 1,))
+                     for k_case, (label, dims, zero) in enumerate(ssd_cases)]
+    ssd_bwd_cases += [
+        ("ragged S=1000 (8 chunks)", (2, 1000, z_nh, z_ds), None,
+         (False, True)),
+        ("ds=16 S=640 (5 chunks)", (2, 640, 8, 16), None, (False, True))]
     ssd_bwd_checks = {}
-    for k_case, (label, (b_, s_, nh_, ds_), zero) in enumerate(ssd_cases):
+    for label, (b_, s_, nh_, ds_), zero, states in ssd_bwd_cases:
         xs_ = (ssd_inputs(b_, s_, nh_, ds_, offset=1,
                           generator=misaligned_gen)
                if label == ssd_misaligned else
                ssd_inputs(b_, s_, nh_, ds_, zero, generator=bwd_gen))
         dy_ = randn((b_, s_, nh_, z_hd), torch.float32, bwd_gen)
-        for with_state in ((False, True) if k_case == 0 else
-                           (k_case % 2 == 1,)):
+        for with_state in states:
             dst_ = (randn((b_, nh_, z_hd, ds_), torch.float32, bwd_gen)
                     if with_state else None)
             got = ssd_mod.ssd_scan_bwd(*xs_, dy_, dst_)
@@ -1503,10 +1516,15 @@ def run(torch, stop_after) -> int:
           f"ssd_bwd: {ssd_mod.BWD_KERNELS} kernels a call expected, a "
           f"call's graph {ssd_bwd_nodes}")
     ssd_bwd_ptxas = {**ptxas_by_kernel("ssd_bwd_states_kernel"),
-                     **ptxas_by_kernel("ssd_bwd_sweep_kernel")}
+                     **ptxas_by_kernel("ssd_bwd_chunk_kernel")}
+    ssd_bwd_occupancy = {ds_: ssd_mod.occupancy(ds_, backward=True)
+                         for ds_ in ssd_mod.STATE_DIMS}
+    check(all(o["blocks_per_sm"] >= 1 for o in ssd_bwd_occupancy.values()),
+          f"ssd_bwd: the chunk kernel fits no SM {ssd_bwd_occupancy}")
     emit(phase="ssd_bwd", shape={"x": [B, 256, z_nh, z_hd], "ds": z_ds},
          checks=ssd_bwd_checks, bytes=ssd_bwd_bytes, flops=ssd_bwd_ops,
-         ptxas=ssd_bwd_ptxas, graph_nodes_a_call=ssd_bwd_nodes,
+         ptxas=ssd_bwd_ptxas, occupancy=ssd_bwd_occupancy,
+         graph_nodes_a_call=ssd_bwd_nodes,
          tolerance="max |kernel - plain| and |kernel - formulas| <= 1e-4 of "
          "each gradient's scale (d(da): at least max |dt d(dt)|); the same "
          "bits twice and from contiguous inputs", **ssd_bwd_row)

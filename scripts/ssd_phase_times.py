@@ -4,7 +4,7 @@ removed at a time, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with the card and ``nvcc``:
 
-    python3 scripts/ssd_phase_times.py
+    python3 scripts/ssd_phase_times.py [--old-bwd PATH]
 
 Each variant is ``src/repro_torch/kernels/csrc/ssd.cu`` (the forward) or
 ``ssd_bwd.cu`` (the backward) with one step's work cut out by a text
@@ -13,13 +13,17 @@ built with ``nvcc`` into ``build/ssd_phases/`` and timed at the training
 shape (B = 16, S = 256, nh = 64, hd = ds = 64; the forward with the final
 state, the backward without a d(final state)) with CUDA events over 50
 calls, in two rounds.  Forward: ``copies_only`` keeps the copies, waits,
-scans and stores and cuts every product.  Backward: the states kernel,
-C B^T, the row and column passes' pair loops, dy^T h0, x^T dh, dh B_j,
-the new dh and the serial d(da) sum, one at a time.  Prints the card's
-name and power limit, then one line per variant of each kernel.
+scans and stores and cuts every product.  Backward: the boundary-state
+launch, C B^T, dS^T, u and v, dx, G B and G^T C, and the scans (L and
+d(da)), one at a time.  ``--old-bwd`` adds a variant built unchanged from
+another backward source with the same C entry (an earlier design, e.g.
+``git show <commit>:src/repro_torch/kernels/csrc/ssd_bwd.cu >
+build/ssd_bwd_old.cu``), timed in the same rounds.  Prints the card's name
+and power limit, then one line per variant of each kernel.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -44,34 +48,34 @@ VARIANTS = {"base": [], "no_inter": [P2], "no_intra": [INTRA],
             "copies_only": [P2, INTRA, STATE, CB]}
 BWD_VARIANTS = {
     "base": [],
-    "no_states": [("  for (int c = 0; c + 1 < nchunks; ++c) {",
-                   "  for (int c = 0; c + 1 < 0; ++c) {")],
-    "no_cb": [("      if (j <= i) {\n        float s0",
-               "      if (false) {\n        float s0")],
-    "no_row_pairs": [("const int jmax = min(16 * warp + 15, n - 1);",
-                      "const int jmax = -1;")],
-    "no_col_pairs": [("for (int i = 16 * warp; i < n; ++i) {",
-                      "for (int i = 16 * warp; i < 0; ++i) {")],
-    "no_dyT_h0": [("        if (h0h) {\n          float4 u[kVS];",
-                   "        if (false) {\n          float4 u[kVS];")],
-    "no_xT_dh": [("row_times_state<DS, HS::kRow, HS::kOff>(v, sm.x + j * "
-                  "HD::kRow,\n                                                "
-                  "sm.state, p);", "for (int k = 0; k < kVS; ++k) v[k] = "
-                  "make_float4(0.f, 0.f, 0.f, 0.f);")],
-    "no_dh_B": [("for (int s = 0; s < DS; s += 4) {\n            const "
-                 "float4 b4", "for (int s = 0; s < 0; s += 4) {\n         "
-                 "   const float4 b4")],
-    "no_new_dh": [("      for (int i = 0; i < n; ++i) {\n        const float "
-                   "eli", "      for (int i = 0; i < 0; ++i) {\n        "
-                   "const float eli")],
-    "no_dda_sum": [("        if (tid == 0) {\n          // d(da)_k",
-                    "        if (false) {\n          // d(da)_k")]}
+    "no_states": [("  for (int step = 0; step + 1 < nc; ++step) {",
+                   "  for (int step = 0; step + 1 < 0; ++step) {")],
+    "no_cb": [("      mma3(cbf[kk], th, tl, bh, bl);", "")],
+    "no_ds": [("          mma3(acc[kk], th, tl, bh, bl);", "")],
+    "no_u_v": [("    if (has_h0) {\n      float ua", "    if (false) {\n"
+                "      float ua"),
+               ("    if (has_dh) {\n      float va", "    if (false) {\n"
+                "      float va")],
+    "no_dx": [("      for (int qi = 2 * q; qi < 16; ++qi) {\n        uint32_t",
+               "      for (int qi = 2 * q; qi < 0; ++qi) {\n        uint32_t"),
+              ("      if (has_dh) {\n#pragma unroll 2\n        for (int ks",
+               "      if (false) {\n#pragma unroll 2\n        for (int ks")],
+    "no_gb_gtc": [("for (int qi = 2 * r; qi < 16; ++qi) {     // dB_j",
+                   "for (int qi = 2 * r; qi < 0; ++qi) {     // dB_j"),
+                  ("for (int qj = 0; qj <= 2 * r + 1; ++qj) {",
+                   "for (int qj = 0; qj < 0; ++qj) {")],
+    "no_scans": [("one thread a head\n  if (tid < nhg) scan_L(sm.L + tid "
+                  "* kChunk);", "one thread a head\n"),
+                 ("  if (lane == 0 && warp < nhg) {", "  if (false) {")]}
 
 
-def build_variants(out: Path, source: str, variants: dict) -> None:
+def build_variants(out: Path, source: str, variants: dict,
+                   extra: dict | None = None) -> None:
+    """Build each variant of csrc/``source``, and each source of ``extra``
+    (name -> path) as it is."""
     src = (build.CSRC / source).read_text()
     out.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    texts = {}
     for name, subs in variants.items():
         text = src
         for old, new in subs:
@@ -79,6 +83,11 @@ def build_variants(out: Path, source: str, variants: dict) -> None:
                 raise RuntimeError(f"{name}: {source} no longer holds "
                                    f"{old!r}")
             text = text.replace(old, new)
+        texts[name] = text
+    for name, path in (extra or {}).items():
+        texts[name] = Path(path).read_text()
+    procs = {}
+    for name, text in texts.items():
         (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [build.tool(), *build.NVCC_FLAGS[:-2], "-shared", "-o",
@@ -117,6 +126,10 @@ def time_variants(out: Path, entry: str, args: list, variants) -> dict:
 
 
 def main() -> int:
+    args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    args.add_argument("--old-bwd", metavar="PATH", default=None,
+                      help="another ssd_bwd.cu to time beside the variants")
+    opts = args.parse_args()
     if not torch.cuda.is_available():
         print("ssd_phase_times: no CUDA device is available", file=sys.stderr)
         return 1
@@ -125,7 +138,12 @@ def main() -> int:
                          text=True, check=True).stdout.strip())
     out = build.BUILD_DIR / "ssd_phases"
     build_variants(out / "fwd", "ssd.cu", VARIANTS)
-    build_variants(out / "bwd", "ssd_bwd.cu", BWD_VARIANTS)
+    bwd_variants = dict(BWD_VARIANTS)
+    extra = {}
+    if opts.old_bwd:
+        extra["old_design"] = opts.old_bwd
+        bwd_variants["old_design"] = []
+    build_variants(out / "bwd", "ssd_bwd.cu", BWD_VARIANTS, extra)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     b, s, nh, hd, ds = 16, 256, 64, 64, 64
@@ -143,9 +161,12 @@ def main() -> int:
     build.load().firm_ssd_bwd_groups(nh, ctypes.byref(groups))
     fwd_out = [torch.empty(shape, device=dev) for shape in (
         (b, s, nh, hd), (b, nh, hd, ds))]
+    # scratch as the wrapper sizes it, large enough for the first design
+    # too (its dh is (b, nh, hd, ds); its groups are as many)
+    nc = -(-s // 128)
     bwd_out = [torch.empty(shape, device=dev) for shape in (
         (b, s, nh, hd), (b, s, ds), (b, s, ds), (b, s, nh), (b, s, nh),
-        (b, -(-s // 128) - 1, nh, hd, ds), (b, nh, hd, ds),
+        (b, nc - 1, nh, ds, hd), (b, max(nc - 1, 1), nh, hd, ds),
         (b, groups.value, s, ds), (b, groups.value, s, ds))]
     ins = [t.data_ptr() for t in (x, bm, cm, dt, da)]
     for label, times in (
@@ -159,7 +180,7 @@ def main() -> int:
                 ins + [dy.data_ptr(), None]
                 + [t.data_ptr() for t in bwd_out] + [b, s, nh, ds,
                                                      *strides],
-                BWD_VARIANTS))):
+                bwd_variants))):
         print(label)
         for name, ms in times.items():
             print(f"  {name:12s} " + " ".join(f"{t:.4f} ms" for t in ms))

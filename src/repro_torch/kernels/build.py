@@ -59,8 +59,10 @@ SIGNATURES = {
     # scratch h0, dh, the partials of dB and dC, batch, seqlen, nh, ds, the
     # element strides of x, B, C, dt and da as firm_ssd_scan's, stream
     "firm_ssd_scan_bwd": (_P,) * 16 + (_I,) * 15 + (_P,),
-    # nh, int* head groups of the backward's sweep (out)
+    # nh, int* head groups of the backward's chunk kernel (out)
     "firm_ssd_bwd_groups": (_I, _P),
+    # ds, int* blocks an SM (out), int* shared memory bytes a block (out)
+    "firm_ssd_bwd_occupancy": (_I, _P, _P),
 }
 
 

@@ -241,12 +241,14 @@ def ssd_chunked_bwd(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     shapes, given dy (B, S, nh, hd) and an optional d(final state) (B, nh,
     hd, ds).
 
-    The chunk-start states h0 are recomputed by the forward recurrence,
-    then the chunks are walked last to first carrying dh, the gradient of
-    the state at the chunk's end (d(final state), or zero, at the last).
-    Per chunk, with L the inclusive cumsum of da, g_ij = exp(L_i - L_j)
-    (j <= i, else 0), S_ij = (C_i . B_j) g_ij dt_j the scores and w_j =
-    dt_j exp(L_end - L_j):
+    As the kernels order the work: first the state at every chunk
+    boundary, h0 (the state at each chunk's start) by the forward
+    recurrence and dh (the gradient of the state at each chunk's end:
+    d(final state), or zero, at the last) by the backward one, dh <-
+    exp(L_end) dh + sum_i exp(L_i) dy_i C_i^T; then each chunk on its own,
+    from its h0 and dh.  Per chunk, with L the inclusive cumsum of da,
+    g_ij = exp(L_i - L_j) (j <= i, else 0), S_ij = (C_i . B_j) g_ij dt_j
+    the scores and w_j = dt_j exp(L_end - L_j):
 
       dS_ij = dy_i . x_j                 T_ij = dS_ij g_ij
       dx_j  = sum_i S_ij dy_i + w_j (dh B_j)
@@ -259,7 +261,6 @@ def ssd_chunked_bwd(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
               - dw_i w_i
       dL_end = sum_j dw_j w_j + exp(L_end) sum(dh * h0)
       d(da)_k = dL_end + sum_{i >= k} dL_i, summed from the chunk's end
-      dh    <- exp(L_end) dh + sum_i exp(L_i) dy_i C_i^T
 
     The plain version of the backward kernel is autograd of
     ``ssd_chunked``; this one states the kernel's formulas so that the
@@ -294,13 +295,21 @@ def ssd_chunked_bwd(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
             torch.einsum("bjhd,bjs->bhds", xs_c[:, k] * w[..., None],
                          b_c[:, k])
 
+    # the chunk-end state gradients, by the backward recurrence
     dh = (torch.zeros((b, nh, hd, ds), dtype=torch.float32, device=x.device)
           if dstate is None else dstate.float())
+    dhs = [dh]
+    for k in reversed(range(1, nchunks)):
+        L = Ls[k]
+        dh = dh * torch.exp(L[:, -1])[:, :, None, None] + torch.einsum(
+            "bih,bihd,bis->bhds", torch.exp(L), dy_c[:, k], c_c[:, k])
+        dhs.insert(0, dh)
+
     dxs, dbs, dcs, ddts, ddas = [], [], [], [], []
-    for k in reversed(range(nchunks)):
+    for k in range(nchunks):
         xck, bck, cck, dtk, dyk = (xs_c[:, k], b_c[:, k], c_c[:, k],
                                    dt_c[:, k], dy_c[:, k])
-        L, h0 = Ls[k], h0s[k]
+        L, h0, dh = Ls[k], h0s[k], dhs[k]
         lend = L[:, -1]                                        # (B, nh)
         cb = torch.einsum("bis,bjs->bij", cck, bck)            # (B, i, j)
         g = torch.exp(torch.where(causal[None, :, :, None],
@@ -331,8 +340,6 @@ def ssd_chunked_bwd(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         dda = torch.flip(torch.cumsum(torch.flip(
             torch.cat([dL[:, :-1], dL[:, -1:] + dlend[:, None]], dim=1),
             [1]), dim=1), [1])
-        dh = dh * torch.exp(lend)[:, :, None, None] + \
-            torch.einsum("bih,bihd,bis->bhds", el, dyk, cck)
         dxs.append(dx)
         dbs.append(dB)
         dcs.append(dC)
@@ -340,7 +347,7 @@ def ssd_chunked_bwd(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         ddas.append(dda)
 
     def cat(ts):
-        return torch.cat(ts[::-1], dim=1)[:, :s].contiguous()
+        return torch.cat(ts, dim=1)[:, :s].contiguous()
     if not nchunks:
         z = x.new_zeros
         return (z(x.shape).float(), z(bmat.shape).float(),

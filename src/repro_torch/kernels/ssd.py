@@ -138,15 +138,17 @@ def ssd_scan_bwd(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     lib.firm_ssd_bwd_groups(nh, ctypes.byref(groups))
     groups = groups.value
     nchunks = -(-s // CHUNK)
-    h0 = torch.empty((b, nchunks - 1, nh, hd, ds), **f32)
-    dh = torch.empty((b, nh, hd, ds), **f32)
+    # the chunk-start states (transposed) and the chunks' end-state
+    # gradients, from the kernels' first launch
+    h0t = torch.empty((b, nchunks - 1, nh, ds, hd), **f32)
+    dh = torch.empty((b, nchunks - 1, nh, hd, ds), **f32)
     pdb, pdc = (torch.empty((b, groups, s, ds), **f32) for _ in range(2))
     if pdb.numel() >= 2 ** 31:
         raise ValueError("ssd backward takes < 2**31 partial elements")
     ptr = [t.data_ptr() for t in (x, bmat, cmat, dt, da, dy)]
     err = lib.firm_ssd_scan_bwd(
         *ptr, dstate.data_ptr() if dstate is not None else None,
-        *(t.data_ptr() for t in (dx, dbm, dcm, ddt, dda, h0, dh, pdb, pdc)),
+        *(t.data_ptr() for t in (dx, dbm, dcm, ddt, dda, h0t, dh, pdb, pdc)),
         b, s, nh, ds, *strides,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
@@ -190,12 +192,14 @@ def ssd_scan_trainable(x: torch.Tensor, bmat: torch.Tensor,
                          need_grad)
 
 
-def occupancy(ds: int) -> dict:
-    """The scan kernel's blocks an SM on this card and its shared memory a
-    block, for state dimension ``ds`` (a query, not a launch)."""
+def occupancy(ds: int, backward: bool = False) -> dict:
+    """The scan kernel's (or with ``backward`` the backward's chunk
+    kernel's) blocks an SM on this card and its shared memory a block, for
+    state dimension ``ds`` (a query, not a launch)."""
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-    err = build.load().firm_ssd_occupancy(ds, ctypes.byref(blocks),
-                                          ctypes.byref(smem))
+    lib = build.load()
+    query = lib.firm_ssd_bwd_occupancy if backward else lib.firm_ssd_occupancy
+    err = query(ds, ctypes.byref(blocks), ctypes.byref(smem))
     if err:
         raise RuntimeError(f"ssd occupancy query failed: CUDA error {err}")
     return {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}

@@ -183,40 +183,95 @@ def test_plain_backward_matches_jax_vjp_of_the_recurrence(case):
 
 # ------------------------------------------------------ the kernel source
 def test_backward_source_rules():
-    """ssd_bwd.cu: three launches behind its entry, no atomics (every sum in
-    a fixed order), L summed in order by one thread with the forward's
-    scan (the same loop as ssd.cu's), decays as expf of a difference masked
-    to -inf, no gradient stored past S."""
+    """ssd_bwd.cu: ``BWD_KERNELS`` launches behind its entry, no atomics
+    (every sum in a fixed order), L summed in order by one thread a head
+    with the forward's scan (the same loop as ssd.cu's), decays as expf of
+    a difference masked to -inf, d(da) summed from the chunk's end, no
+    gradient stored past S, and every product a split TF32 mma.sync (the
+    operands through ``split``, the products through mma3 or mma3n)."""
     text = (CSRC / "ssd_bwd.cu").read_text()
     fwd = (CSRC / "ssd.cu").read_text()
-    assert len(re.findall(r"<<<", text)) == 3
+    assert len(re.findall(r"<<<", text)) == ssd_mod.BWD_KERNELS == 3
     assert not re.search(r"\batomic\w*\(", text)
-    assert text.count("if (tid == 0) scan_L(sm.L);") == 2
     body = re.compile(r"void scan_L\(float\* L\) \{(.*?)\n\}", re.S)
     assert body.search(text)[1] == body.search(fwd)[1]
-    assert "expf(j <= i ? li - sm.L[j] : neg_inf())" in text
-    assert "expf(i >= j ? sm.L[i] - lj : neg_inf())" in text
-    assert "if (j < n)" in text and "if (k < n) out[k * nh] = run;" in text
+    # one thread a head, in the states kernel and in the chunk kernel
+    assert text.count("if (tid < nhg) scan_L(sm.L + tid * kChunk);") == 2
+    assert len(re.findall(r"scan_L\(", text)) == 3   # its definition too
+    for i, j in (("i1", "j1"), ("i2", "j1"), ("i1", "j2"), ("i2", "j2")):
+        assert (f"expf({j} <= {i} ? l{i} - l{j} : neg_inf())" in text)
+    assert "if (i < n) out[i * nh] = run;" in text
+    assert "if (j1 < n)" in text and "if (row >= n) continue;" in text
+    assert "if (j < n)" in text
+    # tensor cores: one mma.sync, in TF32, on split operands only
+    assert text.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") \
+        == 1
+    assert "(__float_as_uint(v) + 0x1000u) & 0xffffe000u" in text
+    # operands are rounded to TF32 only by split (hi and lo)
+    code = re.sub(r"//[^\n]*", "", text)
+    assert re.findall(r"\btf32\([^)]*\)?", code) == [
+        "tf32(float v)", "tf32(v)", "tf32(v - __uint_as_float(hi)"]
+    calls = re.findall(r"\bmma(3n<\w+>|3)?\(", text)
+    assert calls.count("") == 1 + 3 + 3      # its definition, in mma3, mma3n
+    assert not re.search(r"\bmma\((acc|xa|ua|va|cbf|dbacc|dcacc|state)",
+                         text)
+    for acc in ("cbf[kk]", "acc[kk]", "ua[p],", "va[p],", "xa[0],",
+                "xa[1],", "xa[p],", "dbacc[p],", "dcacc[p],", "acc,"):
+        assert re.search(r"mma3(n<\w+>)?\(" + re.escape(acc), text), acc
+    assert "cp.async.cg.shared.global" in text
     assert 'extern "C" int firm_ssd_scan_bwd(' in text
+    assert 'extern "C" int firm_ssd_bwd_occupancy(' in text
+
+
+def _struct_bytes(text, name, consts):
+    """Bytes of ``struct name {...}`` in ``text``: its arrays of float and
+    float4, a union's members overlaid."""
+    src = re.search(r"struct " + name + r" \{(.*?)\n\};", text, re.S)[1]
+    src = re.sub(r"//[^\n]*", "", src)
+
+    decl = r"(float4?) (\w+)((?:\[[^\]]+\])+);"
+
+    def size(kind, dims):
+        n = 1
+        for f in re.findall(r"\[([^\]]+)\]", dims):
+            for part in f.split("*"):
+                n *= consts[part.strip()]
+        return n * (16 if kind == "float4" else 4)
+    union = re.search(r"union \{(.*?)\n  \} u;", src, re.S)
+    total = 0
+    if union:
+        members = re.findall(r"struct \{(.*?)\} \w+;|" + decl, union[1],
+                             re.S)
+        total += max(
+            sum(size(k, d) for k, _, d in re.findall(decl, inner)) if inner
+            else size(kind, dims) for inner, kind, _, dims in members)
+        src = src.replace(union[0], "")
+    assert "[" not in re.sub(decl, "", src)     # every array counted
+    return total + sum(size(k, d) for k, _, d in re.findall(decl, src))
 
 
 def test_backward_shared_memory_fits_an_sm():
-    """The sweep's tiles at ds = 64 (B, C, x, dy and one head's dh, each
-    row's halves 4 floats apart; C B^T, its rows a float apart; nine
-    vectors) fit one block of an H100 SM (227 KB of dynamic shared
-    memory)."""
+    """The chunk kernel's tiles at ds = 64 (C, B, one head's x and dy, whose
+    room G^T takes after the heads, its h0 and dh, S^T's 72 tiles in
+    fragment order, every head's L, dt and dL, the sums): 224,640 bytes,
+    one block of 8 warps an H100 SM (227 KB of dynamic shared memory at
+    most); two would need 113 KB each.  The states kernel's (two heads' x
+    or dy, the chunk's B or C, every head's L and dt, two heads' w):
+    107,520 bytes, two blocks of 8 warps an SM."""
     text = (CSRC / "ssd_bwd.cu").read_text()
-    struct = re.search(r"struct SweepSmem \{(.*?)\n\};", text, re.S)[1]
-    consts = {"kChunk": 128, "kHd": 64, "kRowCB": 129, "kThreads": 256,
-              "Halves<DS>::kRow": 68, "Halves<kHd>::kRow": 68}
-    total = 0
-    for expr in re.findall(r"float \w+\[([^\]]+)\];", struct):
-        n = 1
-        for f in expr.split(" * "):
-            n *= consts[f.strip()]
-        total += 4 * n
-    assert total == 227_840
-    assert total <= 227 * 1024
+    consts = {"kChunk": 128, "kHd": 64, "DS": 64, "kGroup": 8, "kTiles": 72,
+              "32": 32, "2": 2, "8": 8, "4": 4}
+    chunk = _struct_bytes(text, "ChunkSmem", consts)
+    assert chunk == 224_640
+    assert 2 * (chunk + 1024) > 228 * 1024 >= chunk + 1024
+    assert chunk <= 232_448
+    assert "__launch_bounds__(kThreads, 1)" in text
+    assert "constexpr int kThreads = 256;" in text
+    states = _struct_bytes(text, "StatesSmem", consts)
+    assert states == 107_520
+    assert 2 * (states + 1024) <= 228 * 1024
+    assert "__launch_bounds__(kPreThreads, 2)" in text
+    assert "constexpr int kGroup = 8;" in text
 
 
 # ------------------------------------------------------ the wrapper
