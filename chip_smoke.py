@@ -25,7 +25,9 @@ line, for a first check of new kernels):
             timed beside ``F.scaled_dot_product_attention``.
 5. gram:    the CUDA Gram kernel against its plain version at the local
             step's shape (2, 3,407,872) f32 and off it (M = 3 and 8, ragged
-            d, bf16, a misaligned row), twice for the same bits; one CUDA
+            d, bf16, a misaligned row; FedCMOO's server solve on a sketch,
+            M = 2 at d = 8 and 64, and M = 4 at d = 1000), twice for the
+            same bits; one CUDA
             kernel a call (the nodes of a CUDA graph captured from one
             call; ``torch.profiler``'s count is reported); then timed beside
             ``X @ X.T``, held and with the L2 flushed before each call.
@@ -143,7 +145,26 @@ line, for a first check of new kernels):
             backward) on the card and on the CPU, the same weights and
             injected draws, both decoding with an f32 K/V cache; the
             summaries held within tests/test_torch_round.py's tolerances.
-20. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+            Then on the tiny llama R=3 carried rounds of ``firm_unreg``,
+            ``linear`` and ``fedcmoo`` with identity codecs and one
+            ``fedcmoo`` round with int8 gradients (the ``wan`` preset),
+            held the same way (the steps of these three by
+            tests/test_torch_algorithm_rounds.py's rule).
+20. algorithms: the baselines on llama-3.2-1b at full width, ``wan``
+            preset: one ``fedcmoo`` round (C=2, K=2: each step the clients'
+            M gradients up through the int8 codec in one quantize and one
+            dequantize launch, the server's lambda through the Gram kernel)
+            and one ``linear`` round (C=2, K=1).  Counts zeroed just before
+            each round and exact just after (fedcmoo: Gram 2, quantize and
+            dequantize 3 each, the rest the round phase's per client-step;
+            linear: Gram 0); comm_bytes exactly 61,474,816 (fedcmoo) and
+            34,105,344 (linear); fedcmoo's lambda rows equal, its gradient
+            uplink bit for bit with the plain codec on the same rows and
+            draws, each server lambda within 1e-4 over min(1, D) of
+            ``server_solve`` with the plain Gram; linear's lambda the
+            weights.  Seconds by part and the exchange's own (stack, codec,
+            solve).
+21. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             delta bit for bit; low-rank on the script's usual draw and five
@@ -152,9 +173,9 @@ line, for a first check of new kernels):
             max |flat + state|, cond(P) of the card's range sample in
             float64; the low-rank payload's bytes equal ``nbytes_static``
             (59,392).
-21. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
+22. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
             for llama-3.2-1b and for zamba2-1.2b.
-22. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+23. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
             llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
@@ -222,8 +243,8 @@ def ssd_flops(b: int, s: int, nh: int, hd: int, ds: int, chunk: int) -> int:
 PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
           "dequantize", "topk", "ssd", "rmsnorm_bwd", "flash_bwd", "ssd_bwd",
           "rollout", "rollout_hybrid", "local_step", "local_step_hybrid",
-          "round", "round_hybrid", "round_parity", "codecs", "train",
-          "serve")
+          "round", "round_hybrid", "round_parity", "algorithms", "codecs",
+          "train", "serve")
 TOPK_PASSES = 32               # bisection passes of one top-k selection
 
 
@@ -257,7 +278,7 @@ def run(torch, stop_after) -> int:
     from repro_torch.comms import lowrank, make_codec, sparsify
     from repro_torch.configs import FIRMConfig, get_config
     from repro_torch.configs.base import CODEC_PRESETS
-    from repro_torch.core import firm
+    from repro_torch.core import fedcmoo, firm, mgda
     from repro_torch.data.partition import make_client_datasets
     from repro_torch.fed.engine import (EngineConfig, FederatedTrainer,
                                         client_local_steps, rollout_batch)
@@ -726,7 +747,13 @@ def run(torch, stop_after) -> int:
                   ((8, 8193), torch.float32, 0),
                   ((3, 8193), torch.bfloat16, 0),
                   ((8, 1000), torch.bfloat16, 0),
-                  ((2, 4096), torch.float32, 1)]
+                  ((2, 4096), torch.float32, 1),
+                  # FedCMOO's server solve off the main path: a sketch of
+                  # q columns, fewer than the kernel's blocks (most of
+                  # them get no column), and M = 4 objectives
+                  ((2, 8), torch.float32, 0),
+                  ((2, 64), torch.float32, 0),
+                  ((4, 1000), torch.float32, 0)]
     gram_err = {}
     for (m_, d_), dtype, offset in gram_cases:
         x = randn((m_ * d_ + offset,), dtype)[offset:].view(m_, d_)
@@ -2468,12 +2495,12 @@ def run(torch, stop_after) -> int:
     # each over min(1, D), D the curvature of the MGDA problem at the
     # round's worst step (from the CPU steps' Gram matrices).  The zamba2
     # config runs the SSD kernels forward and backward (hd 64, ds 16).
-    def parity_rounds(cfg_p):
+    def parity_rounds(cfg_p, algorithm="firm", up="int8+ef", n_rounds=3):
         pb, pp, pnew, pc = 2, 8, 12, 2
         fc_p = dataclasses.replace(FIRMConfig(), n_clients=pc, local_steps=1,
                                    batch_size=pb, n_objectives=N_OBJ)
-        ec_p = EngineConfig(prompt_len=pp, max_new=pnew,
-                            uplink_codec="int8+ef")
+        ec_p = EngineConfig(algorithm=algorithm, prompt_len=pp, max_new=pnew,
+                            uplink_codec=up)
         g_cpu = torch.Generator().manual_seed(19)
         p_cpu = transformer.init_params(cfg_p, generator=g_cpu,
                                         device="cpu", dtype=torch.float32)
@@ -2486,8 +2513,14 @@ def run(torch, stop_after) -> int:
                  "cuda": FederatedTrainer(
                      cfg_p, fc_p, ec_p, device=dev, params=common.tree_map(
                          lambda t: t.to(dev), p_cpu))}
+        alg = sides["cpu"].algorithm
+        exchange = not alg.caps.traced_server_exchange
+        beta = alg.resolve_config(fc_p).beta
+        # the MGDA problems solved: the clients' Gram matrices (firm,
+        # firm_unreg) or the server's average matrices (fedcmoo); linear
+        # solves none
         grams, uplinks = {"cpu": [], "cuda": []}, {"cpu": [], "cuda": []}
-        step_fn = local.firm_local_step
+        step_fn, solve_fn = local.firm_local_step, fedcmoo.server_solve
         side_of = {}
 
         def spy_step(cfg_, fc_, state, *a, **kw):
@@ -2495,10 +2528,15 @@ def run(torch, stop_after) -> int:
             grams[side_of["now"]].append(
                 met["gram"].detach().double().cpu().numpy())
             return st, met
+
+        def spy_solve(mats, *a, **kw):
+            avg = sum(m_.detach().double().cpu() for m_ in mats) / len(mats)
+            grams[side_of["now"]].append((avg @ avg.T).numpy())
+            return solve_fn(mats, *a, **kw)
         for side, tr in sides.items():
             rt = tr.uplink_codec.roundtrip_stacked
 
-            def spy_up(flats, spec, states, _rt=rt, _side=side, **kw):
+            def spy_up(flats, spec, states=None, _rt=rt, _side=side, **kw):
                 out = _rt(flats, spec, states, **kw)
                 uplinks[_side].append(flats.detach().cpu().clone())
                 return out
@@ -2507,8 +2545,9 @@ def run(torch, stop_after) -> int:
         lr = fc_p.actor_lr
         records = []
         local.firm_local_step = spy_step
+        fedcmoo.server_solve = spy_solve
         transformer.prefill = f32_prefill
-        for r in range(3):
+        for r in range(n_rounds):
             draws = {
                 "prompts": torch.randint(0, cfg_p.vocab, (1, pc, pb, pp),
                                          generator=g_cpu),
@@ -2518,6 +2557,10 @@ def run(torch, stop_after) -> int:
                 "up_bits": torch.randint(-2 ** 31, 2 ** 31 - 1,
                                          (pc, rows, 1024), dtype=torch.int32,
                                          generator=g_cpu)}
+            if exchange:
+                draws["grad_bits"] = torch.randint(
+                    -2 ** 31, 2 ** 31 - 1, (1, pc * N_OBJ, rows, 1024),
+                    dtype=torch.int32, generator=g_cpu)
             before = {s: torch.cat([t.reshape(-1).cpu() for t in
                                     common.tree_leaves(tr.global_trainable)])
                       for s, tr in sides.items()}
@@ -2531,38 +2574,57 @@ def run(torch, stop_after) -> int:
                                    common.tree_leaves(tr.global_trainable)])
                      for s, tr in sides.items()}
             curv = []
-            for g in grams["cpu"][-pc:]:
-                q = g / (np.trace(g) / N_OBJ) + 0.5 * fc_p.beta * np.eye(N_OBJ)
+            for g in grams["cpu"][-(1 if exchange else pc):]:
+                q = g / (np.trace(g) / N_OBJ) + 0.5 * beta * np.eye(N_OBJ)
                 curv.append(q[0, 0] + q[1, 1] - 2 * q[0, 1])
-            slack = 1 / min(1.0, float(min(curv)))
+            slack = 1 / min(1.0, float(min(curv))) if curv else 1.0
             got, want = summ["cuda"], summ["cpu"]
 
             def of_scale(a, b):
                 a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
                 return float(np.abs(a - b).max() / np.abs(b).max())
+
+            def past(a, b, tol):
+                """Share of entries past tol of the scale."""
+                a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+                return float((np.abs(a - b) > tol * np.abs(b).max()).mean())
+            steps = {"client_steps": (uplinks["cuda"][-1] / lr,
+                                      uplinks["cpu"][-1] / lr),
+                     "global_step": ((after["cuda"] - before["cuda"]) / lr,
+                                     (after["cpu"] - before["cpu"]) / lr)}
             rec = {
-                "round": r + 1, "curvature": float(min(curv)),
+                "round": r + 1,
+                "curvature": float(min(curv)) if curv else None,
                 "seconds": sec,
                 "exact": all(got[k] == want[k] for k in (
                     "comm_bytes", "up_bytes", "down_bytes", "participants",
-                    "up_nbytes", "down_nbytes")) and bool(np.array_equal(
-                        got["rewards_per_client"],
-                        want["rewards_per_client"])),
+                    "up_nbytes", "down_nbytes", "dispatches"))
+                and bool(np.array_equal(got["rewards_per_client"],
+                                        want["rewards_per_client"])),
                 "drift": of_scale(got["param_drift"], want["param_drift"]),
                 "kl_abs": abs(got["kl"] - want["kl"]),
                 "lam": max(of_scale(got[k], want[k]) for k in (
                     "lam_mean", "per_client_lam", "lam_disagreement")),
-                "client_steps": of_scale(uplinks["cuda"][-1] / lr,
-                                         uplinks["cpu"][-1] / lr),
-                "global_step": of_scale((after["cuda"] - before["cuda"]) / lr,
-                                        (after["cpu"] - before["cpu"]) / lr)}
+                **{k: of_scale(*v) for k, v in steps.items()}}
+            ok = (rec["exact"] and rec["drift"] <= 1e-4
+                  and rec["kl_abs"] <= 1e-6 and rec["lam"] <= 1e-4 * slack)
+            if algorithm == "firm":
+                ok = ok and all(rec[k] <= 1e-2 * slack for k in steps)
+            else:
+                # the rule of tests/test_torch_algorithm_rounds.py for
+                # these algorithms: at most 0.2% of the entries past 1e-2
+                # of the scale (Adam's step where the combined gradient
+                # nears eps), each within 0.25
+                rec["share_past"] = {k: past(*v, 1e-2 * slack)
+                                     for k, v in steps.items()}
+                ok = ok and all(rec[k] <= max(0.25, 1e-2 * slack)
+                                and rec["share_past"][k] <= 2e-3
+                                for k in steps)
             records.append(rec)
-            check(rec["exact"] and rec["drift"] <= 1e-4
-                  and rec["kl_abs"] <= 1e-6 and rec["lam"] <= 1e-4 * slack
-                  and rec["client_steps"] <= 1e-2 * slack
-                  and rec["global_step"] <= 1e-2 * slack,
-                  f"round_parity {cfg_p.name} round {r + 1}: {rec}")
+            check(ok, f"round_parity {cfg_p.name} {algorithm} {up} round "
+                  f"{r + 1}: {rec}")
         local.firm_local_step = step_fn
+        fedcmoo.server_solve = solve_fn
         transformer.prefill = prefill_fn
         return records
 
@@ -2580,13 +2642,218 @@ def run(torch, stop_after) -> int:
                               "card_launches": read_counts()}
     check(parity["zamba2-1.2b-smoke"]["card_launches"]["ssd_bwd"] > 0,
           "the zamba2 round on the card ran the SSD backward")
+    # the other algorithms on the tiny llama: three carried rounds each
+    # with identity codecs, and one fedcmoo round with int8 gradients
+    tiny_llama = dataclasses.replace(get_config("llama-3.2-1b").reduced(
+        n_layers=2, d_model=64, vocab=256), n_kv_heads=2)
+    parity_algorithms = {}
+    for algorithm, up, n_rounds in (("firm_unreg", "identity", 3),
+                                    ("linear", "identity", 3),
+                                    ("fedcmoo", "identity", 3),
+                                    ("fedcmoo", "int8+ef", 1)):
+        zero_counts()
+        parity_algorithms[f"{algorithm} {up}"] = {
+            "rounds": parity_rounds(tiny_llama, algorithm, up, n_rounds),
+            "card_launches": read_counts()}
+    check(parity_algorithms["fedcmoo identity"]["card_launches"]["gram"]
+          == 3 and parity_algorithms["fedcmoo int8+ef"]["card_launches"][
+              "quantize"] == 2 and parity_algorithms["linear identity"][
+              "card_launches"]["gram"] == 0,
+          f"round_parity launches {parity_algorithms}")
     emit(phase="round_parity", models=parity,
-         tolerance="exact bytes, participants and rewards; drift 1e-4 of "
-         "its scale; KL 1e-6 absolute; lambda 1e-4 and the steps over "
-         "actor_lr 1e-2 of their scale, each over min(1, D)")
+         algorithms=parity_algorithms,
+         tolerance="exact bytes, participants, dispatches and rewards; "
+         "drift 1e-4 of its scale; KL 1e-6 absolute; lambda 1e-4 and the "
+         "steps over actor_lr 1e-2 of their scale, each over min(1, D); "
+         "firm_unreg, linear and fedcmoo: at most 0.2% of a step's "
+         "entries past 1e-2, each within 0.25")
     done("round_parity")
 
-    # -------------------------------------------------------------- 20. codecs
+    # ---------------------------------------------------------- 20. algorithms
+    # the baselines at full width, from the rollout phase's reference
+    # weights, with the wan preset: one fedcmoo round of C = 2 clients and
+    # K = 2 steps (every step each client's M gradients go up through the
+    # error-feedback-stripped int8 codec, one quantize and one dequantize
+    # launch over the C * M rows, and the server solves lambda through the
+    # Gram kernel), then one linear round of C = 2, K = 1 (fixed weights:
+    # no Gram).  The counts are zeroed just before each round and read
+    # just after.  Then, uncounted: the gradient uplink against the plain
+    # codec (ref.quantize and ref.dequantize on the same rows and the same
+    # rounding bits, drawn again from the saved generator states) bit for
+    # bit, and each server lambda against server_solve with the plain Gram
+    # within 1e-4 over min(1, D), the round tests' lambda rule.
+    def algorithm_round(algorithm, k):
+        fc_a = dataclasses.replace(fc, n_clients=N_CLIENTS, local_steps=k,
+                                   rounds=1)
+        up, down = CODEC_PRESETS["wan"]
+        tr = FederatedTrainer(cfg, fc_a, EngineConfig(
+            algorithm=algorithm, prompt_len=P, max_new=MAX_NEW,
+            uplink_codec=up, downlink_codec=down), params=ref_params,
+            device=dev)
+        exchange = not tr.algorithm.caps.traced_server_exchange
+        part_s, grad_log, solve_log, stack_s = {}, [], [], []
+
+        def timed_part(name, fn):
+            def run_part(*a, **kw):
+                out, sec = wall(lambda: fn(*a, **kw))
+                part_s[names[name]] = sec
+                return out
+            return run_part
+        for name in names:
+            setattr(tr, name, timed_part(name, getattr(tr, name)))
+        grad_codec = (tr.algorithm._grad_codec(tr.uplink_codec) if exchange
+                      else tr.uplink_codec)
+        codec_rt = grad_codec.roundtrip_stacked
+        solve_fn, stack_fn = fedcmoo.server_solve, fedcmoo.stack_grads_flat
+
+        def logged_rt(flats, spec, states=None, *, keys=None, bits=None):
+            saved = [g_.get_state() for g_ in keys]
+            out, sec = wall(lambda: codec_rt(flats, spec, states, keys=keys,
+                                             bits=bits))
+            grad_log.append((flats.clone(), saved, out, sec))
+            return out
+
+        def logged_solve(mats, *a, **kw):
+            lam_, sec = wall(lambda: solve_fn(mats, *a, **kw))
+            solve_log.append(([m_.clone() for m_ in mats], lam_, sec))
+            return lam_
+
+        def logged_stack(*a, **kw):
+            out, sec = wall(lambda: stack_fn(*a, **kw))
+            stack_s.append(sec)
+            return out
+        if exchange:
+            grad_codec.roundtrip_stacked = logged_rt
+            fedcmoo.server_solve = logged_solve
+            fedcmoo.stack_grads_flat = logged_stack
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        summary, sec = wall(tr.run_round)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        grad_codec.roundtrip_stacked = codec_rt
+        fedcmoo.server_solve, fedcmoo.stack_grads_flat = solve_fn, stack_fn
+        client_steps = N_CLIENTS * k
+        want = {name: client_steps * n // k_steps
+                for name, n in want_local.items()}
+        want.update(gram=k if exchange else 0,
+                    quantize=k + 1 if exchange else 1,
+                    dequantize=k + 1 if exchange else 1)
+        check(launches == want, f"{algorithm} launch counts {launches}, "
+              f"expected {want}")
+        per_client = tr.algorithm.uplink_bytes_per_participant(
+            fc_a, tr.uplink_codec, d_lora)
+        delta_bytes = tr.uplink_codec.nbytes_static(d_lora)
+        check(tr.ledger.up_bytes == N_CLIENTS * per_client
+              and summary["up_nbytes"] == [delta_bytes] * N_CLIENTS
+              and summary["down_nbytes"] == 4 * d_lora
+              and summary["dispatches"] == 5 + tr.algorithm
+              .vec_phase_dispatches(k)
+              and summary["participants"] == list(range(N_CLIENTS)),
+              f"{algorithm} bookkeeping {summary}")
+        lam_pc = summary["per_client_lam"]
+        check(lam_pc.shape == (N_CLIENTS, N_OBJ) and (lam_pc >= 0).all()
+              and abs(lam_pc.sum(-1) - 1).max() < 1e-5,
+              f"{algorithm} lambda on the simplex: {lam_pc.tolist()}")
+        check(summary["param_drift"] > 0 and math.isfinite(summary["kl"]),
+              f"{algorithm} drift {summary['param_drift']}")
+        check(all(bool(t.isfinite().all()) for t in
+                  common.tree_leaves(tr.global_trainable))
+              and any(bool((a != b).any()) for a, b in zip(
+                  common.tree_leaves(tr.global_trainable),
+                  common.tree_leaves(train0))),
+              f"{algorithm} global adapters finite and moved")
+        record = dict(
+            model=cfg.name, algorithm=algorithm, preset="wan",
+            clients=N_CLIENTS, local_steps=k, rounds=1, batch=B,
+            prompt_len=P, max_new=MAX_NEW, uplink=up, downlink=down,
+            d_trainable=d_lora, seconds_per_round=sec,
+            seconds_per_client_step=sec / client_steps,
+            breakdown_s=part_s, launches=launches, peak_memory_bytes=peak,
+            comm_bytes=summary["comm_bytes"], up_bytes=tr.ledger.up_bytes,
+            up_bytes_per_participant=per_client,
+            up_nbytes=summary["up_nbytes"],
+            down_nbytes=summary["down_nbytes"],
+            dispatches=summary["dispatches"],
+            param_drift=summary["param_drift"],
+            lam_disagreement=summary["lam_disagreement"],
+            per_client_lam=lam_pc.tolist(), kl=summary["kl"],
+            rewards=summary["rewards"].tolist())
+        return tr, summary, record, grad_log, solve_log, stack_s
+
+    tr_f, s_f, fedcmoo_record, grad_log, solve_log, stack_s = \
+        algorithm_round("fedcmoo", 2)
+    check(s_f["comm_bytes"] == 61_474_816
+          and fedcmoo_record["up_bytes_per_participant"] == 17_105_920,
+          f"fedcmoo comm_bytes {s_f['comm_bytes']}")
+    lam_pc = s_f["per_client_lam"]
+    # one global lambda: equal rows, so the disagreement is the formula's
+    # floor sqrt(0 + 1e-30) in f32
+    check(bool((lam_pc == lam_pc[0]).all()) and s_f["lam_disagreement"]
+          == float(np.sqrt(np.float32(1e-30))),
+          f"fedcmoo lambda rows {lam_pc.tolist()}, disagreement "
+          f"{s_f['lam_disagreement']}")
+    check(len(grad_log) == 2 and len(solve_log) == 2 and len(stack_s) == 2,
+          "fedcmoo: one gradient roundtrip, stack and solve a step")
+    grad_checks, lam_checks = [], []
+    for flats, saved, (payloads, _, decoded), _ in grad_log:
+        check(tuple(flats.shape) == (N_CLIENTS * N_OBJ, d_lora)
+              and len(payloads) == N_CLIENTS * N_OBJ,
+              f"gradient uplink rows {tuple(flats.shape)}")
+        x, rows_g = qcodec._stacked_blocks(flats)
+        gens = []
+        for st in saved:
+            g_ = torch.Generator(device=dev)
+            g_.set_state(st)
+            gens.append(g_)
+        rbits = torch.cat([qcodec.random_bits((rows_g, q_mod.BLOCK), g_)
+                           for g_ in gens])
+        codes, scales = ref.quantize(x, rbits, 127)
+        dec = ref.dequantize(codes, scales).reshape(
+            N_CLIENTS * N_OBJ, -1)[:, :d_lora]
+        same = (torch.equal(torch.cat([p_.arrays["codes"]
+                                       for p_ in payloads]), codes)
+                and torch.equal(torch.cat([p_.arrays["scales"]
+                                           for p_ in payloads]), scales)
+                and torch.equal(decoded, dec))
+        grad_checks.append(same)
+        check(same, "fedcmoo gradient uplink: not the plain codec's bits")
+    for mats, lam_got, _ in solve_log:
+        avg = sum(mats) / len(mats)
+        g_plain = ref.gram(avg)
+        lam_plain = mgda.solve(g_plain, 0.0, trace_normalize=True,
+                               solver="pgd", iters=100)
+        g64 = g_plain.double().cpu().numpy()
+        q = g64 / (np.trace(g64) / N_OBJ)
+        curv_s = q[0, 0] + q[1, 1] - 2 * q[0, 1]
+        err = float((lam_got - lam_plain).abs().max()
+                    / lam_plain.abs().max())
+        lam_checks.append({"rel_err": err, "curvature": curv_s,
+                           "gram_rel_err": max_rel(ops.gram(avg), g_plain)})
+        check(err <= 1e-4 / min(1.0, curv_s),
+              f"fedcmoo server lambda vs plain Gram: {lam_checks[-1]}")
+    fedcmoo_record.update(
+        gradient_uplink_bit_for_bit=grad_checks, server_lambda=lam_checks,
+        exchange_s={"stack": stack_s,
+                    "codec": [sec_ for *_, sec_ in grad_log],
+                    "solve": [sec_ for *_, sec_ in solve_log]},
+        lam_disagreement_floor=float(np.sqrt(np.float32(1e-30))))
+    del tr_f, grad_log, solve_log
+    tr_l, s_l, linear_record, _, _, _ = algorithm_round("linear", 1)
+    check(s_l["comm_bytes"] == 34_105_344
+          and linear_record["launches"]["gram"] == 0,
+          f"linear comm_bytes {s_l['comm_bytes']}")
+    check(bool((s_l["lam_mean"] == np.float32(0.5)).all()),
+          f"linear lam_mean {s_l['lam_mean'].tolist()} is the weights")
+    del tr_l
+    emit(phase="algorithms", fedcmoo=fedcmoo_record, linear=linear_record,
+         tolerance="exact bytes and launches; the gradient uplink bit for "
+         "bit with the plain codec; the server lambda within 1e-4 of the "
+         "plain Gram's over min(1, D)")
+    done("algorithms")
+
+    # -------------------------------------------------------------- 21. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -2689,7 +2956,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # --------------------------------------------------------------- 21. train
+    # --------------------------------------------------------------- 22. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -2720,7 +2987,7 @@ def run(torch, stop_after) -> int:
          zamba2={"seconds": z_train_s, "report": z_report.getvalue()})
     done("train")
 
-    # --------------------------------------------------------------- 22. serve
+    # --------------------------------------------------------------- 23. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(

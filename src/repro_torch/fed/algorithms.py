@@ -1,0 +1,315 @@
+"""Algorithm protocol and registry (counterpart of
+``repro.fed.algorithms``).
+
+Every federated algorithm the trainer runs (the paper's FIRM, its beta =
+0 ablation, linear scalarisation and the server-centric FedCMOO baseline)
+is an ``Algorithm`` object that owns:
+
+* its **local-step machinery**: ``step``, one client's local update (the
+  counterpart of the reference's ``traced_step``, which its vectorized
+  round vmaps), and, for an algorithm whose server exchange runs between
+  the clients' steps, the whole local phase (``exchange_phase``, the
+  counterpart of ``exchange_phase_vectorized``);
+* its **config resolution**: ``resolve_config`` (firm_unreg pins beta =
+  0), ``validate`` (fedcmoo rejects per-client local-step counts) and the
+  per-client expansion ``client_configs``;
+* its declared **capabilities** (``Capabilities``), the only thing the
+  trainer dispatches on: it never branches on an algorithm's name.
+
+Capabilities, as the reference declares them:
+
+``vmap_safe``
+    The local step can run over a stacked client axis.  The port runs
+    the clients one after another and reads none of it yet; the planner
+    and the fused executor will.
+``traced_server_exchange``
+    The algorithm exchanges nothing with the server during the local
+    phase (firm, linear), so each client runs its K ``step``s alone.
+    False (fedcmoo: a lambda solve between every two steps) hands the
+    local phase to ``exchange_phase``.
+``single_cohort_required``
+    Every participant advances in lock step (fedcmoo's lambda is global
+    per step).
+``fusable``
+    Eligible for the round-level fused executor; needs
+    ``traced_server_exchange`` and ``vmap_safe``, which
+    ``register_algorithm`` checks.
+
+The loop executor's hooks (``local_step_fn``, ``loop_phase``) are not
+ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+import torch
+
+from repro_torch.comms import ErrorFeedback
+from repro_torch.configs.base import FIRMConfig
+from repro_torch.core import fedavg, fedcmoo
+from repro_torch.rlhf import local as local_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class Capabilities:
+    """What an algorithm's execution paths can do (see the module
+    docstring)."""
+    vmap_safe: bool = True
+    traced_server_exchange: bool = True
+    single_cohort_required: bool = False
+    fusable: bool = True
+
+
+def validate_capabilities(caps: Capabilities, name: str) -> None:
+    """Reject internally inconsistent capability declarations."""
+    if caps.fusable and not caps.traced_server_exchange:
+        raise ValueError(
+            f"algorithm {name!r} declares fusable=True but "
+            "traced_server_exchange=False: the round-level lax.scan "
+            "cannot pause for a host-driven server exchange")
+    if caps.fusable and not caps.vmap_safe:
+        raise ValueError(
+            f"algorithm {name!r} declares fusable=True but "
+            "vmap_safe=False: the fused round body vmaps the local step "
+            "over the stacked client axis")
+
+
+class Algorithm:
+    """Base protocol; subclasses fill in the hooks their capabilities
+    promise: ``step`` when ``traced_server_exchange`` is True,
+    ``exchange_phase`` when it is False.  ``kernel`` names the step
+    program: algorithms whose steps are one program after
+    ``resolve_config`` (firm and firm_unreg) share it."""
+
+    name: str = "algorithm"
+    kernel: str = "algorithm"
+    caps: Capabilities = Capabilities()
+
+    # ---- config resolution -------------------------------------------
+    def validate(self, fc: FIRMConfig, ec) -> None:
+        """Raise if (fc, ec) cannot run under this algorithm."""
+
+    def resolve_config(self, fc: FIRMConfig) -> FIRMConfig:
+        """The FIRMConfig the local step runs with."""
+        return fc
+
+    # ---- local-step machinery ----------------------------------------
+    def step(self, cfg, cfc: FIRMConfig, state, frozen, batch, pref, extra):
+        """One client's local update: (new state, metrics with at least
+        ``lam``, ``rewards`` and ``kl``).  The counterpart of the
+        reference's ``traced_step``; ``pref`` is the client's (M,)
+        preference or None, ``extra`` what ``traced_extra`` gives."""
+        raise NotImplementedError(self.name)
+
+    def traced_extra(self, cfc: FIRMConfig, ec, device=None):
+        """The run's constant operand of ``step`` (the linear weights), on
+        ``device``; None when unused."""
+        return None
+
+    def exchange_phase(self, trainer, cfc: FIRMConfig,
+                       participants: List[int], states: list, prompts, *,
+                       gumbel=None, grad_bits=None, sketch_noise=None):
+        """The local phase of an algorithm with a server exchange between
+        steps (the counterpart of ``exchange_phase_vectorized``): K steps
+        of every participant from ``states``.  Returns (lams (P, M),
+        rewards_mean (M,), kl_mean, rewards_pc (P, M), final states)."""
+        raise NotImplementedError(self.name)
+
+    # ---- cost model ----------------------------------------------------
+    def vec_phase_dispatches(self, k_steps: int) -> int:
+        """The reference's dispatches inside one vectorized local phase
+        (without the stack and unstack around it)."""
+        return 1
+
+    def uplink_bytes_per_participant(self, fc: FIRMConfig, ul_codec,
+                                     d: int) -> int:
+        """Exact wire bytes one participant uploads a round."""
+        return ul_codec.nbytes_static(d)
+
+    def __repr__(self) -> str:
+        return f"<Algorithm {self.name} caps={self.caps}>"
+
+
+class FIRMAlgorithm(Algorithm):
+    """Paper Alg. 1: in-client regularized MGDA (client-local)."""
+
+    name = "firm"
+    kernel = "firm"
+    caps = Capabilities()
+
+    def step(self, cfg, cfc, state, frozen, batch, pref, extra):
+        return local_lib.firm_local_step(cfg, cfc, state, frozen, batch,
+                                         preference=pref)
+
+
+class FIRMUnregAlgorithm(FIRMAlgorithm):
+    """The beta = 0 ablation (RQ2): FIRM's step with the regulariser off.
+    ``kernel`` stays "firm": after ``resolve_config`` it is the same
+    step."""
+
+    name = "firm_unreg"
+
+    def resolve_config(self, fc):
+        return dataclasses.replace(fc, beta=0.0)
+
+
+class LinearAlgorithm(Algorithm):
+    """Fixed-weight linear scalarisation (the implicit baseline)."""
+
+    name = "linear"
+    kernel = "linear"
+    caps = Capabilities()
+
+    def step(self, cfg, cfc, state, frozen, batch, pref, extra):
+        return local_lib.linear_local_step(cfg, cfc, state, frozen, batch,
+                                           extra)
+
+    def traced_extra(self, cfc, ec, device=None):
+        return torch.tensor(
+            ec.linear_weights
+            or [1.0 / cfc.n_objectives] * cfc.n_objectives,
+            dtype=torch.float32, device=device)
+
+
+class FedCMOOAlgorithm(Algorithm):
+    """Server-centric MGDA baseline (RQ1, Askin et al. 2024).
+
+    Gradients go up every local step and the server sends one global
+    lambda back, between two client phases: hence
+    ``traced_server_exchange=False`` (never fused) and
+    ``single_cohort_required=True`` (lambda is global per step).
+    """
+
+    name = "fedcmoo"
+    kernel = "fedcmoo"
+    caps = Capabilities(vmap_safe=True, traced_server_exchange=False,
+                        single_cohort_required=True, fusable=False)
+
+    def validate(self, fc, ec):
+        if fc.client_local_steps is not None:
+            raise ValueError("fedcmoo needs homogeneous local_steps: its "
+                             "server λ exchange is global per local step")
+
+    def vec_phase_dispatches(self, k_steps: int) -> int:
+        # per step: sampler, vmapped grads, batched flatten, vmapped apply
+        return 4 * k_steps
+
+    def uplink_bytes_per_participant(self, fc, ul_codec, d):
+        # M gradient uploads a step ride the EF-stripped inner codec, on
+        # top of the end-of-round delta
+        grad = self._grad_codec(ul_codec)
+        return (ul_codec.nbytes_static(d)
+                + fc.n_objectives * fc.local_steps * grad.nbytes_static(d))
+
+    @staticmethod
+    def _grad_codec(ul_codec):
+        """The codec of the gradient uploads: error feedback is defined
+        per client stream, not per objective, so the M gradients take the
+        inner codec without it."""
+        return ul_codec.inner if isinstance(ul_codec, ErrorFeedback) \
+            else ul_codec
+
+    def exchange_phase(self, trainer, cfc, participants, states, prompts, *,
+                       gumbel=None, grad_bits=None, sketch_noise=None):
+        """Per step k: every participant rolls out and computes its M
+        gradients; the (P * M, d) client-major stack goes through the
+        gradient codec in one roundtrip, each payload onto the ledger in
+        row order; the server solves lambda from what it decoded; every
+        participant applies it to its own gradients.
+
+        The main stream is read in the reference's order: per step, for
+        each participant one generation draw and M gradient-codec draws,
+        then one lambda draw (read whether or not a sketch uses it).
+        Injected: ``gumbel`` (K, P, max_new, B, V), ``grad_bits`` (K, P *
+        M, ...) the gradient codec's draws, ``sketch_noise`` (K, d, q).
+        """
+        m = cfc.n_objectives
+        p_count = len(participants)
+        grad_codec = self._grad_codec(trainer.uplink_codec)
+        rew_hist, kl_hist, lam = [], [], None
+        for k in range(cfc.local_steps):
+            gen_keys, grad_keys = [], []
+            for _ in participants:
+                gen_keys.append(trainer._next_key())
+                grad_keys.extend(trainer._next_key() for _ in range(m))
+            phase1 = []
+            for ci, c in enumerate(participants):
+                batch = trainer._make_batch(
+                    c, states[ci].trainable, prompts[k, ci],
+                    generator=None if gumbel is not None else gen_keys[ci],
+                    gumbel=None if gumbel is None else gumbel[k, ci])
+                grads, _, extras = local_lib.fedcmoo_local_grads(
+                    trainer.cfg, cfc, states[ci], trainer.frozen, batch)
+                phase1.append((grads, extras, batch.rewards.mean(0)))
+            # (P, M, d) client-major: the reference's upload order, so
+            # the codec's draws and the ledger's bytes line up with it
+            gmat = fedcmoo.stack_grads_flat(
+                [fedavg.stack_trees([g[j] for g, _, _ in phase1])
+                 for j in range(m)], m)
+            payloads, _, decoded = grad_codec.roundtrip_stacked(
+                gmat.reshape(p_count * m, -1), trainer._delta_spec,
+                keys=grad_keys,
+                bits=None if grad_bits is None else grad_bits[k])
+            for gp in payloads:
+                trainer.ledger.send_up(gp)
+            lam = fedcmoo.fedcmoo_round_lambda_stacked(
+                decoded.reshape(p_count, m, -1),
+                compress_rank=trainer.ec.fedcmoo_compress_rank,
+                generator=trainer._next_key(),
+                noise=None if sketch_noise is None else sketch_noise[k])
+            for ci, (grads, extras, _) in enumerate(phase1):
+                states[ci], met = local_lib.fedcmoo_local_apply(
+                    cfc, states[ci], grads, lam, extras)
+                kl_hist.append(met["kl"])
+            rew_hist.append(torch.stack([r for _, _, r in phase1]))
+        rew = torch.stack(rew_hist)                           # (K, P, M)
+        return (lam[None].repeat(p_count, 1), rew.reshape(-1, m).mean(0),
+                torch.stack(kl_hist).mean(), rew.mean(0), states)
+
+
+# ---------------------------------------------------------------- registry
+_REGISTRY: Dict[str, Algorithm] = {}
+
+
+def register_algorithm(algorithm: Algorithm) -> Algorithm:
+    """Validate the capability declaration and add the algorithm to the
+    registry (a name already there is overwritten, as for codecs)."""
+    validate_capabilities(algorithm.caps, algorithm.name)
+    _REGISTRY[algorithm.name] = algorithm
+    return algorithm
+
+
+def get_algorithm(name: str) -> Algorithm:
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown algorithm {name!r}; "
+                         f"available: {available_algorithms()}")
+    return _REGISTRY[name]
+
+
+def available_algorithms() -> tuple:
+    return tuple(sorted(_REGISTRY))
+
+
+register_algorithm(FIRMAlgorithm())
+register_algorithm(FIRMUnregAlgorithm())
+register_algorithm(LinearAlgorithm())
+register_algorithm(FedCMOOAlgorithm())
+
+
+def client_configs(algorithm: Algorithm, fc: FIRMConfig
+                   ) -> List[FIRMConfig]:
+    """Per-client FIRM configs (per-client preferences and local-step
+    counts) expanded from the algorithm-resolved base config."""
+    base = algorithm.resolve_config(fc)
+    out = []
+    for c in range(fc.n_clients):
+        cfc = base
+        if fc.client_preferences is not None:
+            cfc = dataclasses.replace(
+                cfc, preference=fc.client_preferences[c])
+        if fc.client_local_steps is not None:
+            cfc = dataclasses.replace(
+                cfc, local_steps=int(fc.client_local_steps[c]))
+        out.append(cfc)
+    return out

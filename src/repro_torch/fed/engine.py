@@ -1,6 +1,6 @@
 """The federated engine (counterpart of ``repro.fed.engine``).
 
-``rollout_batch`` is what every FIRM local step runs before any gradient:
+``rollout_batch`` is what every local step runs before any gradient:
 generation (prefill, then decode and sample), banded rewards, and the
 frozen reference model's logprobs (``FederatedTrainer._make_batch`` and the
 first lines of ``one_client`` in the reference's ``_make_round_fn``).
@@ -8,22 +8,27 @@ Everything here runs on every ported pattern: the dense llama pattern and
 the zamba2 hybrid, whose training differentiates the Mamba2 layers through
 the SSD backward kernel.
 ``client_local_steps`` runs K local steps of one client, each a rollout
-then ``firm_local_step``: ``one_client`` and the scan ``body`` of
-``_make_round_fn`` for a single client.
+then the algorithm's ``step`` (FIRM's by default): ``one_client`` and the
+scan ``body`` of ``_make_round_fn`` for a single client.
 
 ``FederatedTrainer`` runs the federated round, ``run_round``, with the
-semantics of the reference's vectorized executor for ``firm``: the
-broadcast through the downlink codec, K local steps per participant (all
-starting from the decoded broadcast), the stacked flat delta, ONE stacked
-uplink roundtrip (one quantize and one dequantize launch over all clients
-for ``int8``/``int4``, with error feedback; one batched 32-pass bisection
-for ``topk``), FedAvg, the drift statistics,
-the comms ledger and the round summary.  The clients run one after another
-in a Python loop: the kernels' ``autograd.Function``s have no vmap rule,
-and one client's update already peaks at ~17 GB at full width.  The
-reference's loop executor, cohorts of heterogeneous ``client_local_steps``,
-the fused multi-round executor, the other algorithms and the scheduler are
-not ported yet.
+semantics of the reference's vectorized executor, for every algorithm of
+the registry (``fed.algorithms``: ``firm``, ``firm_unreg``, ``linear``,
+``fedcmoo``).  The trainer dispatches on the algorithm's capabilities,
+never on its name: the broadcast through the downlink codec, then either
+K ``step``s per participant (all starting from the decoded broadcast) or,
+for an algorithm with a server exchange between steps, its
+``exchange_phase`` (fedcmoo: the M gradients of every participant through
+the gradient codec in one stacked roundtrip and one server lambda solve a
+step); then the stacked flat delta, ONE stacked uplink roundtrip (one
+quantize and one dequantize launch over all clients for ``int8``/``int4``,
+with error feedback; one batched 32-pass bisection for ``topk``), FedAvg,
+the drift statistics, the comms ledger and the round summary.  The
+clients run one after another in a Python loop: the kernels'
+``autograd.Function``s have no vmap rule, and one client's update already
+peaks at ~17 GB at full width.  The reference's loop executor, cohorts of
+heterogeneous ``client_local_steps``, the planner, the fused multi-round
+executor and the scheduler are not ported yet.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from repro_torch.core import comms, drift, fedavg
 from repro_torch.data.partition import (make_client_datasets,
                                         sample_prompt_block)
 from repro_torch.data.prompts import PromptDataset
+from repro_torch.fed import algorithms as algorithms_lib
 from repro_torch.models import transformer
 from repro_torch.models.common import merge_trainable, split_trainable
 from repro_torch.obs.records import round_summary
@@ -79,11 +85,15 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
                        prompts: Optional[torch.Tensor] = None,
                        generators: Optional[Sequence[torch.Generator]] = None,
                        gumbel: Optional[torch.Tensor] = None,
-                       preference: Optional[torch.Tensor] = None):
-    """K local FIRM steps of one client.  Returns (final state, metrics).
+                       preference: Optional[torch.Tensor] = None,
+                       algorithm: Optional[algorithms_lib.Algorithm] = None,
+                       extra=None):
+    """K local steps of one client.  Returns (final state, metrics).
 
     Each step merges the client's adapters into ``frozen``, rolls out
-    ``fc.batch_size`` prompts and runs ``firm_local_step``.  Prompts come
+    ``fc.batch_size`` prompts and runs ``algorithm.step`` (FIRM's
+    ``firm_local_step`` by default) with ``extra``, the algorithm's
+    ``traced_extra``.  Prompts come
     from ``dataset`` or are injected as ``prompts`` (K, B, P); step k's
     sampling noise comes from ``generators[k]`` (the reference's one key a
     step) or is injected as ``gumbel`` (K, max_new, B, V).
@@ -93,6 +103,7 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
     """
     if (dataset is None) == (prompts is None):
         raise ValueError("pass exactly one of dataset= and prompts=")
+    algorithm = algorithm or algorithms_lib.FIRMAlgorithm()
     kept = {"lam": [], "rewards": [], "kl": []}
     for k in range(k_steps):
         params = merge_trainable(state.trainable, frozen)
@@ -104,9 +115,8 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
             length_tol=length_tol,
             generator=None if generators is None else generators[k],
             gumbel=None if gumbel is None else gumbel[k])
-        state, metrics = local_lib.firm_local_step(cfg, fc, state, frozen,
-                                                   batch,
-                                                   preference=preference)
+        state, metrics = algorithm.step(cfg, fc, state, frozen, batch,
+                                        preference, extra)
         for key, vals in kept.items():
             vals.append(metrics[key])
     return state, {key: torch.stack(vals) for key, vals in kept.items()}
@@ -115,26 +125,29 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
 @dataclasses.dataclass
 class EngineConfig:
     """Engine knobs orthogonal to the FIRM hyperparameters: the fields of
-    the reference's ``EngineConfig`` that the port runs (the other
-    algorithms, the loop and fused executors and the metric sinks are not
-    ported yet)."""
+    the reference's ``EngineConfig`` that the port runs (the loop and
+    fused executors and the metric sinks are not ported yet).
+    ``algorithm`` names an entry of the registry (``fed.algorithms``)."""
     algorithm: str = "firm"
     prompt_len: int = 8
     max_new: int = 24
     dirichlet_alpha: float = 0.3
     seed: int = 0
     heterogeneous_rms: bool = False      # half the clients use the alt RM
+    fedcmoo_compress_rank: Optional[int] = None   # fedcmoo sketch rank
+    linear_weights: Optional[Sequence[float]] = None  # linear scalarization
     # comms codecs (repro_torch.comms registry specs, e.g. "int8+ef")
     uplink_codec: str = "identity"       # client -> server deltas
     downlink_codec: str = "identity"     # server -> client broadcast
 
 
-# The reference's vectorized executor makes six jitted dispatches a round
-# (stack the states, the local phase, unstack, the delta, the aggregate,
-# the summary).  The port runs the same stages eagerly and reports the
+# The reference's vectorized executor makes five jitted dispatches a round
+# around its local phase (stack the states, unstack, the delta, the
+# aggregate, the summary), and the algorithm's ``vec_phase_dispatches``
+# inside it.  The port runs the same stages eagerly and reports the
 # reference's count in the round summary, which its readers compare
 # across executors; it measures no work of the port.
-VECTORIZED_ROUND_DISPATCHES = 6
+ROUND_DISPATCHES_OUTSIDE_PHASE = 5
 
 
 class LocalPhaseResult(NamedTuple):
@@ -147,15 +160,19 @@ class LocalPhaseResult(NamedTuple):
 
 
 class FederatedTrainer:
-    """Server and C clients of FIRM (paper Alg. 1), one round at a time.
+    """Server and C clients of a federated algorithm of the registry (FIRM,
+    paper Alg. 1, by default), one round at a time.
 
     Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``).
     ``params`` is an optional initial model tree (e.g. a JAX model carried
     over by ``bridge.to_torch``); without it the weights are drawn from
     ``ec.seed``.  Randomness comes from one main stream, read at the
-    reference's key points in its order: one draw for the downlink, K x P
-    generation draws step-major over the participants, then P uplink
-    draws; each draw seeds a generator on the device.  Participants come
+    reference's key points in its order: one draw for the downlink, then
+    the local phase's (for a client-local algorithm K x P generation draws
+    step-major over the participants; for fedcmoo, per step, one
+    generation and M gradient-codec draws a participant and one lambda
+    draw), then P uplink draws; each draw seeds a generator on the
+    device.  Participants come
     from a stream keyed on (seed, round) alone.  ``run_round`` also takes
     each draw injected, so that a test can hand the port JAX's.
 
@@ -174,9 +191,10 @@ class FederatedTrainer:
                  ec: Optional[EngineConfig] = None, *, params=None,
                  device=None):
         ec = EngineConfig() if ec is None else ec
-        if ec.algorithm != "firm":
-            raise NotImplementedError(
-                f"algorithm {ec.algorithm!r} is not ported yet; ported: firm")
+        # the algorithm owns the local step and the capabilities every
+        # path decision reads; (fc, ec) is checked before any work
+        self.algorithm = algorithms_lib.get_algorithm(ec.algorithm)
+        self.algorithm.validate(fc, ec)
         if fc.client_local_steps is not None and \
                 len(set(fc.client_local_steps)) > 1:
             raise NotImplementedError(
@@ -216,8 +234,9 @@ class FederatedTrainer:
         self.history: List[dict] = []
         self._rng = torch.Generator().manual_seed(ec.seed + 1)
         self._round_idx = 0
-        self._local_steps = (fc.local_steps if fc.client_local_steps is None
-                             else int(fc.client_local_steps[0]))
+        # per-client configs, expanded through the algorithm
+        # (resolve_config, per-client preferences and local steps)
+        self._client_fcs = algorithms_lib.client_configs(self.algorithm, fc)
         self._stacked_pref = (
             torch.tensor(fc.client_preferences, dtype=torch.float32,
                          device=self.device)
@@ -253,50 +272,89 @@ class FederatedTrainer:
                                           key=self._next_key(), bits=bits)
         return payload, broadcast
 
+    def _make_batch(self, c: int, trainable, prompts: torch.Tensor, *,
+                    generator=None, gumbel=None) -> ppo.PPOBatch:
+        """Client ``c``'s rollout of ``prompts`` (B, P) under its adapters
+        ``trainable`` and its reward bands: the reference's ``_make_batch``
+        on the given adapters and prompts."""
+        return rollout_batch(
+            self.cfg, merge_trainable(trainable, self.frozen),
+            self.ref_params, prompts, *self._bands[c],
+            n_objectives=self.fc.n_objectives, max_new=self.ec.max_new,
+            length_tol=self._length_tol, generator=generator, gumbel=gumbel)
+
     def _local_phase(self, participants: List[int], broadcast, prompts=None,
-                     gumbel=None) -> LocalPhaseResult:
+                     gumbel=None, grad_bits=None,
+                     sketch_noise=None) -> LocalPhaseResult:
         """K local steps of every participant, all from the broadcast.
 
-        Client c's step k takes the k-th prompt block and the generation
-        draw [k][c]; the per-step metrics are kept as (K, P, ...) and
-        reduced one axis at a time, as the reference's are.
+        The participants share one config (one cohort): their entry of
+        ``client_configs``, with the per-client preference lifted out.  An
+        algorithm that exchanges nothing with the server between steps
+        (``caps.traced_server_exchange``) runs each client's K steps
+        alone: client c's step k takes the k-th prompt block and the
+        generation draw [k][c], and the per-step metrics are kept as (K,
+        P, ...) and reduced one axis at a time, as the reference's are.
+        Any other hands the phase to ``algorithm.exchange_phase``.
         """
-        fc = self.fc
-        k_steps = self._local_steps
         has_pref = self._stacked_pref is not None
-        cfc = dataclasses.replace(fc, preference=None) if has_pref else fc
+        cfc = self._client_fcs[participants[0]]
+        if has_pref:
+            cfc = dataclasses.replace(cfc, preference=None)
+        k_steps = cfc.local_steps
         # every participant adopts the decoded broadcast (the adapters are
         # never updated in place, so the anchor survives for the delta)
         states = [self.client_states[c]._replace(trainable=broadcast)
                   for c in participants]
-        gen_keys = [[self._next_key() for _ in participants]
-                    for _ in range(k_steps)]
+        if not self.algorithm.caps.traced_server_exchange:
+            prompts = self._prompt_blocks(participants, k_steps, prompts)
+            lams, rewards_mean, kl_mean, rewards_pc, states = \
+                self.algorithm.exchange_phase(
+                    self, cfc, participants, states, prompts, gumbel=gumbel,
+                    grad_bits=grad_bits, sketch_noise=sketch_noise)
+        else:
+            gen_keys = [[self._next_key() for _ in participants]
+                        for _ in range(k_steps)]
+            prompts = self._prompt_blocks(participants, k_steps, prompts)
+            extra = self.algorithm.traced_extra(cfc, self.ec,
+                                                device=self.device)
+            kept = []
+            for ci, c in enumerate(participants):
+                states[ci], m = client_local_steps(
+                    self.cfg, cfc, states[ci], self.frozen, self.ref_params,
+                    *self._bands[c], k_steps=k_steps,
+                    max_new=self.ec.max_new, length_tol=self._length_tol,
+                    prompts=prompts[:, ci],
+                    generators=(None if gumbel is not None else
+                                [gen_keys[k][ci] for k in range(k_steps)]),
+                    gumbel=None if gumbel is None else gumbel[:, ci],
+                    preference=self._stacked_pref[c] if has_pref else None,
+                    algorithm=self.algorithm, extra=extra)
+                kept.append(m)
+            ms = {key: torch.stack([m[key] for m in kept], dim=1)
+                  for key in ("lam", "rewards", "kl")}        # (K, P, ...)
+            lams, rewards_pc = ms["lam"][-1], ms["rewards"].mean(0)
+            rewards_mean = rewards_pc.mean(0)
+            kl_mean = ms["kl"].mean(0).mean(0)
+        for ci, c in enumerate(participants):
+            self.client_states[c] = states[ci]
+        return LocalPhaseResult(
+            lams, rewards_mean, kl_mean,
+            fedavg.stack_trees([s.trainable for s in states]), rewards_pc)
+
+    def _prompt_blocks(self, participants: List[int], k_steps: int,
+                       prompts=None) -> torch.Tensor:
+        """The (K, P, B, prompt_len) prompt blocks of the local phase: drawn
+        from each participant's stream, or injected as ``prompts``, in
+        which case the streams' counts still advance by K."""
         part_ds = [self.datasets[c] for c in participants]
         if prompts is None:
-            prompts = torch.stack([sample_prompt_block(part_ds,
-                                                       fc.batch_size)
-                                   for _ in range(k_steps)])
-        else:
-            for ds in part_ds:
-                ds.count += k_steps
-        kept = []
-        for ci, c in enumerate(participants):
-            self.client_states[c], m = client_local_steps(
-                self.cfg, cfc, states[ci], self.frozen, self.ref_params,
-                *self._bands[c], k_steps=k_steps, max_new=self.ec.max_new,
-                length_tol=self._length_tol, prompts=prompts[:, ci],
-                generators=(None if gumbel is not None else
-                            [gen_keys[k][ci] for k in range(k_steps)]),
-                gumbel=None if gumbel is None else gumbel[:, ci],
-                preference=self._stacked_pref[c] if has_pref else None)
-            kept.append(m)
-        ms = {key: torch.stack([m[key] for m in kept], dim=1)
-              for key in ("lam", "rewards", "kl")}            # (K, P, ...)
-        stacked = fedavg.stack_trees(
-            [self.client_states[c].trainable for c in participants])
-        return LocalPhaseResult(ms["lam"][-1], ms["rewards"].mean(0).mean(0),
-                                ms["kl"].mean(0).mean(0), stacked,
-                                ms["rewards"].mean(0))
+            return torch.stack([sample_prompt_block(part_ds,
+                                                    self.fc.batch_size)
+                                for _ in range(k_steps)])
+        for ds in part_ds:
+            ds.count += k_steps
+        return prompts
 
     def _delta_flat(self, stacked, anchor) -> torch.Tensor:
         """All P client deltas against the anchor -> (P, d) f32 rows in
@@ -345,23 +403,28 @@ class FederatedTrainer:
 
     def run_round(self, participants: Optional[List[int]] = None, *,
                   prompts=None, gumbel=None, up_bits=None,
-                  down_bits=None) -> dict:
+                  down_bits=None, grad_bits=None,
+                  sketch_noise=None) -> dict:
         """One federated round; returns its summary.
 
         Injected draws, each replacing the stream's: ``prompts`` (K, P, B,
         prompt_len), ``gumbel`` (K, P, max_new, B, V), and the codecs'
         draws, ``up_bits`` (P, ...) and ``down_bits``: for a quantize codec
         the (rows, 1024) int32 rounding-bit patterns, for a low-rank codec
-        omega (b, rank) f32; top-k reads none.  The main stream is read all
-        the same (P uplink draws whatever the codec), so later rounds'
-        draws stay where the reference's are.
+        omega (b, rank) f32; top-k reads none.  For fedcmoo also the
+        gradient uplink's draws, ``grad_bits`` (K, P * M, ...) in the rows'
+        client-major order, and the sketch's normal draws,
+        ``sketch_noise`` (K, d, q).  The main stream is read all the same
+        (P uplink draws whatever the codec), so later rounds' draws stay
+        where the reference's are.
         """
         if participants is None:
             participants = self._sample_participants()
         dl_payload, broadcast = self._broadcast(down_bits)
         for _ in participants:
             self.ledger.send_down(dl_payload)
-        res = self._local_phase(participants, broadcast, prompts, gumbel)
+        res = self._local_phase(participants, broadcast, prompts, gumbel,
+                                grad_bits, sketch_noise)
         flat_deltas = self._delta_flat(res.stacked_trainable, broadcast)
         payloads, decoded = self._uplink(participants, flat_deltas, up_bits)
         self.global_trainable = self._aggregate_flat(
@@ -374,10 +437,13 @@ class FederatedTrainer:
             up_bytes=self.ledger.up_bytes,
             down_bytes=self.ledger.down_bytes,
             participants=participants,
-            dispatches=VECTORIZED_ROUND_DISPATCHES,
+            dispatches=ROUND_DISPATCHES_OUTSIDE_PHASE
+            + self.algorithm.vec_phase_dispatches(
+                self._client_fcs[participants[0]].local_steps),
             up_nbytes=[int(p.nbytes) for p in payloads],
             down_nbytes=comms.measured_bytes(dl_payload),
-            local_steps=[self._local_steps] * len(participants),
+            local_steps=[self._client_fcs[c].local_steps
+                         for c in participants],
             cohorts=1)
         self.history.append(summary)
         return summary

@@ -610,8 +610,8 @@ def test_round_bookkeeping_on_the_port_alone():
     assert np.isfinite(hist[-1]["lam_disagreement"])
     assert [ds.count for ds in tr.datasets] == [
         sum(c in p for p in parts[:2]) for c in range(3)]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        FederatedTrainer(tcfg, fc, EngineConfig(algorithm="fedcmoo"),
+    with pytest.raises(ValueError, match="unknown algorithm 'fedavg'"):
+        FederatedTrainer(tcfg, fc, EngineConfig(algorithm="fedavg"),
                          device="cpu")
     with pytest.raises(NotImplementedError, match="heterogeneous"):
         FederatedTrainer(tcfg, dataclasses.replace(
