@@ -149,7 +149,13 @@ line, for a first check of new kernels):
             ``linear`` and ``fedcmoo`` with identity codecs and one
             ``fedcmoo`` round with int8 gradients (the ``wan`` preset),
             held the same way (the steps of these three by
-            tests/test_torch_algorithm_rounds.py's rule).
+            tests/test_torch_algorithm_rounds.py's rule).  Then three
+            carried rounds each of the tiny llama through the loop executor
+            (``firm``), of ``fedcmoo`` through the loop executor with the
+            int8 gradient uplink (its exchange phase: one quantize launch
+            a step over the clients' gradient rows), and of ``firm``
+            with client_local_steps=(1, 2, 1) (two cohorts; the injected
+            draws padded to the largest K), held the same way.
 20. algorithms: the baselines on llama-3.2-1b at full width, ``wan``
             preset: one ``fedcmoo`` round (C=2, K=2: each step the clients'
             M gradients up through the int8 codec in one quantize and one
@@ -164,7 +170,22 @@ line, for a first check of new kernels):
             ``server_solve`` with the plain Gram; linear's lambda the
             weights.  Seconds by part and the exchange's own (stack, codec,
             solve).
-21. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+21. executors: the front door at full width (llama-3.2-1b, ``wan``, C=2):
+            ``fed.api.plan(RunSpec(...))``, which must allocate nothing on
+            the card (``torch.cuda.memory_allocated`` unchanged) and give
+            d = 3,407,872, then ``.build(device="cuda", params=...)`` and one
+            round of each of two plans: the loop executor
+            (vectorized_clients=False, K=1; executor ``loop``, 10
+            dispatches) and cohorts of client_local_steps=(1, 2) (executor
+            ``vectorized``, local mode ``cohort``, cohorts [[1, 1], [1, 2]],
+            10 dispatches).  Each plan's bytes (6,842,368 up, 27,262,976
+            down) and dispatches equal the round's (comm_bytes exactly
+            34,105,344; ``cohorts`` 0 and 2); counts zeroed just before each
+            round and exact just after (the round phase's a client-step,
+            gram once a client-step, one quantize and one dequantize); each
+            client made its K steps.  Seconds by part, seconds a
+            client-step beside the same call's ``wan`` rounds, peak memory.
+22. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             delta bit for bit; low-rank on the script's usual draw and five
@@ -173,9 +194,9 @@ line, for a first check of new kernels):
             max |flat + state|, cond(P) of the card's range sample in
             float64; the low-rank payload's bytes equal ``nbytes_static``
             (59,392).
-22. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
+23. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
             for llama-3.2-1b and for zamba2-1.2b.
-23. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+24. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
             llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
@@ -243,8 +264,8 @@ def ssd_flops(b: int, s: int, nh: int, hd: int, ds: int, chunk: int) -> int:
 PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
           "dequantize", "topk", "ssd", "rmsnorm_bwd", "flash_bwd", "ssd_bwd",
           "rollout", "rollout_hybrid", "local_step", "local_step_hybrid",
-          "round", "round_hybrid", "round_parity", "algorithms", "codecs",
-          "train", "serve")
+          "round", "round_hybrid", "round_parity", "algorithms", "executors",
+          "codecs", "train", "serve")
 TOPK_PASSES = 32               # bisection passes of one top-k selection
 
 
@@ -2495,12 +2516,19 @@ def run(torch, stop_after) -> int:
     # each over min(1, D), D the curvature of the MGDA problem at the
     # round's worst step (from the CPU steps' Gram matrices).  The zamba2
     # config runs the SSD kernels forward and backward (hd 64, ds 16).
-    def parity_rounds(cfg_p, algorithm="firm", up="int8+ef", n_rounds=3):
-        pb, pp, pnew, pc = 2, 8, 12, 2
+    def parity_rounds(cfg_p, algorithm="firm", up="int8+ef", n_rounds=3,
+                      vectorized=True, het_steps=None):
+        """n_rounds carried rounds on both sides; ``vectorized=False`` asks
+        for the loop executor, ``het_steps`` for heterogeneous
+        client_local_steps (cohorts), one entry a client."""
+        pb, pp, pnew = 2, 8, 12
+        pc, k_max = ((len(het_steps), max(het_steps)) if het_steps
+                     else (2, 1))
         fc_p = dataclasses.replace(FIRMConfig(), n_clients=pc, local_steps=1,
-                                   batch_size=pb, n_objectives=N_OBJ)
+                                   batch_size=pb, n_objectives=N_OBJ,
+                                   client_local_steps=het_steps)
         ec_p = EngineConfig(algorithm=algorithm, prompt_len=pp, max_new=pnew,
-                            uplink_codec=up)
+                            uplink_codec=up, vectorized_clients=vectorized)
         g_cpu = torch.Generator().manual_seed(19)
         p_cpu = transformer.init_params(cfg_p, generator=g_cpu,
                                         device="cpu", dtype=torch.float32)
@@ -2549,17 +2577,18 @@ def run(torch, stop_after) -> int:
         transformer.prefill = f32_prefill
         for r in range(n_rounds):
             draws = {
-                "prompts": torch.randint(0, cfg_p.vocab, (1, pc, pb, pp),
+                "prompts": torch.randint(0, cfg_p.vocab,
+                                         (k_max, pc, pb, pp),
                                          generator=g_cpu),
                 "gumbel": -torch.log(-torch.log(torch.rand(
-                    (1, pc, pnew, pb, cfg_p.vocab), generator=g_cpu).clamp(
-                        1e-12, 1 - 1e-7))),
+                    (k_max, pc, pnew, pb, cfg_p.vocab),
+                    generator=g_cpu).clamp(1e-12, 1 - 1e-7))),
                 "up_bits": torch.randint(-2 ** 31, 2 ** 31 - 1,
                                          (pc, rows, 1024), dtype=torch.int32,
                                          generator=g_cpu)}
             if exchange:
                 draws["grad_bits"] = torch.randint(
-                    -2 ** 31, 2 ** 31 - 1, (1, pc * N_OBJ, rows, 1024),
+                    -2 ** 31, 2 ** 31 - 1, (k_max, pc * N_OBJ, rows, 1024),
                     dtype=torch.int32, generator=g_cpu)
             before = {s: torch.cat([t.reshape(-1).cpu() for t in
                                     common.tree_leaves(tr.global_trainable)])
@@ -2574,7 +2603,11 @@ def run(torch, stop_after) -> int:
                                    common.tree_leaves(tr.global_trainable)])
                      for s, tr in sides.items()}
             curv = []
-            for g in grams["cpu"][-(1 if exchange else pc):]:
+            # the round's problems: one a step (fedcmoo's server) or one a
+            # client-step
+            n_solved = (k_max if exchange else
+                        sum(het_steps) if het_steps else pc)
+            for g in grams["cpu"][-n_solved:]:
                 q = g / (np.trace(g) / N_OBJ) + 0.5 * beta * np.eye(N_OBJ)
                 curv.append(q[0, 0] + q[1, 1] - 2 * q[0, 1])
             slack = 1 / min(1.0, float(min(curv))) if curv else 1.0
@@ -2598,7 +2631,8 @@ def run(torch, stop_after) -> int:
                 "seconds": sec,
                 "exact": all(got[k] == want[k] for k in (
                     "comm_bytes", "up_bytes", "down_bytes", "participants",
-                    "up_nbytes", "down_nbytes", "dispatches"))
+                    "up_nbytes", "down_nbytes", "dispatches", "cohorts",
+                    "local_steps"))
                 and bool(np.array_equal(got["rewards_per_client"],
                                         want["rewards_per_client"])),
                 "drift": of_scale(got["param_drift"], want["param_drift"]),
@@ -2660,8 +2694,29 @@ def run(torch, stop_after) -> int:
               "quantize"] == 2 and parity_algorithms["linear identity"][
               "card_launches"]["gram"] == 0,
           f"round_parity launches {parity_algorithms}")
+    # the loop executor and cohorts on the tiny llama, three carried rounds
+    # each: firm through the loop; fedcmoo through the loop executor with
+    # the int8 gradient uplink (its exchange phase: per round one quantize
+    # launch over the 2 clients x M gradient rows, and one for the delta);
+    # firm with client_local_steps=(1, 2, 1), two cohorts
+    parity_executors = {}
+    for label, algorithm, vec, steps_p in (
+            ("firm loop", "firm", False, None),
+            ("fedcmoo loop", "fedcmoo", False, None),
+            ("firm cohorts 1,2,1", "firm", True, (1, 2, 1))):
+        zero_counts()
+        parity_executors[label] = {
+            "rounds": parity_rounds(tiny_llama, algorithm, "int8+ef", 3,
+                                    vectorized=vec, het_steps=steps_p),
+            "card_launches": read_counts()}
+    x_launches = {k: v["card_launches"] for k, v in parity_executors.items()}
+    check(x_launches["firm loop"]["gram"] == 3 * 2
+          and x_launches["fedcmoo loop"]["gram"] == 3
+          and x_launches["fedcmoo loop"]["quantize"] == 3 * 2
+          and x_launches["firm cohorts 1,2,1"]["gram"] == 3 * 4,
+          f"round_parity executors' launches {x_launches}")
     emit(phase="round_parity", models=parity,
-         algorithms=parity_algorithms,
+         algorithms=parity_algorithms, executors=parity_executors,
          tolerance="exact bytes, participants, dispatches and rewards; "
          "drift 1e-4 of its scale; KL 1e-6 absolute; lambda 1e-4 and the "
          "steps over actor_lr 1e-2 of their scale, each over min(1, D); "
@@ -2853,7 +2908,130 @@ def run(torch, stop_after) -> int:
          "plain Gram's over min(1, D)")
     done("algorithms")
 
-    # -------------------------------------------------------------- 21. codecs
+    # ----------------------------------------------------------- 21. executors
+    # the front door at full width: plan(RunSpec) -> build(device="cuda",
+    # params=the rollout phase's reference weights) -> one round, wan
+    # preset, C = 2, for two plans: the loop executor
+    # (vectorized_clients=False, K = 1) and cohorts of heterogeneous K
+    # (client_local_steps=(1, 2): one cohort of K = 1, one of K = 2, so the
+    # first full-width firm round with K > 1).  plan() builds its tree on
+    # the meta device, so it allocates nothing on the card; the plan's
+    # bytes and dispatches are the round's.  The counts are zeroed just
+    # before each round and read just after: the round phase's launches
+    # a client-step, and one quantize and one dequantize.
+    from repro_torch.fed import api
+    wan_up, wan_down = CODEC_PRESETS["wan"]
+    fc_x = dataclasses.replace(fc, n_clients=N_CLIENTS, local_steps=1,
+                               rounds=1)
+    ec_x = dict(prompt_len=P, max_new=MAX_NEW, uplink_codec=wan_up,
+                downlink_codec=wan_down)
+    executor_cases = {
+        "loop": (api.RunSpec(cfg, fc_x, EngineConfig(
+            vectorized_clients=False, **ec_x)),
+            dict(executor="loop", local_mode="loop", cohorts=[],
+                 dispatches_per_round=10.0), "_local_phase_loop", 0),
+        "cohort": (api.RunSpec(cfg, dataclasses.replace(
+            fc_x, client_local_steps=(1, 2)), EngineConfig(**ec_x)),
+            dict(executor="vectorized", local_mode="cohort",
+                 cohorts=[[1, 1], [1, 2]], dispatches_per_round=10.0),
+            "_local_phase_cohorts", 2)}
+    names_x = {"_broadcast": "downlink", "_delta_flat": "delta",
+               "_uplink": "uplink_codec", "_aggregate_flat": "aggregate",
+               "_summary_stats": "summary"}
+    wan_client_step_s = [s_ / N_CLIENTS
+                         for s_ in wan_record["seconds_per_round"]]
+    executors = {}
+    for mode_x, (spec_x, want_plan, phase_fn, want_cohorts) in \
+            executor_cases.items():
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        api.trainable_size.cache_clear()
+        plan_x, plan_s = wall(lambda: api.plan(spec_x))
+        mem1 = torch.cuda.memory_allocated()
+        summ_x = plan_x.summary()
+        check(mem1 == mem0, f"plan() allocated {mem1 - mem0} bytes on the "
+              "card")
+        check(plan_x.d_trainable == d_lora == 3_407_872
+              and all(summ_x[k] == v for k, v in want_plan.items())
+              and summ_x["up_bytes_per_round"] == 6_842_368
+              and summ_x["down_bytes_per_round"] == 27_262_976,
+              f"{mode_x} plan {summ_x}")
+        tr_x = plan_x.build(device="cuda", params=ref_params)
+        check(tr_x.plan is plan_x, "the trainer keeps the plan it was built "
+              "from")
+        part_s = {}
+
+        def timed_part(name, fn, label):
+            def run_part(*a, **kw):
+                out, sec = wall(lambda: fn(*a, **kw))
+                part_s[label] = part_s.get(label, 0.0) + sec
+                return out
+            return run_part
+        for name, label in {**names_x, phase_fn: "local_phase"}.items():
+            setattr(tr_x, name, timed_part(name, getattr(tr_x, name),
+                                           label))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        summary, sec = wall(tr_x.run_round)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps_x = [tr_x._client_fcs[c].local_steps
+                   for c in range(N_CLIENTS)]
+        client_steps = sum(steps_x)
+        want = {name: client_steps * n // k_steps
+                for name, n in want_local.items()}
+        want.update(quantize=1, dequantize=1)
+        check(launches == want, f"{mode_x} launch counts {launches}, "
+              f"expected {want}")
+        check(summary["comm_bytes"] == 34_105_344
+              == plan_x.up_bytes_per_round + plan_x.down_bytes_per_round
+              and summary["dispatches"] == plan_x.dispatches_per_round
+              and summary["cohorts"] == want_cohorts
+              and summary["local_steps"] == steps_x
+              and summary["participants"] == list(range(N_CLIENTS)),
+              f"{mode_x} bookkeeping {summary}")
+        lam_pc = summary["per_client_lam"]
+        check(lam_pc.shape == (N_CLIENTS, N_OBJ) and (lam_pc >= 0).all()
+              and abs(lam_pc.sum(-1) - 1).max() < 1e-5,
+              f"{mode_x} lambda on the simplex: {lam_pc.tolist()}")
+        check(summary["param_drift"] > 0 and math.isfinite(summary["kl"]),
+              f"{mode_x} drift {summary['param_drift']}")
+        # each client made its own K steps: the step counters and the
+        # prompt streams
+        check([int(tr_x.client_states[c].step) for c in range(N_CLIENTS)]
+              == steps_x == [ds.count for ds in tr_x.datasets],
+              f"{mode_x} client steps {steps_x}")
+        check(all(bool(t.isfinite().all()) for t in
+                  common.tree_leaves(tr_x.global_trainable))
+              and any(bool((a != b).any()) for a, b in zip(
+                  common.tree_leaves(tr_x.global_trainable),
+                  common.tree_leaves(train0))),
+              f"{mode_x} global adapters finite and moved")
+        executors[mode_x] = dict(
+            model=cfg.name, preset="wan", clients=N_CLIENTS,
+            client_local_steps=steps_x, batch=B, prompt_len=P,
+            max_new=MAX_NEW, plan=summ_x, plan_seconds=plan_s,
+            plan_allocated_bytes=mem1 - mem0, seconds_per_round=sec,
+            breakdown_s=part_s,
+            seconds_per_client_step=sec / client_steps,
+            wan_round_seconds_per_client_step=wan_client_step_s,
+            client_step_vs_wan=[sec / client_steps / w_
+                                for w_ in wan_client_step_s],
+            launches=launches, peak_memory_bytes=peak,
+            wan_round_peak_memory_bytes=wan_record["peak_memory_bytes"],
+            comm_bytes=summary["comm_bytes"],
+            dispatches=summary["dispatches"], cohorts=summary["cohorts"],
+            param_drift=summary["param_drift"],
+            per_client_lam=lam_pc.tolist(), kl=summary["kl"],
+            rewards=summary["rewards"].tolist())
+        del tr_x
+    emit(phase="executors", **executors,
+         tolerance="exact bytes, dispatches, cohorts and launches; "
+         "plan() allocates nothing on the card")
+    done("executors")
+
+    # -------------------------------------------------------------- 22. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -2956,7 +3134,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # --------------------------------------------------------------- 22. train
+    # --------------------------------------------------------------- 23. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -2987,7 +3165,7 @@ def run(torch, stop_after) -> int:
          zamba2={"seconds": z_train_s, "report": z_report.getvalue()})
     done("train")
 
-    # --------------------------------------------------------------- 23. serve
+    # --------------------------------------------------------------- 24. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(

@@ -85,6 +85,10 @@ class Codec:
     """Base codec: subclasses implement the flat-vector transform."""
 
     name = "codec"
+    # what the reference's Codec declares for every codec: the planner's
+    # ``resolve_fused`` reads it (the traced contract itself, which only
+    # the fused executor runs, is not ported yet)
+    traceable = True
 
     # -- flat-vector transform (override) -------------------------------
     def encode_flat(self, flat: torch.Tensor, *, key=None, bits=None):

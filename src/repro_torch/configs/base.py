@@ -183,6 +183,36 @@ class FIRMConfig:
     solver_iters: int = 100
 
 
+@dataclasses.dataclass(frozen=True)
+class SchedConfig:
+    """Scheduler knobs (the reference's ``repro.fed.sched``), field for
+    field.  The port's scheduler is not there yet: only the planner reads
+    this, for the policy name.
+
+    ``policy`` selects the aggregation discipline; ``profile`` names a
+    heterogeneity preset.  The deadline policy over-selects by
+    ``overselect`` and drops participants whose predicted round time
+    exceeds the deadline (absolute seconds, or the ``deadline_quantile``
+    of the selected cohort's predicted times when set).  The fedbuff
+    policy aggregates every ``buffer_size`` arrivals with staleness
+    weights w ~ (1+s)^-staleness_pow and scales FIRM's beta by the
+    client's observed staleness bucket.
+    """
+    policy: str = "sync"             # sync | deadline | fedbuff
+    profile: str = "homogeneous"     # profiles preset name
+    profile_seed: int = 0
+    # deadline policy
+    overselect: float = 1.0          # select overselect * (p * C) clients
+    deadline_s: float = float("inf")
+    deadline_quantile: Optional[float] = None
+    # fedbuff policy
+    buffer_size: int = 0             # aggregate every B arrivals; 0 -> C
+    staleness_pow: float = 0.5
+    staleness_beta_gain: float = 0.0
+    staleness_beta_cap: float = 8.0
+    staleness_bucket_max: int = 3    # beta buckets bound retraces
+
+
 # Deployment-profile codec presets (``repro_torch.comms`` registry specs):
 # the (uplink, downlink) pairs of ``repro.configs.base.CODEC_PRESETS``.
 # Uplink is the scarce direction for cross-device FL, hence the asymmetry.

@@ -7,9 +7,11 @@ is an ``Algorithm`` object that owns:
 
 * its **local-step machinery**: ``step``, one client's local update (the
   counterpart of the reference's ``traced_step``, which its vectorized
-  round vmaps), and, for an algorithm whose server exchange runs between
-  the clients' steps, the whole local phase (``exchange_phase``, the
-  counterpart of ``exchange_phase_vectorized``);
+  round vmaps); for an algorithm whose server exchange runs between the
+  clients' steps, the whole local phase (``exchange_phase``, the
+  counterpart of ``exchange_phase_vectorized``); and the loop executor's
+  local phase (``loop_phase``, with ``loop_dispatches_per_client_step``
+  for the planner's cost model);
 * its **config resolution**: ``resolve_config`` (firm_unreg pins beta =
   0), ``validate`` (fedcmoo rejects per-client local-step counts) and the
   per-client expansion ``client_configs``;
@@ -20,8 +22,9 @@ Capabilities, as the reference declares them:
 
 ``vmap_safe``
     The local step can run over a stacked client axis.  The port runs
-    the clients one after another and reads none of it yet; the planner
-    and the fused executor will.
+    the clients one after another either way; the planner
+    (``fed.api.resolve_local_mode``) reads it, and False sends the round
+    to the loop executor.
 ``traced_server_exchange``
     The algorithm exchanges nothing with the server during the local
     phase (firm, linear), so each client runs its K ``step``s alone.
@@ -35,8 +38,18 @@ Capabilities, as the reference declares them:
     ``traced_server_exchange`` and ``vmap_safe``, which
     ``register_algorithm`` checks.
 
-The loop executor's hooks (``local_step_fn``, ``loop_phase``) are not
-ported yet.
+The loop executor (``EngineConfig.vectorized_clients=False``, or an
+algorithm that is not ``vmap_safe``) runs ``loop_phase`` for a
+client-local algorithm: each client-step in the canonical step-major
+order (``_step_major``), each under the client's own entry of
+``client_configs`` (its preference static, not lifted), through the same
+``client_local_steps`` and ``step`` as the vectorized phase.  FedCMOO has
+no loop phase of its own: the loop runs its ``exchange_phase``, whose
+stacked gradient roundtrip gives the rows, draws and bytes of the
+reference's loop, which sends each gradient alone.  The reference's
+``local_step_fn`` (a jitted step bound to a client's config) has no
+counterpart: ``client_local_steps`` takes the client's config and the
+algorithm, which binds ``step`` to it.
 """
 from __future__ import annotations
 
@@ -85,6 +98,9 @@ class Algorithm:
     name: str = "algorithm"
     kernel: str = "algorithm"
     caps: Capabilities = Capabilities()
+    # the planner's cost model: the reference's jitted dispatches a
+    # client-step on the loop executor
+    loop_dispatches_per_client_step: int = 3
 
     # ---- config resolution -------------------------------------------
     def validate(self, fc: FIRMConfig, ec) -> None:
@@ -116,6 +132,23 @@ class Algorithm:
         rewards_mean (M,), kl_mean, rewards_pc (P, M), final states)."""
         raise NotImplementedError(self.name)
 
+    def loop_phase(self, trainer, participants: List[int], states: list, *,
+                   prompts=None, gumbel=None) -> List[dict]:
+        """The loop executor's local phase of a client-local algorithm:
+        every client-step in step-major order (``_step_major``), one
+        ``step`` each under the client's own config
+        (``trainer._loop_step``).  ``states`` (one per participant) are
+        replaced in place; returns one metric dict a client-step, each with
+        ``client``, ``lam``, ``rewards`` and ``kl``.  ``prompts`` and
+        ``gumbel`` are the injected draws of ``run_round``."""
+        metrics = []
+        for k, ci, c in _step_major(trainer, participants):
+            states[ci], m = trainer._loop_step(c, ci, k, states[ci],
+                                               prompts, gumbel)
+            m["client"] = c
+            metrics.append(m)
+        return metrics
+
     # ---- cost model ----------------------------------------------------
     def vec_phase_dispatches(self, k_steps: int) -> int:
         """The reference's dispatches inside one vectorized local phase
@@ -131,12 +164,25 @@ class Algorithm:
         return f"<Algorithm {self.name} caps={self.caps}>"
 
 
+def _step_major(trainer, participants: List[int]):
+    """The canonical loop order, as (k, index in participants, client):
+    step-major over the participants, each with its own K (clients of a
+    smaller ``client_local_steps`` entry finish early and are skipped).
+    The cohort phase draws its generation keys in this order too."""
+    steps = [trainer._client_fcs[c].local_steps for c in participants]
+    for k in range(max(steps)):
+        for ci, c in enumerate(participants):
+            if k < steps[ci]:
+                yield k, ci, c
+
+
 class FIRMAlgorithm(Algorithm):
     """Paper Alg. 1: in-client regularized MGDA (client-local)."""
 
     name = "firm"
     kernel = "firm"
     caps = Capabilities()
+    loop_dispatches_per_client_step = 3     # generate, ref logprobs, step
 
     def step(self, cfg, cfc, state, frozen, batch, pref, extra):
         return local_lib.firm_local_step(cfg, cfc, state, frozen, batch,
@@ -160,6 +206,7 @@ class LinearAlgorithm(Algorithm):
     name = "linear"
     kernel = "linear"
     caps = Capabilities()
+    loop_dispatches_per_client_step = 2     # generate, ref logprobs
 
     def step(self, cfg, cfc, state, frozen, batch, pref, extra):
         return local_lib.linear_local_step(cfg, cfc, state, frozen, batch,
@@ -185,6 +232,7 @@ class FedCMOOAlgorithm(Algorithm):
     kernel = "fedcmoo"
     caps = Capabilities(vmap_safe=True, traced_server_exchange=False,
                         single_cohort_required=True, fusable=False)
+    loop_dispatches_per_client_step = 2     # generate, ref logprobs
 
     def validate(self, fc, ec):
         if fc.client_local_steps is not None:

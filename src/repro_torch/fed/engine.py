@@ -9,30 +9,44 @@ the zamba2 hybrid, whose training differentiates the Mamba2 layers through
 the SSD backward kernel.
 ``client_local_steps`` runs K local steps of one client, each a rollout
 then the algorithm's ``step`` (FIRM's by default): ``one_client`` and the
-scan ``body`` of ``_make_round_fn`` for a single client.
+scan ``body`` of ``_make_round_fn`` for a single client.  Every mode of
+the round below runs its steps through it.
 
-``FederatedTrainer`` runs the federated round, ``run_round``, with the
-semantics of the reference's vectorized executor, for every algorithm of
-the registry (``fed.algorithms``: ``firm``, ``firm_unreg``, ``linear``,
-``fedcmoo``).  The trainer dispatches on the algorithm's capabilities,
-never on its name: the broadcast through the downlink codec, then either
-K ``step``s per participant (all starting from the decoded broadcast) or,
-for an algorithm with a server exchange between steps, its
-``exchange_phase`` (fedcmoo: the M gradients of every participant through
-the gradient codec in one stacked roundtrip and one server lambda solve a
-step); then the stacked flat delta, ONE stacked uplink roundtrip (one
-quantize and one dequantize launch over all clients for ``int8``/``int4``,
-with error feedback; one batched 32-pass bisection for ``topk``), FedAvg,
-the drift statistics, the comms ledger and the round summary.  The
-clients run one after another in a Python loop: the kernels'
+``FederatedTrainer`` runs the federated round, ``run_round``, for every
+algorithm of the registry (``fed.algorithms``: ``firm``, ``firm_unreg``,
+``linear``, ``fedcmoo``), on the path the plan (``fed.api``) resolves from
+the algorithm's capabilities, never from its name.  Every round: the
+broadcast through the downlink codec; the local phase, in one of the
+reference's three modes:
+
+* ``vec`` (the vectorized executor, one cohort): K ``step``s per
+  participant, all from the decoded broadcast, or, for an algorithm with
+  a server exchange between steps, its ``exchange_phase`` (fedcmoo: the M
+  gradients of every participant through the gradient codec in one
+  stacked roundtrip and one server lambda solve a step);
+* ``cohort`` (heterogeneous ``client_local_steps``): the generation keys
+  and prompt blocks drawn once in the canonical loop order (step-major,
+  skipping clients whose K is used up), then each static-config cohort's
+  ``vec`` phase on its slice of them, the rows put back in participant
+  order and the scalar metrics merged weighted by n_g K_g;
+* ``loop`` (the loop executor, ``EngineConfig.vectorized_clients=False``):
+  the algorithm's ``loop_phase``, each client-step under the client's own
+  config, the metrics reduced as the reference's loop reduces them (flat
+  means over the client-steps, each client's last lambda); an algorithm
+  with a server exchange runs its ``exchange_phase``, as in ``vec``;
+
+then the stacked flat delta, ONE stacked uplink roundtrip (one quantize
+and one dequantize launch over all clients for ``int8``/``int4``, with
+error feedback; one batched 32-pass bisection for ``topk``), FedAvg, the
+drift statistics, the comms ledger and the round summary, whose
+``dispatches`` and ``cohorts`` are the reference's for the mode taken.
+The clients run one after another in every mode: the kernels'
 ``autograd.Function``s have no vmap rule, and one client's update already
-peaks at ~17 GB at full width.  The reference's loop executor, cohorts of
-heterogeneous ``client_local_steps``, the planner, the fused multi-round
-executor and the scheduler are not ported yet.
+peaks at ~17 GB at full width.  The fused multi-round executor and the
+scheduler are planned but not ported: a fused plan's ``run()`` raises.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
@@ -43,10 +57,11 @@ from repro_torch.comms import codec as codec_lib
 from repro_torch.comms import make_codec
 from repro_torch.configs.base import FIRMConfig, ModelConfig
 from repro_torch.core import comms, drift, fedavg
-from repro_torch.data.partition import (make_client_datasets,
-                                        sample_prompt_block)
+from repro_torch.data.partition import make_client_datasets
 from repro_torch.data.prompts import PromptDataset
 from repro_torch.fed import algorithms as algorithms_lib
+from repro_torch.fed import api as api_lib
+from repro_torch.fed.api import EngineConfig  # noqa: F401  (its home is api)
 from repro_torch.models import transformer
 from repro_torch.models.common import merge_trainable, split_trainable
 from repro_torch.obs.records import round_summary
@@ -122,34 +137,6 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
     return state, {key: torch.stack(vals) for key, vals in kept.items()}
 
 
-@dataclasses.dataclass
-class EngineConfig:
-    """Engine knobs orthogonal to the FIRM hyperparameters: the fields of
-    the reference's ``EngineConfig`` that the port runs (the loop and
-    fused executors and the metric sinks are not ported yet).
-    ``algorithm`` names an entry of the registry (``fed.algorithms``)."""
-    algorithm: str = "firm"
-    prompt_len: int = 8
-    max_new: int = 24
-    dirichlet_alpha: float = 0.3
-    seed: int = 0
-    heterogeneous_rms: bool = False      # half the clients use the alt RM
-    fedcmoo_compress_rank: Optional[int] = None   # fedcmoo sketch rank
-    linear_weights: Optional[Sequence[float]] = None  # linear scalarization
-    # comms codecs (repro_torch.comms registry specs, e.g. "int8+ef")
-    uplink_codec: str = "identity"       # client -> server deltas
-    downlink_codec: str = "identity"     # server -> client broadcast
-
-
-# The reference's vectorized executor makes five jitted dispatches a round
-# around its local phase (stack the states, unstack, the delta, the
-# aggregate, the summary), and the algorithm's ``vec_phase_dispatches``
-# inside it.  The port runs the same stages eagerly and reports the
-# reference's count in the round summary, which its readers compare
-# across executors; it measures no work of the port.
-ROUND_DISPATCHES_OUTSIDE_PHASE = 5
-
-
 class LocalPhaseResult(NamedTuple):
     """What the local phase hands back to the round."""
     lams: torch.Tensor               # (P, M) final per-client lambda
@@ -166,15 +153,19 @@ class FederatedTrainer:
     Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``).
     ``params`` is an optional initial model tree (e.g. a JAX model carried
     over by ``bridge.to_torch``); without it the weights are drawn from
-    ``ec.seed``.  Randomness comes from one main stream, read at the
-    reference's key points in its order: one draw for the downlink, then
-    the local phase's (for a client-local algorithm K x P generation draws
-    step-major over the participants; for fedcmoo, per step, one
-    generation and M gradient-codec draws a participant and one lambda
-    draw), then P uplink draws; each draw seeds a generator on the
-    device.  Participants come
-    from a stream keyed on (seed, round) alone.  ``run_round`` also takes
-    each draw injected, so that a test can hand the port JAX's.
+    ``ec.seed``.  ``plan`` is the ``fed.api.ExecutionPlan`` the trainer
+    runs (``ExecutionPlan.build`` passes it); without it the trainer plans
+    its own spec, and keeps the plan as ``self.plan`` either way.
+
+    Randomness comes from one main stream, read at the reference's key
+    points in its order: one draw for the downlink, then the local phase's
+    (for a client-local algorithm one generation draw a client-step,
+    step-major over the participants, skipping clients whose K is used up;
+    for fedcmoo, per step, one generation and M gradient-codec draws a
+    participant and one lambda draw), then P uplink draws; each draw seeds
+    a generator on the device.  Participants come from a stream keyed on
+    (seed, round) alone.  ``run_round`` also takes each draw injected, so
+    that a test can hand the port JAX's.
 
     Participants.  With ``participation < 1`` each round draws
     ``round(participation * C)`` clients from that stream.  Like every
@@ -189,17 +180,16 @@ class FederatedTrainer:
 
     def __init__(self, cfg: ModelConfig, fc: FIRMConfig,
                  ec: Optional[EngineConfig] = None, *, params=None,
-                 device=None):
+                 device=None, plan: Optional[api_lib.ExecutionPlan] = None):
         ec = EngineConfig() if ec is None else ec
         # the algorithm owns the local step and the capabilities every
         # path decision reads; (fc, ec) is checked before any work
         self.algorithm = algorithms_lib.get_algorithm(ec.algorithm)
         self.algorithm.validate(fc, ec)
-        if fc.client_local_steps is not None and \
-                len(set(fc.client_local_steps)) > 1:
+        if ec.metrics_sink is not None:
             raise NotImplementedError(
-                "heterogeneous client_local_steps (several cohorts) are not "
-                "ported yet")
+                f"EngineConfig.metrics_sink={ec.metrics_sink!r}: the metric "
+                "sinks are not ported yet: ROADMAP Queue 1 item 5")
         self.cfg, self.fc, self.ec = cfg, fc, ec
         self.device = device_lib.resolve(device)
         gen = torch.Generator(device=self.device).manual_seed(ec.seed)
@@ -241,6 +231,11 @@ class FederatedTrainer:
             torch.tensor(fc.client_preferences, dtype=torch.float32,
                          device=self.device)
             if fc.client_preferences is not None else None)
+        # the declarative mirror of this trainer's path decisions, built
+        # through the capability resolution the methods below use
+        self.plan = plan if plan is not None else api_lib.plan(
+            api_lib.RunSpec(model=cfg, firm=fc, engine=ec),
+            d_trainable=self.d_trainable)
 
     # ------------------------------------------------------------------
     def _next_key(self) -> torch.Generator:
@@ -263,6 +258,16 @@ class FederatedTrainer:
         return sorted(int(i) for i in torch.randperm(fc.n_clients,
                                                      generator=g)[:n])
 
+    def _local_phase_mode(self, participants: List[int]):
+        """The round's local-phase path, ("vec" | "cohort" | "loop", cohort
+        plan or None): capability resolution alone, shared with the
+        planner (``api.resolve_local_mode``)."""
+        mode, plan, _ = api_lib.resolve_local_mode(
+            self.algorithm, self._client_fcs, participants,
+            vectorized_clients=self.ec.vectorized_clients,
+            lift_preference=self._stacked_pref is not None)
+        return mode, plan
+
     # ------------------------------------------------------------------
     def _broadcast(self, bits=None):
         """theta_t through the downlink codec: (payload, decoded tree)."""
@@ -284,23 +289,24 @@ class FederatedTrainer:
             length_tol=self._length_tol, generator=generator, gumbel=gumbel)
 
     def _local_phase(self, participants: List[int], broadcast, prompts=None,
-                     gumbel=None, grad_bits=None,
-                     sketch_noise=None) -> LocalPhaseResult:
-        """K local steps of every participant, all from the broadcast.
+                     gumbel=None, grad_bits=None, sketch_noise=None, *,
+                     cfc: FIRMConfig, drawn=None) -> LocalPhaseResult:
+        """One cohort's local phase (the ``vec`` mode): K local steps of
+        every participant, all from the broadcast.
 
-        The participants share one config (one cohort): their entry of
-        ``client_configs``, with the per-client preference lifted out.  An
-        algorithm that exchanges nothing with the server between steps
+        The participants share ``cfc``, the cohort's config (its
+        per-client preference lifted out).  An algorithm that exchanges
+        nothing with the server between steps
         (``caps.traced_server_exchange``) runs each client's K steps
         alone: client c's step k takes the k-th prompt block and the
         generation draw [k][c], and the per-step metrics are kept as (K,
         P, ...) and reduced one axis at a time, as the reference's are.
         Any other hands the phase to ``algorithm.exchange_phase``.
+        ``drawn`` is the (prompt blocks (K, P, B, prompt_len), generation
+        keys [K][P]) pair the cohort mode drew for this cohort; without it
+        both are drawn here.
         """
         has_pref = self._stacked_pref is not None
-        cfc = self._client_fcs[participants[0]]
-        if has_pref:
-            cfc = dataclasses.replace(cfc, preference=None)
         k_steps = cfc.local_steps
         # every participant adopts the decoded broadcast (the adapters are
         # never updated in place, so the anchor survives for the delta)
@@ -313,9 +319,12 @@ class FederatedTrainer:
                     self, cfc, participants, states, prompts, gumbel=gumbel,
                     grad_bits=grad_bits, sketch_noise=sketch_noise)
         else:
-            gen_keys = [[self._next_key() for _ in participants]
-                        for _ in range(k_steps)]
-            prompts = self._prompt_blocks(participants, k_steps, prompts)
+            if drawn is None:
+                gen_keys = [[self._next_key() for _ in participants]
+                            for _ in range(k_steps)]
+                prompts = self._prompt_blocks(participants, k_steps, prompts)
+            else:
+                prompts, gen_keys = drawn
             extra = self.algorithm.traced_extra(cfc, self.ec,
                                                 device=self.device)
             kept = []
@@ -342,19 +351,126 @@ class FederatedTrainer:
             lams, rewards_mean, kl_mean,
             fedavg.stack_trees([s.trainable for s in states]), rewards_pc)
 
+    def _local_phase_cohorts(self, plan, participants: List[int], broadcast,
+                             prompts=None, gumbel=None) -> LocalPhaseResult:
+        """The ``cohort`` mode: one ``_local_phase`` a static-config cohort.
+
+        The generation keys and prompt blocks are drawn once, in the
+        canonical loop order (step-major over all participants, skipping
+        clients whose K is used up), before any cohort runs, and each
+        cohort gets its slice; so a multi-cohort round reads every stream
+        as the loop executor does.  The rows go back in participant order,
+        and the scalar metrics merge weighted by each cohort's client-step
+        count n_g K_g.  Injected ``prompts`` and ``gumbel`` are padded to
+        the largest K: entry [k, i] is read iff k < K of participant i.
+        """
+        pos = {c: i for i, c in enumerate(participants)}
+        keys, blocks = {}, {}
+        for k, ci, c in algorithms_lib._step_major(self, participants):
+            keys[c, k] = self._next_key()
+            blocks[c, k] = self._step_prompts(c, ci, k, prompts)
+        lams = [None] * len(participants)
+        rewards_pc = [None] * len(participants)
+        rew_acc, kl_acc, w_tot = 0.0, 0.0, 0
+        for co in plan:
+            members, ks = list(co.members), range(co.cfc.local_steps)
+            idx = [pos[c] for c in members]
+            res = self._local_phase(
+                members, broadcast, cfc=co.cfc,
+                gumbel=None if gumbel is None else gumbel[:len(ks)][:, idx],
+                drawn=(torch.stack([torch.stack([blocks[c, k]
+                                                 for c in members])
+                                    for k in ks]),
+                       [[keys[c, k] for c in members] for k in ks]))
+            for i, p in enumerate(idx):
+                lams[p], rewards_pc[p] = res.lams[i], res.rewards_pc[i]
+            w = len(members) * len(ks)
+            rew_acc = rew_acc + w * res.rewards_mean
+            kl_acc = kl_acc + w * res.kl_mean
+            w_tot += w
+        return LocalPhaseResult(
+            torch.stack(lams), rew_acc / w_tot, kl_acc / w_tot,
+            fedavg.stack_trees([self.client_states[c].trainable
+                                for c in participants]),
+            torch.stack(rewards_pc))
+
+    def _local_phase_loop(self, participants: List[int], broadcast,
+                          prompts=None, gumbel=None, grad_bits=None,
+                          sketch_noise=None) -> LocalPhaseResult:
+        """The ``loop`` mode (the loop executor): the algorithm's
+        ``loop_phase`` from the broadcast, its metrics reduced as the
+        reference's loop reduces them: each participant's lambda from its
+        last client-step, ``rewards`` and ``kl`` flat means over all the
+        client-steps at once, the per-client rewards a mean over each
+        client's own steps.  Injected draws as in ``_local_phase_cohorts``
+        (padded to the largest K).
+
+        An algorithm with a server exchange between steps runs its
+        ``exchange_phase``, as in the ``vec`` mode: its K steps are lock
+        step and homogeneous, and its reductions are already the loop's
+        (flat over the client-steps, one global lambda a row).  Sending
+        each gradient through the codec on its own, as the reference's
+        loop does, gives the same rows, draws and bytes."""
+        if not self.algorithm.caps.traced_server_exchange:
+            return self._local_phase(
+                participants, broadcast, prompts, gumbel, grad_bits,
+                sketch_noise, cfc=self.algorithm.resolve_config(self.fc))
+        states = [self.client_states[c]._replace(trainable=broadcast)
+                  for c in participants]
+        entries = self.algorithm.loop_phase(self, participants, states,
+                                            prompts=prompts, gumbel=gumbel)
+        for ci, c in enumerate(participants):
+            self.client_states[c] = states[ci]
+        last_lam = {m["client"]: m["lam"] for m in entries}
+        rewards_pc = torch.stack([
+            torch.stack([m["rewards"] for m in entries
+                         if m["client"] == c]).mean(0) for c in participants])
+        return LocalPhaseResult(
+            torch.stack([last_lam[c] for c in participants]),
+            torch.stack([m["rewards"] for m in entries]).mean(0),
+            torch.stack([m["kl"] for m in entries]).mean(),
+            fedavg.stack_trees([s.trainable for s in states]), rewards_pc)
+
+    def _step_prompts(self, c: int, ci: int, k: int, prompts=None):
+        """Client ``c``'s (B, prompt_len) prompt block of step ``k``: drawn
+        from its stream, or entry [k, ci] of the injected ``prompts``, in
+        which case the stream's count still advances."""
+        ds = self.datasets[c]
+        if prompts is None:
+            return ds.next_batch(self.fc.batch_size)
+        ds.count += 1
+        return prompts[k, ci]
+
+    def _loop_step(self, c: int, ci: int, k: int, state, prompts=None,
+                   gumbel=None):
+        """One client-step of the loop executor: client ``c`` (participant
+        ``ci``) at step ``k``, under its own config, through
+        ``client_local_steps`` with one step.  Reads one generation draw;
+        returns (new state, the step's lam, rewards and kl)."""
+        cfc = self._client_fcs[c]
+        gen = self._next_key()
+        state, m = client_local_steps(
+            self.cfg, cfc, state, self.frozen, self.ref_params,
+            *self._bands[c], k_steps=1, max_new=self.ec.max_new,
+            length_tol=self._length_tol,
+            prompts=self._step_prompts(c, ci, k, prompts)[None],
+            generators=None if gumbel is not None else [gen],
+            gumbel=None if gumbel is None else gumbel[k, ci][None],
+            algorithm=self.algorithm,
+            extra=self.algorithm.traced_extra(cfc, self.ec,
+                                              device=self.device))
+        return state, {key: v[0] for key, v in m.items()}
+
     def _prompt_blocks(self, participants: List[int], k_steps: int,
                        prompts=None) -> torch.Tensor:
-        """The (K, P, B, prompt_len) prompt blocks of the local phase: drawn
-        from each participant's stream, or injected as ``prompts``, in
-        which case the streams' counts still advance by K."""
-        part_ds = [self.datasets[c] for c in participants]
-        if prompts is None:
-            return torch.stack([sample_prompt_block(part_ds,
-                                                    self.fc.batch_size)
-                                for _ in range(k_steps)])
-        for ds in part_ds:
-            ds.count += k_steps
-        return prompts
+        """The (K, P, B, prompt_len) prompt blocks of the local phase, step
+        by step (``_step_prompts``): drawn from each participant's stream,
+        or injected as ``prompts``, in which case the streams' counts
+        still advance by K."""
+        return torch.stack([
+            torch.stack([self._step_prompts(c, ci, k, prompts)
+                         for ci, c in enumerate(participants)])
+            for k in range(k_steps)])
 
     def _delta_flat(self, stacked, anchor) -> torch.Tensor:
         """All P client deltas against the anchor -> (P, d) f32 rows in
@@ -401,6 +517,18 @@ class FederatedTrainer:
         }
         return {k: v.detach().cpu().numpy() for k, v in stats.items()}
 
+    def _round_dispatches(self, mode: str, plan,
+                          participants: List[int]) -> int:
+        """The reference engine's jitted dispatches in a round of this mode,
+        which its summary reports and its readers compare across
+        executors: the planner's count (``api._dispatch_estimate``) on
+        this round's participants.  The port runs the same stages eagerly;
+        the count measures no work of the port."""
+        return int(round(api_lib._dispatch_estimate(
+            self.algorithm, "loop" if mode == "loop" else "vectorized",
+            mode, plan, [self._client_fcs[c] for c in participants],
+            len(participants), 1)))
+
     def run_round(self, participants: Optional[List[int]] = None, *,
                   prompts=None, gumbel=None, up_bits=None,
                   down_bits=None, grad_bits=None,
@@ -414,17 +542,30 @@ class FederatedTrainer:
         omega (b, rank) f32; top-k reads none.  For fedcmoo also the
         gradient uplink's draws, ``grad_bits`` (K, P * M, ...) in the rows'
         client-major order, and the sketch's normal draws,
-        ``sketch_noise`` (K, d, q).  The main stream is read all the same
-        (P uplink draws whatever the codec), so later rounds' draws stay
-        where the reference's are.
+        ``sketch_noise`` (K, d, q).  With heterogeneous
+        ``client_local_steps``, K is the largest and ``prompts`` and
+        ``gumbel`` are padded to it: entry [k, i] is read iff k is below
+        participant i's K, so the entries read are those of the step-major
+        order.  The main stream is read all the same (P uplink draws
+        whatever the codec), so later rounds' draws stay where the
+        reference's are.
         """
         if participants is None:
             participants = self._sample_participants()
         dl_payload, broadcast = self._broadcast(down_bits)
         for _ in participants:
             self.ledger.send_down(dl_payload)
-        res = self._local_phase(participants, broadcast, prompts, gumbel,
-                                grad_bits, sketch_noise)
+        mode, plan = self._local_phase_mode(participants)
+        if mode == "vec":
+            res = self._local_phase(participants, broadcast, prompts, gumbel,
+                                    grad_bits, sketch_noise,
+                                    cfc=plan[0].cfc)
+        elif mode == "cohort":
+            res = self._local_phase_cohorts(plan, participants, broadcast,
+                                            prompts, gumbel)
+        else:
+            res = self._local_phase_loop(participants, broadcast, prompts,
+                                         gumbel, grad_bits, sketch_noise)
         flat_deltas = self._delta_flat(res.stacked_trainable, broadcast)
         payloads, decoded = self._uplink(participants, flat_deltas, up_bits)
         self.global_trainable = self._aggregate_flat(
@@ -437,14 +578,12 @@ class FederatedTrainer:
             up_bytes=self.ledger.up_bytes,
             down_bytes=self.ledger.down_bytes,
             participants=participants,
-            dispatches=ROUND_DISPATCHES_OUTSIDE_PHASE
-            + self.algorithm.vec_phase_dispatches(
-                self._client_fcs[participants[0]].local_steps),
+            dispatches=self._round_dispatches(mode, plan, participants),
             up_nbytes=[int(p.nbytes) for p in payloads],
             down_nbytes=comms.measured_bytes(dl_payload),
             local_steps=[self._client_fcs[c].local_steps
                          for c in participants],
-            cohorts=1)
+            cohorts=len(plan) if plan is not None else 0)
         self.history.append(summary)
         return summary
 
@@ -455,8 +594,15 @@ class FederatedTrainer:
 
         ``participants``, if given, is a schedule of one list of client
         indices a round, each handed to ``run_round``; without it every
-        round draws its own.
+        round draws its own.  A plan whose executor is ``fused`` raises:
+        the fused executor is not ported, and its rounds are not run one
+        by one in its place.
         """
+        if self.plan.executor == "fused":
+            raise NotImplementedError(
+                f"the plan's executor is 'fused' (fused_rounds="
+                f"{self.ec.fused_rounds}): the fused executor is not ported "
+                "yet: ROADMAP Queue 1 item 4; ask for fused_rounds=1")
         rounds = rounds or self.fc.rounds
         if participants is not None and len(participants) != rounds:
             raise ValueError(f"a participant schedule needs one entry a "

@@ -168,13 +168,18 @@ def test_fedcmoo_rejects_any_client_local_steps():
 
 
 def test_engine_dispatches_on_capabilities_not_names():
-    """The engine's only algorithm name is EngineConfig's default, and an
-    algorithm registered from outside runs without a change to it."""
-    src = (ROOT / "src/repro_torch/fed/engine.py").read_text()
-    names = [n.value for n in ast.walk(ast.parse(src))
-             if isinstance(n, ast.Constant) and n.value in NAMES]
-    assert names == ["firm"]
-    assert 'algorithm: str = "firm"' in src
+    """The engine and the planner name no algorithm but EngineConfig's
+    default (in ``fed/api.py``, EngineConfig's home, as in the
+    reference), and an algorithm registered from outside runs without a
+    change to either."""
+    names = {}
+    for mod in ("engine", "api"):
+        src = (ROOT / f"src/repro_torch/fed/{mod}.py").read_text()
+        names[mod] = [n.value for n in ast.walk(ast.parse(src))
+                      if isinstance(n, ast.Constant) and n.value in NAMES]
+    assert names == {"engine": [], "api": ["firm"]}
+    assert 'algorithm: str = "firm"' in (
+        ROOT / "src/repro_torch/fed/api.py").read_text()
 
     class Halved(alg.LinearAlgorithm):
         name = "halved"

@@ -613,9 +613,13 @@ def test_round_bookkeeping_on_the_port_alone():
     with pytest.raises(ValueError, match="unknown algorithm 'fedavg'"):
         FederatedTrainer(tcfg, fc, EngineConfig(algorithm="fedavg"),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="heterogeneous"):
-        FederatedTrainer(tcfg, dataclasses.replace(
-            fc, client_local_steps=(1, 2, 1)), ec, device="cpu")
+    # heterogeneous client_local_steps run as cohorts, one a distinct K
+    het = FederatedTrainer(tcfg, dataclasses.replace(
+        fc, participation=1.0, client_local_steps=(1, 2, 1)), ec,
+        device="cpu")
+    s = het.run_round()
+    assert s["local_steps"] == [1, 2, 1] and s["cohorts"] == 2
+    assert [ds.count for ds in het.datasets] == [1, 2, 1]
 
 
 def test_topk_uplink_reads_the_stream_as_a_quantized_uplink_does():
