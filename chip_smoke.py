@@ -105,7 +105,23 @@ line, for a first check of new kernels):
             of the logits' scale; the decode logits after prefill(200)
             match an f32 forward at position 200.  Then the steps timed one by one and 8
             profiled decode steps.
-15. local_step: ``fed.engine.client_local_steps`` on the same model, one
+            Both rollouts' ``breakdown_s`` give the decode through the
+            graph by part: ``decode_capture`` (capture and instantiate) and
+            ``decode_replay`` (the 127 replays).
+15. decode_graph: generation as a captured program, on llama-3.2-1b and
+            zamba2-1.2b at full width (B=16, P=128, 128 new, bf16 cache,
+            one generator seed): the decode through one captured CUDA graph
+            of a decode step (``sampling._decode`` with a ``_StepGraph``,
+            as ``generate`` and ``serve`` run it) against the eager loop
+            (``sampling._decode_eager``): tokens and logprobs bit for bit;
+            the counts zeroed just before the graph's decode and exactly
+            rmsnorm x 128 steps just after; the graph's kernel nodes equal
+            to the kernels one eager step of the captured function
+            launches (``torch.profiler``, less its noise draw); at most 4
+            launch calls of the host a replay; both decodes' seconds, the
+            capture's and the instantiation's, the idle share of 8
+            profiled replays and both decodes' peak memory.
+16. local_step: ``fed.engine.client_local_steps`` on the same model, one
             client, K=2 local steps of B=16 prompts (each a rollout, then
             ``firm_local_step`` with FIRMConfig's defaults).  The counts are
             zeroed just before it and must be exact just after.  Then,
@@ -115,7 +131,7 @@ line, for a first check of new kernels):
             part, peak memory and device idle share, and the M gradients
             through the kernels, through the plain versions and through an
             f32 copy of the model.
-16. local_step_hybrid: the same on zamba2-1.2b at full width: the counts
+17. local_step_hybrid: the same on zamba2-1.2b at full width: the counts
             exact (per step the rollout's, one forward's and per pull 27
             SSD backwards, 6 attention backwards and 39 norm backwards);
             lora_A gradients 0 while lora_B = 0, one firm_local_step's
@@ -123,7 +139,7 @@ line, for a first check of new kernels):
             gradients as close to an f32 copy as the plain bf16 path's and
             the f32 gradients through the kernels within 1e-3 (relative L2)
             of the plain f32 path's.
-17. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
+18. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
             K=1, R=2 rounds, first the ``wan`` preset (int8+ef uplink,
             identity downlink), then the ``extreme`` preset (topk:0.05+ef
             uplink, int8 downlink).  Each preset's counts are zeroed just
@@ -135,12 +151,12 @@ line, for a first check of new kernels):
             Seconds per round by part, the uplink codec's share, peak
             memory, and a third wan round under ``torch.profiler`` for the
             device's idle share.
-18. round_hybrid: one ``wan`` round (C=2, K=1) on zamba2-1.2b at full
+19. round_hybrid: one ``wan`` round (C=2, K=1) on zamba2-1.2b at full
             width: the counts exact, comm_bytes exactly 2,623,488 (the
             reference's ledger, tests/test_torch_hybrid_training.py),
             lambda on the simplex, drift > 0, residuals carried; seconds by
             part and peak memory.
-19. round_parity: R=3 carried ``wan`` rounds of a tiny f32 llama and a
+20. round_parity: R=3 carried ``wan`` rounds of a tiny f32 llama and a
             tiny f32 zamba2 (hd 64, ds 16: the SSD kernels forward and
             backward) on the card and on the CPU, the same weights and
             injected draws, both decoding with an f32 K/V cache; the
@@ -156,7 +172,7 @@ line, for a first check of new kernels):
             a step over the clients' gradient rows), and of ``firm``
             with client_local_steps=(1, 2, 1) (two cohorts; the injected
             draws padded to the largest K), held the same way.
-20. algorithms: the baselines on llama-3.2-1b at full width, ``wan``
+21. algorithms: the baselines on llama-3.2-1b at full width, ``wan``
             preset: one ``fedcmoo`` round (C=2, K=2: each step the clients'
             M gradients up through the int8 codec in one quantize and one
             dequantize launch, the server's lambda through the Gram kernel)
@@ -170,7 +186,7 @@ line, for a first check of new kernels):
             ``server_solve`` with the plain Gram; linear's lambda the
             weights.  Seconds by part and the exchange's own (stack, codec,
             solve).
-21. executors: the front door at full width (llama-3.2-1b, ``wan``, C=2):
+22. executors: the front door at full width (llama-3.2-1b, ``wan``, C=2):
             ``fed.api.plan(RunSpec(...))``, which must allocate nothing on
             the card (``torch.cuda.memory_allocated`` unchanged) and give
             d = 3,407,872, then ``.build(device="cuda", params=...)`` and one
@@ -185,7 +201,7 @@ line, for a first check of new kernels):
             gram once a client-step, one quantize and one dequantize); each
             client made its K steps.  Seconds by part, seconds a
             client-step beside the same call's ``wan`` rounds, peak memory.
-22. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+23. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             delta bit for bit; low-rank on the script's usual draw and five
@@ -194,9 +210,9 @@ line, for a first check of new kernels):
             max |flat + state|, cond(P) of the card's range sample in
             float64; the low-rank payload's bytes equal ``nbytes_static``
             (59,392).
-23. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
+24. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
             for llama-3.2-1b and for zamba2-1.2b.
-24. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+25. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
             llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
@@ -263,10 +279,17 @@ def ssd_flops(b: int, s: int, nh: int, hd: int, ds: int, chunk: int) -> int:
 
 PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
           "dequantize", "topk", "ssd", "rmsnorm_bwd", "flash_bwd", "ssd_bwd",
-          "rollout", "rollout_hybrid", "local_step", "local_step_hybrid",
+          "rollout", "rollout_hybrid", "decode_graph", "local_step",
+          "local_step_hybrid",
           "round", "round_hybrid", "round_parity", "algorithms", "executors",
           "codecs", "train", "serve")
 TOPK_PASSES = 32               # bisection passes of one top-k selection
+# the host's calls that put work on a stream, as torch.profiler names them
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx")
+HOST_LAUNCH_CALLS = KERNEL_LAUNCH_CALLS + ("cudaGraphLaunch",
+                                           "cudaMemcpyAsync",
+                                           "cudaMemsetAsync")
 
 
 class StopAfter(Exception):
@@ -304,6 +327,7 @@ def run(torch, stop_after) -> int:
     from repro_torch.fed.engine import (EngineConfig, FederatedTrainer,
                                         client_local_steps, rollout_batch)
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import counters as launch_counts
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.comms import quantize as qcodec
     from repro_torch.kernels import gram as gram_mod
@@ -313,8 +337,9 @@ def run(torch, stop_after) -> int:
     from repro_torch.launch import serve
     from repro_torch.launch import train as train_cli
     from repro_torch.models import common, ssm, transformer
-    from repro_torch.rlhf import critic, local, ppo, rewards
+    from repro_torch.rlhf import critic, local, ppo, rewards, sampling
     from repro_torch.rlhf.sampling import generate
+    from repro_torch.rng import uniform_noise
     from repro_torch.train import optim
 
     import numpy as np
@@ -383,6 +408,12 @@ def run(torch, stop_after) -> int:
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         if not kernels:
             return None
+        copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in kernels)
+        host = {}
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CPU
+                    and e.name in HOST_LAUNCH_CALLS):
+                host[e.name] = host.get(e.name, 0) + 1
         busy = sum(e.time_range.elapsed_us() for e in kernels)
         window = (max(e.time_range.end for e in kernels)
                   - min(e.time_range.start for e in kernels))
@@ -391,30 +422,16 @@ def run(torch, stop_after) -> int:
             by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         return {"steps": steps, "kernels_per_step": len(kernels) / steps,
+                "memcpy_memset_per_step": copies / steps,
+                "host_launches_per_step": sum(host.values()) / steps,
+                "host_launch_calls": host,
                 "device_busy_us_per_step": busy / steps,
                 "window_us_per_step": window / steps,
                 "device_idle_share": 1 - busy / window,
                 "top_kernels_us_per_step": {n: t / steps for n, t in top}}
 
-    counters = {"rmsnorm": (rn_mod, "launches"),
-                "rmsnorm_bwd": (rn_mod, "bwd_launches"),
-                "flash_attention": (fa_mod, "launches"),
-                "flash_attention_bwd": (fa_mod, "bwd_launches"),
-                "gram": (gram_mod, "launches"),
-                "quantize": (q_mod, "quantize_launches"),
-                "dequantize": (q_mod, "dequantize_launches"),
-                "abs_threshold_count": (q_mod, "threshold_count_launches"),
-                "abs_threshold_mask": (q_mod, "threshold_mask_launches"),
-                "ssd": (ssd_mod, "launches"),
-                "ssd_bwd": (ssd_mod, "bwd_launches")}
-
-    def zero_counts() -> None:
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-
-    def read_counts() -> dict:
-        return {name: getattr(mod, attr)
-                for name, (mod, attr) in counters.items()}
+    counters = launch_counts.COUNTERS
+    zero_counts, read_counts = launch_counts.zero, launch_counts.read
 
     # --------------------------------------------------------------- 1. device
     kind = torch.cuda.get_device_name(0)
@@ -484,6 +501,10 @@ def run(torch, stop_after) -> int:
         torch.cuda.synchronize()
         with torch.cuda.graph(graph):
             fn()
+        return graph_node_types(graph)
+
+    def graph_node_types(graph) -> list:
+        """The type of each node of a captured ``keep_graph`` CUDA graph."""
         handle = ctypes.c_void_p(graph.raw_cuda_graph())
         n = ctypes.c_size_t(0)
         check(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
@@ -1578,6 +1599,26 @@ def run(torch, stop_after) -> int:
          "bits twice and from contiguous inputs", **ssd_bwd_row)
     done("ssd_bwd")
 
+    def clone_cache(cache):
+        return {"slots": common.tree_map(lambda t: t.clone(), cache["slots"]),
+                "pos": cache["pos"].clone()}
+
+    def decode_parts(mcfg, params, prompts, seed: int) -> dict:
+        """One decode of MAX_NEW steps through the graph after prefill, by
+        part: the capture plus instantiation, and the replays (from the
+        graph's being ready to the last replay's end; the eager step 0
+        ran before the capture)."""
+        _, cache = transformer.prefill(mcfg, params, prompts,
+                                       cache_len=P + MAX_NEW)
+        g = sampling._StepGraph(dev)
+        sampling._decode(mcfg, params, cache, prompts[:, -1:],
+                         max_new=MAX_NEW, temperature=1.0,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed), graph=g)
+        torch.cuda.synchronize()
+        return {"decode_capture": g.capture_s + g.instantiate_s,
+                "decode_replay": time.perf_counter() - g.ready_at}
+
     # ------------------------------------------------------------- 13. rollout
     fc = FIRMConfig()
     check(fc.batch_size == B and fc.n_objectives == N_OBJ,
@@ -1686,6 +1727,7 @@ def run(torch, stop_after) -> int:
     _, ref_s = wall(lambda: ppo.token_logprobs(
         transformer.forward_seq(cfg, ref_params, tokens2)["logits"],
         tokens2))
+    parts = decode_parts(cfg, policy, prompts, seed=11)
     emit(phase="rollout", model=cfg.name, params=cfg.param_count(),
          batch=B, prompt_len=P, max_new=MAX_NEW, n_objectives=N_OBJ,
          seconds=rollout_s, generated_tokens_per_s=B * MAX_NEW / rollout_s,
@@ -1697,7 +1739,7 @@ def run(torch, stop_after) -> int:
          reward_means=[float(x) for x in r.mean(0)],
          breakdown_s={"prefill": prefill_s,
                       "decode_128_steps": generate_s - prefill_s,
-                      "generate": generate_s, "rewards": rewards_s,
+                      **parts, "generate": generate_s, "rewards": rewards_s,
                       "reference_logprobs": ref_s})
 
     # device busy share of decode: 8 steps under torch.profiler
@@ -1849,6 +1891,7 @@ def run(torch, stop_after) -> int:
                                                  z_step_tok)
 
     z_profile = device_profile(z_decode_8, 8)
+    z_parts = decode_parts(zcfg, z_policy, z_prompts, seed=12)
     emit(phase="rollout_hybrid", model=zcfg.name,
          params=common.tree_size(z_ref),
          param_count_reference_arithmetic=zcfg.param_count(), batch=B,
@@ -1863,14 +1906,127 @@ def run(torch, stop_after) -> int:
          reward_means=[float(x) for x in z_r.mean(0)],
          breakdown_s={"prefill": z_prefill_s,
                       "decode_128_steps": z_generate_s - z_prefill_s,
-                      "generate": z_generate_s, "rewards": z_rewards_s,
+                      **z_parts, "generate": z_generate_s,
+                      "rewards": z_rewards_s,
                       "reference_logprobs": z_ref_s},
          decode_profile=z_profile)
-    # the reference weights, the adapters and the batch stay for training
-    del z_cache, z_policy, z_frozen
+    del z_cache
     done("rollout_hybrid")
 
-    # ---------------------------------------------------------- 15. local step
+    # -------------------------------------------------------- 15. decode_graph
+    # generation as a captured program: on each model at full width, the
+    # decode of MAX_NEW steps through one captured CUDA graph a call
+    # (sampling._decode with a _StepGraph, as generate and serve run it)
+    # against the eager loop (sampling._decode_eager), the same noise
+    def decode_graph_case(mcfg, params, prompts, per_step: int,
+                          seed: int) -> dict:
+        last = prompts[:, -1:]
+        _, cache = transformer.prefill(mcfg, params, prompts,
+                                       cache_len=P + MAX_NEW)
+        cache_e = clone_cache(cache)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (tok_e, lp_e), eager_s = wall(lambda: sampling._decode_eager(
+            mcfg, params, cache_e, last, max_new=MAX_NEW, temperature=1.0,
+            generator=torch.Generator(device=dev).manual_seed(seed)))
+        eager_peak = torch.cuda.max_memory_allocated() - base
+        del cache_e
+        g = sampling._StepGraph(dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        tok_g, lp_g = sampling._decode(
+            mcfg, params, cache, last, max_new=MAX_NEW, temperature=1.0,
+            generator=torch.Generator(device=dev).manual_seed(seed), graph=g)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        got_launches = read_counts()
+        graph_peak = torch.cuda.max_memory_allocated() - base
+        want = {name: 0 for name in counters}
+        want["rmsnorm"] = per_step * MAX_NEW
+        check(got_launches == want, f"{mcfg.name} graph decode launches "
+              f"{got_launches}, expected {want}")
+        same = {"tokens": bool(torch.equal(tok_g, tok_e)),
+                "logprobs": bool(torch.equal(lp_g, lp_e))}
+        check(all(same.values()), f"{mcfg.name}: the graph's decode is not "
+              f"the eager loop's bit for bit: {same}")
+        types = graph_node_types(g.graph)
+        nodes = {"kernel": types.count(graph_kernel_node),
+                 "other": len(types) - types.count(graph_kernel_node),
+                 "by_type": {str(t): types.count(t) for t in set(types)}}
+        seconds = {"eager_decode": eager_s, "graph_decode": t_end - t0,
+                   "capture": g.capture_s, "instantiate": g.instantiate_s,
+                   "replays": t_end - g.ready_at}
+        del g, cache
+        # the captured function run eagerly, 8 steps under the profiler,
+        # then a graph of it captured on the same buffers, 8 replays each
+        # after its noise draw, under the profiler
+        _, cache = transformer.prefill(mcfg, params, prompts,
+                                       cache_len=P + MAX_NEW)
+        state = sampling._new_state(mcfg, cache, last, MAX_NEW)
+        step = functools.partial(sampling._step, mcfg, params,
+                                 temperature=1.0, from_uniform=True)
+        noise_gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def draw():
+            uniform_noise(state["noise"].shape, generator=noise_gen,
+                          device=dev, out=state["noise"])
+
+        def eager_8():
+            for _ in range(8):
+                draw()
+                step(state)
+
+        eager_prof = device_profile(eager_8, 8)
+        g = sampling._StepGraph(dev)
+        draw()
+        g.warm(step, state)
+        g.capture(step, state)
+
+        def replays_8():
+            for _ in range(8):
+                draw()
+                g.replay()
+
+        replay_prof = device_profile(replays_8, 8)
+        # the eager step's kernels, counted at the host's launch calls (the
+        # trace's device side can drop a kernel or two in a thousand),
+        # less the noise draw's one kernel; its copies beside them
+        calls = (eager_prof or {}).get("host_launch_calls", {})
+        eager_kernels = sum(calls.get(n, 0) for n in KERNEL_LAUNCH_CALLS) / 8
+        eager_kernels -= 1
+        eager_copies = sum(calls.get(n, 0) for n in HOST_LAUNCH_CALLS
+                           if n not in KERNEL_LAUNCH_CALLS) / 8
+        check(nodes["kernel"] == eager_kernels,
+              f"{mcfg.name}: {nodes} graph nodes a step, the eager step "
+              f"launches {eager_kernels} kernels ({calls})")
+        if replay_prof is not None:
+            check(replay_prof["host_launches_per_step"] <= 4,
+                  f"{mcfg.name}: {replay_prof['host_launch_calls']} host "
+                  "launches in 8 replays")
+        del g, state, cache
+        return {"model": mcfg.name, "bit_identical": same,
+                "seconds": seconds,
+                "graph_nodes_a_step": nodes,
+                "eager_kernels_a_step": eager_kernels,
+                "eager_copies_a_step": eager_copies,
+                "eager_profile": eager_prof, "replay_profile": replay_prof,
+                "launches": got_launches,
+                "peak_memory_bytes": {"eager": eager_peak,
+                                      "graph": graph_peak,
+                                      "delta": graph_peak - eager_peak}}
+
+    for case in ((cfg, policy, prompts, per_forward, 21),
+                 (zcfg, z_policy, z_prompts, z_per_forward, 22)):
+        emit(phase="decode_graph", **decode_graph_case(*case))
+    # the reference weights, the adapters and the batch stay for training
+    del z_policy, z_frozen
+    done("decode_graph")
+
+    # ---------------------------------------------------------- 16. local step
     # one client from the reference (lora_B = 0), K local steps, each a
     # rollout of B prompts and one firm_local_step, with FIRMConfig's
     # defaults (M = 2, B = 16, beta = 0.01, pgd with 100 iterations)
@@ -2064,7 +2220,7 @@ def run(torch, stop_after) -> int:
          "(1 - cosine) <= 1.6x the plain bf16 path's; gram 1e-5 of scale")
     done("local_step")
 
-    # --------------------------------------------------- 16. local_step_hybrid
+    # --------------------------------------------------- 17. local_step_hybrid
     # zamba2 at full width, one client from the reference (lora_B = 0), K
     # local steps of B prompts.  The adapters are the shared attention
     # block's; the Mamba2 layers before its first slot need no gradient,
@@ -2252,7 +2408,7 @@ def run(torch, stop_after) -> int:
     del z_new, z_state1
     done("local_step_hybrid")
 
-    # --------------------------------------------------------------- 17. round
+    # --------------------------------------------------------------- 18. round
     # the federated round at full width: C = 2 clients, K = 1 local step,
     # R = 2 rounds so that the error-feedback residual carries into round
     # 2; first the ``wan`` preset (int8+ef uplink, identity downlink), then
@@ -2428,7 +2584,7 @@ def run(torch, stop_after) -> int:
     del trainer
     done("round")
 
-    # -------------------------------------------------------- 18. round_hybrid
+    # -------------------------------------------------------- 19. round_hybrid
     # the wan round on zamba2 at full width: C = 2 clients, K = 1, R = 1,
     # from the rollout_hybrid phase's reference weights.  comm_bytes is the
     # value tests/test_torch_hybrid_training.py takes from the reference's
@@ -2496,7 +2652,7 @@ def run(torch, stop_after) -> int:
     del z_trainer
     done("round_hybrid")
 
-    # -------------------------------------------------------- 19. round_parity
+    # -------------------------------------------------------- 20. round_parity
     # a round on the card against the port's CPU round (which the CPU tests
     # hold to the JAX package), at a tiny f32 config of each trained
     # model: R = 3 carried wan rounds of C = 2 clients, K = 1, B = 2, 8
@@ -2724,7 +2880,7 @@ def run(torch, stop_after) -> int:
          "entries past 1e-2, each within 0.25")
     done("round_parity")
 
-    # ---------------------------------------------------------- 20. algorithms
+    # ---------------------------------------------------------- 21. algorithms
     # the baselines at full width, from the rollout phase's reference
     # weights, with the wan preset: one fedcmoo round of C = 2 clients and
     # K = 2 steps (every step each client's M gradients go up through the
@@ -2908,7 +3064,7 @@ def run(torch, stop_after) -> int:
          "plain Gram's over min(1, D)")
     done("algorithms")
 
-    # ----------------------------------------------------------- 21. executors
+    # ----------------------------------------------------------- 22. executors
     # the front door at full width: plan(RunSpec) -> build(device="cuda",
     # params=the rollout phase's reference weights) -> one round, wan
     # preset, C = 2, for two plans: the loop executor
@@ -3031,7 +3187,7 @@ def run(torch, stop_after) -> int:
          "plan() allocates nothing on the card")
     done("executors")
 
-    # -------------------------------------------------------------- 22. codecs
+    # -------------------------------------------------------------- 23. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -3134,7 +3290,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # --------------------------------------------------------------- 23. train
+    # --------------------------------------------------------------- 24. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -3165,7 +3321,7 @@ def run(torch, stop_after) -> int:
          zamba2={"seconds": z_train_s, "report": z_report.getvalue()})
     done("train")
 
-    # --------------------------------------------------------------- 24. serve
+    # --------------------------------------------------------------- 25. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(

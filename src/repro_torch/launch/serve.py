@@ -10,6 +10,11 @@ Serves every ported architecture: ``llama-3.2-1b`` (the default) and the
 and on the CPU at the smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --device cpu
+
+Decode runs through ``rlhf.sampling.decode``, the runner ``generate``
+uses (on CUDA one captured decode step, replayed), with the generator
+that drew the weights and the prompts: the tokens are ``generate``'s for
+the same seed.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.configs import get_config
 from repro_torch.models import transformer
-from repro_torch.rng import categorical, gumbel_noise
+from repro_torch.rlhf.sampling import decode
 
 
 def _sync(dev: torch.device) -> None:
@@ -59,18 +64,11 @@ def main(argv=None) -> torch.Tensor:
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    tok = prompt[:, -1:]
-    outs = []
     t0 = time.perf_counter()
-    for _ in range(args.max_new):
-        lg, cache = transformer.decode_step(cfg, params, cache, tok)
-        lg = lg.float() / max(args.temperature, 1e-6)
-        tok = categorical(lg, gumbel_noise(lg.shape, generator=gen,
-                                           device=dev))[:, None]
-        outs.append(tok)
+    out, _ = decode(cfg, params, cache, prompt[:, -1:], max_new=args.max_new,
+                    temperature=args.temperature, generator=gen)
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    out = torch.cat(outs, dim=1)
     print(f"[serve] arch={cfg.name} device={dev} batch={b} prompt={p} "
           f"new={args.max_new}")
     print(f"  prefill: {t_prefill:.3f}s  decode: {t_decode:.3f}s "

@@ -10,7 +10,9 @@ bf16 tolerance, not bit for bit.
 The decode path has no Pallas kernel in the reference and stays plain
 PyTorch, with the reference's rounding: ``q * scale`` in the cache dtype,
 scores accumulated in f32, probabilities cast to the cache dtype before
-the product with V.
+the product with V.  Its position is a 0-d int32 tensor on the cache's
+device, as in the reference, so that a captured decode step reads the
+position of the step it replays.
 """
 from __future__ import annotations
 
@@ -28,11 +30,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos: torch.Tensor
+                     ) -> torch.Tensor:
     """One-token attention against a cache.
 
     q: (B, 1, Hq, Dh); caches: (B, C, Hkv, Dh) with slot j holding
-    position j; pos: current position.  The sliding-window ring cache of
+    position j; pos: the current position, a 0-d int32 tensor on the
+    caches' device (compared there: no host sync).  The sliding-window ring cache of
     the reference comes with the sliding-window block kinds.
     """
     b, _, hq, dh = q.shape

@@ -130,7 +130,9 @@ def init_mamba2_cache(cfg: ModelConfig, batch: int, *, device,
 
 def mamba2_decode(p, cfg: ModelConfig, x: torch.Tensor, cache):
     """One step.  x: (B, 1, d) -> (y (B, 1, d), cache); the cache's
-    ``conv`` and ``state`` are updated in place."""
+    ``conv`` and ``state`` are updated in place.  It reads nothing back to
+    the host and allocates only through PyTorch (the ``cat`` of the conv
+    history included), so a captured decode step holds it."""
     din, nh, hd, ds = dims(cfg)
     b = x.shape[0]
     h = common.rms_norm(p["ln"], x, cfg.norm_eps)

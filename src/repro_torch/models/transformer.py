@@ -24,7 +24,12 @@ rematerialised, where the reference checkpoints each period
 (``cfg.remat``).  ``prefill`` and ``decode_step`` run under
 ``torch.no_grad()``, and the decode cache is updated in place: each
 attention slot has its own K/V, each Mamba2 slot its own f32 conv history
-and state, per period, even where the parameters are shared.
+and state, per period, even where the parameters are shared.  The cache's
+position ``pos`` is a 0-d int32 tensor on its device, as in the
+reference, and ``decode_step`` advances it in place and reads it only
+there: one decode step syncs nothing with the host, so
+``rlhf.sampling`` captures it as a CUDA graph whose every replay sees
+the position the last one left.
 """
 from __future__ import annotations
 
@@ -183,7 +188,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device,
                dtype=torch.bfloat16):
     """Pre-allocated decode cache, one entry a pattern slot, stacked over
     periods: ``dtype`` (n_periods, B, C, Hkv, Dh) K and V for attention
-    slots; f32 conv history and state for Mamba2 slots."""
+    slots; f32 conv history and state for Mamba2 slots; ``pos``, a 0-d
+    int32 tensor on ``device`` (0)."""
     _check_kinds(cfg)
     slots = {}
     for i, kind in enumerate(cfg.pattern):
@@ -195,14 +201,16 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device,
                  cfg.head_dim)
         slots[str(i)] = {"k": torch.zeros(shape, dtype=dtype, device=device),
                          "v": torch.zeros(shape, dtype=dtype, device=device)}
-    return {"slots": slots, "pos": 0}
+    return {"slots": slots,
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def block_decode(kind: str, p, cfg: ModelConfig, x, cache, pos: int):
-    """One-token decode through one block.  ``cache`` is this slot's and
-    period's piece: ``{'k', 'v'}`` (B, C, Hkv, Dh), whose slot ``pos`` is
-    written in place, or a Mamba2 ``{'conv', 'state'}``, updated in place.
-    Returns x."""
+def block_decode(kind: str, p, cfg: ModelConfig, x, cache,
+                 pos: torch.Tensor):
+    """One-token decode through one block at position ``pos`` (0-d int32
+    tensor).  ``cache`` is this slot's and period's piece: ``{'k', 'v'}``
+    (B, C, Hkv, Dh), whose slot ``pos % C`` is written in place, or a
+    Mamba2 ``{'conv', 'state'}``, updated in place.  Returns x."""
     if kind == "mamba2":
         return ssm.mamba2_decode(p, cfg, x, cache)[0]
     k_cache, v_cache = cache["k"], cache["v"]
@@ -212,12 +220,12 @@ def block_decode(kind: str, p, cfg: ModelConfig, x, cache, pos: int):
     q = common.linear(p["attn"]["wq"], h).reshape(b, 1, hq, dh)
     k = common.linear(p["attn"]["wk"], h).reshape(b, 1, hkv, dh)
     v = common.linear(p["attn"]["wv"], h).reshape(b, 1, hkv, dh)
-    posv = torch.full((1,), pos, device=x.device)
+    posv = pos[None]
     q = common.apply_rope(q, posv, cfg.rope_theta)
     k = common.apply_rope(k, posv, cfg.rope_theta)
-    idx = pos % k_cache.shape[1]
-    k_cache[:, idx] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, idx] = v[:, 0].to(v_cache.dtype)
+    idx = (pos % k_cache.shape[1]).long()[None]      # computed on the device
+    k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
     o = decode_attention(q, k_cache, v_cache, pos)
     x = x + common.linear(p["attn"]["wo"], o.reshape(b, 1, hq * dh))
     h2 = common.rms_norm(p["ln2"], x, cfg.norm_eps)
@@ -228,8 +236,8 @@ def block_decode(kind: str, p, cfg: ModelConfig, x, cache, pos: int):
 def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor):
     """token: (B, 1) -> (logits (B, V), cache).
 
-    The cache is updated in place (every slot's piece, and ``pos``) and
-    returned.
+    The cache is updated in place (every slot's piece, and ``pos``, which
+    advances by one) and returned.
     """
     _check_kinds(cfg)
     x = params["embed"][token]
@@ -242,7 +250,7 @@ def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor):
                              x, piece, pos)
     x = common.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = common.linear(params["lm_head"], x)[:, 0]
-    cache["pos"] = pos + 1
+    pos.add_(1)
     return logits, cache
 
 
@@ -270,5 +278,5 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             continue
         for name in ("k", "v"):
             piece[name][:, :, :take] = kv[name][:, :, -take:].to(cache_dtype)
-    cache["pos"] = s
+    cache["pos"].fill_(s)
     return out["logits"], cache
