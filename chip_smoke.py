@@ -139,7 +139,29 @@ line, for a first check of new kernels):
             gradients as close to an f32 copy as the plain bf16 path's and
             the f32 gradients through the kernels within 1e-3 (relative L2)
             of the plain f32 path's.
-18. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
+18. update_graph: the local update as a captured program
+            (``rlhf/update_graph.py``), on llama-3.2-1b and zamba2-1.2b at
+            full width on the rollout phases' batches, FIRMConfig's
+            defaults: two client states A and B take three carried
+            updates in the order A, B, A through one ``UpdateGraphs``
+            (warm, capture and replay, replay) and through the eager
+            ``firm_local_step``, new states and metrics bit for bit; one
+            ``linear`` graph update against the eager one, bit for bit;
+            the counts zeroed just before and exact just after (per
+            update one forward, per pull the backwards, one Gram for
+            ``firm`` and none for ``linear``); the graph's kernel nodes
+            equal to the eager update's kernel launches; fewer than 100
+            host launch calls a replayed update, copies included; a copy
+            of the frozen tree at new addresses (the same values, then one
+            leaf changed) captured anew and an in-place write to a leaf
+            of the original replayed as it is, each equal to the eager
+            update; the update's seconds eager and replayed, capture and
+            instantiate, the idle share of 8 profiled replays, peak memory
+            and the graph's pool, and FedCMOO's eager server solve.  Every
+            later phase that runs ``firm``, ``firm_unreg`` or ``linear``
+            on the card runs it through the trainer's graphs, and so do
+            the local_step phases (one ``UpdateGraphs`` a call).
+19. round:  ``FederatedTrainer.run_round`` on the same model, C=2 clients,
             K=1, R=2 rounds, first the ``wan`` preset (int8+ef uplink,
             identity downlink), then the ``extreme`` preset (topk:0.05+ef
             uplink, int8 downlink).  Each preset's counts are zeroed just
@@ -149,14 +171,15 @@ line, for a first check of new kernels):
             comm_bytes must be exactly 68,210,688 (wan) and 19,137,344
             (extreme); lambda on the simplex, drift > 0, residuals carried.
             Seconds per round by part, the uplink codec's share, peak
-            memory, and a third wan round under ``torch.profiler`` for the
-            device's idle share.
-19. round_hybrid: one ``wan`` round (C=2, K=1) on zamba2-1.2b at full
+            memory, a third wan round under ``torch.profiler`` for the
+            device's idle share, then four more with the update captured
+            and eager in turns (graph, eager, eager, graph).
+20. round_hybrid: one ``wan`` round (C=2, K=1) on zamba2-1.2b at full
             width: the counts exact, comm_bytes exactly 2,623,488 (the
             reference's ledger, tests/test_torch_hybrid_training.py),
             lambda on the simplex, drift > 0, residuals carried; seconds by
             part and peak memory.
-20. round_parity: R=3 carried ``wan`` rounds of a tiny f32 llama and a
+21. round_parity: R=3 carried ``wan`` rounds of a tiny f32 llama and a
             tiny f32 zamba2 (hd 64, ds 16: the SSD kernels forward and
             backward) on the card and on the CPU, the same weights and
             injected draws, both decoding with an f32 K/V cache; the
@@ -172,7 +195,7 @@ line, for a first check of new kernels):
             a step over the clients' gradient rows), and of ``firm``
             with client_local_steps=(1, 2, 1) (two cohorts; the injected
             draws padded to the largest K), held the same way.
-21. algorithms: the baselines on llama-3.2-1b at full width, ``wan``
+22. algorithms: the baselines on llama-3.2-1b at full width, ``wan``
             preset: one ``fedcmoo`` round (C=2, K=2: each step the clients'
             M gradients up through the int8 codec in one quantize and one
             dequantize launch, the server's lambda through the Gram kernel)
@@ -186,7 +209,7 @@ line, for a first check of new kernels):
             ``server_solve`` with the plain Gram; linear's lambda the
             weights.  Seconds by part and the exchange's own (stack, codec,
             solve).
-22. executors: the front door at full width (llama-3.2-1b, ``wan``, C=2):
+23. executors: the front door at full width (llama-3.2-1b, ``wan``, C=2):
             ``fed.api.plan(RunSpec(...))``, which must allocate nothing on
             the card (``torch.cuda.memory_allocated`` unchanged) and give
             d = 3,407,872, then ``.build(device="cuda", params=...)`` and one
@@ -201,7 +224,7 @@ line, for a first check of new kernels):
             gram once a client-step, one quantize and one dequantize); each
             client made its K steps.  Seconds by part, seconds a
             client-step beside the same call's ``wan`` rounds, peak memory.
-23. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+24. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             delta bit for bit; low-rank on the script's usual draw and five
@@ -210,9 +233,9 @@ line, for a first check of new kernels):
             max |flat + state|, cond(P) of the card's range sample in
             float64; the low-rank payload's bytes equal ``nbytes_static``
             (59,392).
-24. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
+25. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
             for llama-3.2-1b and for zamba2-1.2b.
-25. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+26. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
             llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
@@ -280,7 +303,7 @@ def ssd_flops(b: int, s: int, nh: int, hd: int, ds: int, chunk: int) -> int:
 PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
           "dequantize", "topk", "ssd", "rmsnorm_bwd", "flash_bwd", "ssd_bwd",
           "rollout", "rollout_hybrid", "decode_graph", "local_step",
-          "local_step_hybrid",
+          "local_step_hybrid", "update_graph",
           "round", "round_hybrid", "round_parity", "algorithms", "executors",
           "codecs", "train", "serve")
 TOPK_PASSES = 32               # bisection passes of one top-k selection
@@ -314,8 +337,16 @@ def main(argv=None) -> int:
 
 
 def run(torch, stop_after) -> int:
+    # each phase's seconds on the host's clock, from the end of the one
+    # before it
+    phase_s, phase_end = {}, [time.perf_counter()]
+
     def done(phase: str) -> None:
+        now = time.perf_counter()
+        phase_s[phase] = now - phase_end[0]
+        phase_end[0] = now
         if phase == stop_after:
+            emit(phase="seconds_by_phase", seconds=phase_s)
             raise StopAfter(phase)
 
     from repro_torch.comms import codec as codec_lib
@@ -337,7 +368,9 @@ def run(torch, stop_after) -> int:
     from repro_torch.launch import serve
     from repro_torch.launch import train as train_cli
     from repro_torch.models import common, ssm, transformer
+    from repro_torch.fed import algorithms as algorithms_lib
     from repro_torch.rlhf import critic, local, ppo, rewards, sampling
+    from repro_torch.rlhf import update_graph
     from repro_torch.rlhf.sampling import generate
     from repro_torch.rng import uniform_noise
     from repro_torch.train import optim
@@ -397,29 +430,34 @@ def run(torch, stop_after) -> int:
     def device_profile(fn, steps: int):
         """Device busy and idle share of ``fn`` under torch.profiler; the
         window runs from the first kernel's start to the last one's end.
-        None ("not measured") when the trace holds no device time."""
+        Read from kineto's raw events (an update's replays trace some
+        70,000 kernels, too many to build the profiler's event tree in
+        time).  None ("not measured") when the trace holds no device
+        time."""
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = list(prof.profiler.kineto_results.events())
+        del prof
+        kernels = [(e.name(), e.start_ns(), e.duration_ns()) for e in events
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
         if not kernels:
             return None
-        copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in kernels)
+        copies = sum(n.startswith(("Memcpy", "Memset")) for n, _, _ in kernels)
         host = {}
-        for e in prof.events():
-            if (e.device_type == torch.autograd.DeviceType.CPU
-                    and e.name in HOST_LAUNCH_CALLS):
-                host[e.name] = host.get(e.name, 0) + 1
-        busy = sum(e.time_range.elapsed_us() for e in kernels)
-        window = (max(e.time_range.end for e in kernels)
-                  - min(e.time_range.start for e in kernels))
+        for e in events:
+            if (e.device_type() == torch.autograd.DeviceType.CPU
+                    and e.name() in HOST_LAUNCH_CALLS):
+                host[e.name()] = host.get(e.name(), 0) + 1
+        busy = sum(d_ for _, _, d_ in kernels) / 1e3
+        window = (max(t + d_ for _, t, d_ in kernels)
+                  - min(t for _, t, _ in kernels)) / 1e3
         by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+        for n, _, d_ in kernels:
+            by_name[n] = by_name.get(n, 0) + d_ / 1e3
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         return {"steps": steps, "kernels_per_step": len(kernels) / steps,
                 "memcpy_memset_per_step": copies / steps,
@@ -2408,7 +2446,194 @@ def run(torch, stop_after) -> int:
     del z_new, z_state1
     done("local_step_hybrid")
 
-    # --------------------------------------------------------------- 18. round
+    # -------------------------------------------------------- 18. update_graph
+    # the local update as a captured program (rlhf/update_graph.py), on
+    # each model at full width with FIRMConfig's defaults, on the rollout
+    # phases' batches: the runner against the eager firm_local_step
+    def flat_out(out):
+        new_state, metrics = out
+        return (update_graph._state_leaves(new_state)
+                + [metrics[k] for k in sorted(metrics)])
+
+    def same_update(got, want) -> bool:
+        g, w = flat_out(got), flat_out(want)
+        return len(g) == len(w) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(g, w))
+
+    def pool_bytes(graph):
+        """Bytes of the segments of the graph's private pool, from the
+        allocator's snapshot; None when the snapshot names no pool."""
+        pool = tuple(graph.pool())
+        segs = torch.cuda.memory_snapshot()
+        if not segs or "segment_pool_id" not in segs[0]:
+            return None
+        return sum(sg["total_size"] for sg in segs
+                   if tuple(sg["segment_pool_id"]) == pool)
+
+    def update_graph_case(mcfg, frz, state_a, state_b, batch_, per_update):
+        firm_alg = algorithms_lib.get_algorithm("firm")
+        batches = [batch_._replace(rewards=batch_.rewards.roll(k, 0))
+                   for k in range(3)]
+        order = (("A", 0), ("B", 1), ("A", 2))
+        # three carried updates in the order A, B, A: eagerly, then
+        # through one runner from the same states and batches
+        states, want, eager_s = {"A": state_a, "B": state_b}, [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        for name, k in order:
+            out, sec = wall(lambda: local.firm_local_step(
+                mcfg, fc, states[name], frz, batches[k]))
+            states[name] = out[0]
+            want.append(out)
+            eager_s.append(sec)
+        eager_peak = torch.cuda.max_memory_allocated() - mem0
+        runner = update_graph.UpdateGraphs()
+        states, got, graph_s = {"A": state_a, "B": state_b}, [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        zero_counts()
+        for name, k in order:
+            out, sec = wall(lambda: firm_alg.step(
+                mcfg, fc, states[name], frz, batches[k], None, None, runner))
+            states[name] = out[0]
+            got.append(out)
+            graph_s.append(sec)
+        launches = read_counts()
+        graph_peak = torch.cuda.max_memory_allocated() - mem0
+        want_counts = {name: 0 for name in counters}
+        want_counts.update({name: 3 * n for name, n in per_update.items()})
+        check(launches == want_counts, f"{mcfg.name} update graph launches "
+              f"{launches}, expected {want_counts}")
+        bits = [same_update(g_, w_) for g_, w_ in zip(got, want)]
+        check(all(bits), f"{mcfg.name}: the graph's updates A, B, A are not "
+              f"the eager updates' bit for bit: {bits}")
+        g = runner.graph("firm", mcfg, fc, state_a, frz, batches[0])
+        check(runner.captures == 1 and g is not None,
+              f"{mcfg.name}: {runner.captures} captures for one key")
+        pool = pool_bytes(g.graph)
+        types = graph_node_types(g.graph)
+        nodes = {"kernel": types.count(graph_kernel_node),
+                 "other": len(types) - types.count(graph_kernel_node),
+                 "by_type": {str(t): types.count(t) for t in set(types)}}
+        # the eager update's kernels, counted at the host's launch calls
+        eager_prof = device_profile(lambda: local.firm_local_step(
+            mcfg, fc, state_b, frz, batches[1]), 1)
+        calls = (eager_prof or {}).get("host_launch_calls", {})
+        eager_kernels = sum(calls.get(n, 0) for n in KERNEL_LAUNCH_CALLS)
+        check(nodes["kernel"] == eager_kernels,
+              f"{mcfg.name}: {nodes} graph nodes an update, the eager "
+              f"update launches {eager_kernels} kernels ({calls})")
+        # replayed updates, copies in and out included: 8 timed, then 8
+        # under the profiler
+        def replays_8():
+            for k in range(8):
+                firm_alg.step(mcfg, fc, state_b, frz, batches[k % 3], None,
+                              None, runner)
+        _, replays_s = wall(replays_8)
+        replay_prof = device_profile(replays_8, 8)
+        if replay_prof is not None:
+            check(replay_prof["host_launches_per_step"] < 100,
+                  f"{mcfg.name}: {replay_prof['host_launch_calls']} host "
+                  "launches in 8 replayed updates")
+        # linear: one graph update (the runner's second call) against eager
+        lin = algorithms_lib.get_algorithm("linear")
+        weights = lin.traced_extra(fc, EngineConfig(), device=dev)
+        lin_runner = update_graph.UpdateGraphs()
+        lin.step(mcfg, fc, state_a, frz, batches[0], None, weights,
+                 lin_runner)
+        zero_counts()
+        lin_got = lin.step(mcfg, fc, state_b, frz, batches[1], None,
+                           weights, lin_runner)
+        lin_launches = read_counts()
+        lin_want = local.linear_local_step(mcfg, fc, state_b, frz,
+                                           batches[1], weights)
+        want_lin = {name: 0 for name in counters}
+        want_lin.update(per_update, gram=0)
+        check(lin_runner.captures == 1 and lin_launches == want_lin,
+              f"{mcfg.name} linear graph launches {lin_launches}, "
+              f"expected {want_lin}")
+        check(same_update(lin_got, lin_want),
+              f"{mcfg.name}: linear's graph update is not the eager one's")
+        del lin_runner, lin_got, lin_want
+        # a stale graph: a copy of frozen at new addresses (the same
+        # values, then one leaf changed) is captured anew; an in-place
+        # write to a leaf of the original tree is replayed as it is
+        stale = {}
+        norm = common.tree_leaves(frz["final_norm"])[0]
+        copies = {"same_values": common.tree_map(lambda t: t.clone(), frz)}
+        changed = common.tree_map(lambda t: t.clone(), frz)
+        common.tree_leaves(changed["final_norm"])[0].mul_(1.25)
+        copies["one_leaf_changed"] = changed
+        for label, frz_c in copies.items():
+            caps = runner.captures
+            for _ in range(2):
+                got_c = firm_alg.step(mcfg, fc, state_b, frz_c, batches[1],
+                                      None, None, runner)
+            want_c = local.firm_local_step(mcfg, fc, state_b, frz_c,
+                                           batches[1])
+            stale[label] = {"new_captures": runner.captures - caps,
+                            "bit_identical": same_update(got_c, want_c)}
+        saved = norm.clone()
+        norm.mul_(0.75)
+        caps = runner.captures
+        got_c = firm_alg.step(mcfg, fc, state_b, frz, batches[1], None, None,
+                              runner)
+        want_c = local.firm_local_step(mcfg, fc, state_b, frz, batches[1])
+        stale["in_place_write"] = {"new_captures": runner.captures - caps,
+                                   "bit_identical": same_update(got_c, want_c)}
+        norm.copy_(saved)
+        check(all(v["bit_identical"] for v in stale.values())
+              and stale["same_values"]["new_captures"] == 1
+              and stale["one_leaf_changed"]["new_captures"] == 1
+              and stale["in_place_write"]["new_captures"] == 0,
+              f"{mcfg.name}: stale-graph checks {stale}")
+        peak_all = torch.cuda.max_memory_allocated()
+        seconds = {"eager_updates": eager_s,
+                   "graph_calls_warm_capture_replay": graph_s,
+                   "replayed_update_mean": replays_s / 8,
+                   "capture": g.capture_s, "instantiate": g.instantiate_s}
+        del copies, changed, got_c, want_c, runner, g, got, want, states
+        torch.cuda.empty_cache()
+        return {"model": mcfg.name, "bit_identical_A_B_A": bits,
+                "launches": launches, "linear_launches": lin_launches,
+                "seconds": seconds, "graph_nodes": nodes, "eager_kernels": eager_kernels,
+                "eager_host_launch_calls": calls,
+                "eager_profile": eager_prof, "replay_profile": replay_prof,
+                "stale_graph": stale,
+                "peak_memory_bytes": {"eager_three_updates": eager_peak,
+                                      "graph_three_calls": graph_peak,
+                                      "delta": graph_peak - eager_peak,
+                                      "phase_peak_allocated": peak_all},
+                "graph_pool_bytes": pool}
+
+    llama_update = {"rmsnorm": per_forward,
+                    "flash_attention": cfg.n_layers,
+                    "rmsnorm_bwd": N_OBJ * 2 * cfg.n_layers,
+                    "flash_attention_bwd": N_OBJ * cfg.n_layers, "gram": 1}
+    zamba2_update = {"rmsnorm": z_per_forward, "flash_attention": n_attn,
+                     "ssd": n_mamba, "gram": 1,
+                     **{k: N_OBJ * v for k, v in z_pull.items()}}
+    for case in ((cfg, frozen0, state0._replace(trainable=train), state0,
+                  batch, llama_update),
+                 (zcfg, z_frozen0, z_state0._replace(trainable=z_train),
+                  z_state0, z_batch, zamba2_update)):
+        emit(phase="update_graph", **update_graph_case(*case))
+    # FedCMOO's server solve (eager, 100 pgd iterations) after the host
+    # reads left the projection: two clients' (M, d) matrices at llama's d
+    solve_gen = torch.Generator(device=dev).manual_seed(23)
+    mats = [randn((N_OBJ, d_lora), torch.float32, solve_gen)
+            for _ in range(N_CLIENTS)]
+    fedcmoo.server_solve(mats)
+    solve_s = [wall(lambda: fedcmoo.server_solve(mats))[1]
+               for _ in range(5)]
+    emit(phase="update_graph", fedcmoo_server_solve_s=solve_s,
+         server_solve_shape=[N_CLIENTS, N_OBJ, d_lora])
+    del mats
+    done("update_graph")
+
+    # --------------------------------------------------------------- 19. round
     # the federated round at full width: C = 2 clients, K = 1 local step,
     # R = 2 rounds so that the error-feedback residual carries into round
     # 2; first the ``wan`` preset (int8+ef uplink, identity downlink), then
@@ -2559,8 +2784,19 @@ def run(torch, stop_after) -> int:
             "device_idle_share_of_unprofiled_round":
                 1 - busy_ns / 1e9 / (sum(wan_record["seconds_per_round"])
                                      / ROUNDS)}
-    emit(phase="round", profile=round_profile, **wan_record)
-    del trainer
+    # the same trainer's rounds with the update captured and eager, in
+    # turns (graph, eager, eager, graph): without the trainer's graphs
+    # each client-step's update is the first and only call of a runner of
+    # its own, the eager step on the side stream
+    graphs = trainer.update_graphs
+    turns_s = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        trainer.update_graphs = graphs if mode == "graph" else None
+        turns_s[mode].append(wall(trainer.run_round)[1])
+    trainer.update_graphs = graphs
+    emit(phase="round", profile=round_profile,
+         graph_vs_eager_round_s=turns_s, **wan_record)
+    del trainer, graphs
 
     # the extreme preset: the top-k uplink's 32 count passes a round (one
     # launch over both clients each), the int8 broadcast's quantize and
@@ -2584,7 +2820,7 @@ def run(torch, stop_after) -> int:
     del trainer
     done("round")
 
-    # -------------------------------------------------------- 19. round_hybrid
+    # -------------------------------------------------------- 20. round_hybrid
     # the wan round on zamba2 at full width: C = 2 clients, K = 1, R = 1,
     # from the rollout_hybrid phase's reference weights.  comm_bytes is the
     # value tests/test_torch_hybrid_training.py takes from the reference's
@@ -2652,7 +2888,7 @@ def run(torch, stop_after) -> int:
     del z_trainer
     done("round_hybrid")
 
-    # -------------------------------------------------------- 20. round_parity
+    # -------------------------------------------------------- 21. round_parity
     # a round on the card against the port's CPU round (which the CPU tests
     # hold to the JAX package), at a tiny f32 config of each trained
     # model: R = 3 carried wan rounds of C = 2 clients, K = 1, B = 2, 8
@@ -2708,9 +2944,13 @@ def run(torch, stop_after) -> int:
         side_of = {}
 
         def spy_step(cfg_, fc_, state, *a, **kw):
+            # on the card the step runs inside a captured update, where a
+            # read to the host would end the capture: only the CPU's
+            # Gram matrices are read (the curvature below)
             st, met = step_fn(cfg_, fc_, state, *a, **kw)
-            grams[side_of["now"]].append(
-                met["gram"].detach().double().cpu().numpy())
+            if side_of["now"] == "cpu":
+                grams["cpu"].append(
+                    met["gram"].detach().double().cpu().numpy())
             return st, met
 
         def spy_solve(mats, *a, **kw):
@@ -2880,7 +3120,7 @@ def run(torch, stop_after) -> int:
          "entries past 1e-2, each within 0.25")
     done("round_parity")
 
-    # ---------------------------------------------------------- 21. algorithms
+    # ---------------------------------------------------------- 22. algorithms
     # the baselines at full width, from the rollout phase's reference
     # weights, with the wan preset: one fedcmoo round of C = 2 clients and
     # K = 2 steps (every step each client's M gradients go up through the
@@ -3064,7 +3304,7 @@ def run(torch, stop_after) -> int:
          "plain Gram's over min(1, D)")
     done("algorithms")
 
-    # ----------------------------------------------------------- 22. executors
+    # ----------------------------------------------------------- 23. executors
     # the front door at full width: plan(RunSpec) -> build(device="cuda",
     # params=the rollout phase's reference weights) -> one round, wan
     # preset, C = 2, for two plans: the loop executor
@@ -3187,7 +3427,7 @@ def run(torch, stop_after) -> int:
          "plan() allocates nothing on the card")
     done("executors")
 
-    # -------------------------------------------------------------- 23. codecs
+    # -------------------------------------------------------------- 24. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -3290,7 +3530,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # --------------------------------------------------------------- 24. train
+    # --------------------------------------------------------------- 25. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -3321,7 +3561,7 @@ def run(torch, stop_after) -> int:
          zamba2={"seconds": z_train_s, "report": z_report.getvalue()})
     done("train")
 
-    # --------------------------------------------------------------- 25. serve
+    # --------------------------------------------------------------- 26. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(
@@ -3361,6 +3601,8 @@ def run(torch, stop_after) -> int:
     rows += (count_row, mask_row, ssd_row, ssd_bwd_row)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    done("serve")
+    emit(phase="seconds_by_phase", seconds=phase_s)
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,15 @@ default ``kernels.ops.gram_from_pytrees``: the Hopper kernel for CUDA
 tensors, the plain version for CPU ones), solves the beta-regularised MGDA
 QP, optionally smooths lambda with the eta_t schedule, and returns the
 consensus direction g = sum_j lambda_j g_j.
+
+What the config fixes (its preference, ``eta0``) becomes a device tensor
+once per value and device (``config_tensor``), never inside a step: on
+CUDA a tensor built from Python values is a copy from pageable host
+memory, which a captured update cannot hold.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -42,21 +48,27 @@ def resolve(grads: Sequence, fc: FIRMConfig,
         pref = torch.as_tensor(preference, dtype=torch.float32,
                                device=G.device)
     elif fc.preference is not None:
-        pref = torch.tensor(fc.preference, dtype=torch.float32,
-                            device=G.device)
+        pref = config_tensor(tuple(fc.preference), G.device)
     else:
         pref = None
     lam_star = mgda.solve(G, fc.beta, preference=pref,
                           trace_normalize=fc.trace_normalize,
                           solver=fc.solver, iters=fc.solver_iters)
     if fc.lambda_smoothing and prev_lam is not None:
-        e = eta if eta is not None else torch.tensor(
-            fc.eta0, dtype=torch.float32, device=G.device)
+        e = eta if eta is not None else config_tensor(fc.eta0, G.device)
         lam = (1.0 - e) * prev_lam + e * lam_star
     else:
         lam = lam_star
     direction = mgda.combine(grads, lam)
     return ResolveResult(direction, lam, lam_star, G)
+
+
+@functools.lru_cache(maxsize=256)
+def config_tensor(values, device) -> torch.Tensor:
+    """An f32 tensor of a config's value (a float or a tuple of floats) on
+    ``device``, built once per value and device and shared: never written
+    in place."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def eta_schedule(t: torch.Tensor) -> torch.Tensor:

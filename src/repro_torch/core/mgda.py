@@ -57,7 +57,10 @@ def project_simplex(v: torch.Tensor) -> torch.Tensor:
     css = torch.cumsum(u, dim=-1)
     k = torch.arange(1, m + 1, dtype=v.dtype, device=v.device)
     rho = torch.sum(u + (1.0 - css) / k > 0, dim=-1)
-    theta = (css[rho - 1] - 1.0) / rho.to(v.dtype)
+    # css[rho - 1] read on the device: indexing with a tensor would read
+    # rho back to the host
+    css_rho = css.gather(-1, (rho - 1).reshape(1)).reshape(())
+    theta = (css_rho - 1.0) / rho.to(v.dtype)
     return torch.clamp(v - theta, min=0.0)
 
 
@@ -85,9 +88,11 @@ def solve_qp_m2(Q: torch.Tensor) -> torch.Tensor:
 def solve_qp_frank_wolfe(Q: torch.Tensor, iters: int = 100) -> torch.Tensor:
     m = Q.shape[0]
     lam = torch.full((m,), 1.0 / m, dtype=torch.float32, device=Q.device)
-    eye = torch.eye(m, dtype=torch.float32, device=Q.device)
+    idx = torch.arange(m, device=Q.device)
     for _ in range(iters):
-        d = eye[torch.argmin(2.0 * Q @ lam)] - lam
+        # the vertex e_argmin, built on the device (no host read)
+        vertex = (idx == torch.argmin(2.0 * Q @ lam)).to(torch.float32)
+        d = vertex - lam
         # exact line search for the quadratic: gamma* = -lam^T Q d / d^T Q d
         denom = d @ Q @ d
         gamma = torch.where(

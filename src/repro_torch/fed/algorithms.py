@@ -60,7 +60,7 @@ import torch
 
 from repro_torch.comms import ErrorFeedback
 from repro_torch.configs.base import FIRMConfig
-from repro_torch.core import fedavg, fedcmoo
+from repro_torch.core import fedavg, fedcmoo, firm
 from repro_torch.rlhf import local as local_lib
 
 
@@ -111,11 +111,15 @@ class Algorithm:
         return fc
 
     # ---- local-step machinery ----------------------------------------
-    def step(self, cfg, cfc: FIRMConfig, state, frozen, batch, pref, extra):
+    def step(self, cfg, cfc: FIRMConfig, state, frozen, batch, pref, extra,
+             graphs=None):
         """One client's local update: (new state, metrics with at least
         ``lam``, ``rewards`` and ``kl``).  The counterpart of the
         reference's ``traced_step``; ``pref`` is the client's (M,)
-        preference or None, ``extra`` what ``traced_extra`` gives."""
+        preference or None, ``extra`` what ``traced_extra`` gives.
+        ``graphs``, an ``update_graph.UpdateGraphs`` (given for CUDA
+        tensors), runs the update as a captured program; None runs it
+        eagerly."""
         raise NotImplementedError(self.name)
 
     def traced_extra(self, cfc: FIRMConfig, ec, device=None):
@@ -176,6 +180,18 @@ def _step_major(trainer, participants: List[int]):
                 yield k, ci, c
 
 
+def _firm_step(cfg, cfc, state, frozen, batch, pref):
+    # looked up at each call, so that a wrapper put on the module's
+    # firm_local_step (a test's spy) is the one captured
+    return local_lib.firm_local_step(cfg, cfc, state, frozen, batch,
+                                     preference=pref)
+
+
+def _linear_step(cfg, cfc, state, frozen, batch, weights):
+    return local_lib.linear_local_step(cfg, cfc, state, frozen, batch,
+                                       weights)
+
+
 class FIRMAlgorithm(Algorithm):
     """Paper Alg. 1: in-client regularized MGDA (client-local)."""
 
@@ -184,9 +200,17 @@ class FIRMAlgorithm(Algorithm):
     caps = Capabilities()
     loop_dispatches_per_client_step = 3     # generate, ref logprobs, step
 
-    def step(self, cfg, cfc, state, frozen, batch, pref, extra):
-        return local_lib.firm_local_step(cfg, cfc, state, frozen, batch,
-                                         preference=pref)
+    def step(self, cfg, cfc, state, frozen, batch, pref, extra,
+             graphs=None):
+        if graphs is None:
+            return local_lib.firm_local_step(cfg, cfc, state, frozen, batch,
+                                             preference=pref)
+        if pref is None and cfc.preference is not None:
+            # the config's preference rides the graph's static operand
+            pref = firm.config_tensor(tuple(cfc.preference),
+                                      state.lam.device)
+        return graphs.run(self.kernel, _firm_step, cfg, cfc, state, frozen,
+                          batch, pref)
 
 
 class FIRMUnregAlgorithm(FIRMAlgorithm):
@@ -208,9 +232,13 @@ class LinearAlgorithm(Algorithm):
     caps = Capabilities()
     loop_dispatches_per_client_step = 2     # generate, ref logprobs
 
-    def step(self, cfg, cfc, state, frozen, batch, pref, extra):
-        return local_lib.linear_local_step(cfg, cfc, state, frozen, batch,
-                                           extra)
+    def step(self, cfg, cfc, state, frozen, batch, pref, extra,
+             graphs=None):
+        if graphs is None:
+            return local_lib.linear_local_step(cfg, cfc, state, frozen,
+                                               batch, extra)
+        return graphs.run(self.kernel, _linear_step, cfg, cfc, state, frozen,
+                          batch, extra)
 
     def traced_extra(self, cfc, ec, device=None):
         return torch.tensor(

@@ -10,7 +10,9 @@ the SSD backward kernel.
 ``client_local_steps`` runs K local steps of one client, each a rollout
 then the algorithm's ``step`` (FIRM's by default): ``one_client`` and the
 scan ``body`` of ``_make_round_fn`` for a single client.  Every mode of
-the round below runs its steps through it.
+the round below runs its steps through it.  On CUDA a client-local
+algorithm's update is a captured program (``rlhf/update_graph``), as the
+reference jits it; the trainer holds the graphs (``update_graphs``).
 
 ``FederatedTrainer`` runs the federated round, ``run_round``, for every
 algorithm of the registry (``fed.algorithms``: ``firm``, ``firm_unreg``,
@@ -67,6 +69,7 @@ from repro_torch.models.common import merge_trainable, split_trainable
 from repro_torch.obs.records import round_summary
 from repro_torch.rlhf import local as local_lib
 from repro_torch.rlhf import ppo, rewards as rewards_lib
+from repro_torch.rlhf import update_graph
 from repro_torch.rlhf.sampling import generate
 
 
@@ -102,13 +105,16 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
                        gumbel: Optional[torch.Tensor] = None,
                        preference: Optional[torch.Tensor] = None,
                        algorithm: Optional[algorithms_lib.Algorithm] = None,
-                       extra=None):
+                       extra=None,
+                       graphs: Optional[update_graph.UpdateGraphs] = None):
     """K local steps of one client.  Returns (final state, metrics).
 
     Each step merges the client's adapters into ``frozen``, rolls out
     ``fc.batch_size`` prompts and runs ``algorithm.step`` (FIRM's
     ``firm_local_step`` by default) with ``extra``, the algorithm's
-    ``traced_extra``.  Prompts come
+    ``traced_extra``.  On CUDA the update runs through ``graphs`` (the
+    trainer's captured updates; without them, a set of this call's own),
+    on the CPU eagerly.  Prompts come
     from ``dataset`` or are injected as ``prompts`` (K, B, P); step k's
     sampling noise comes from ``generators[k]`` (the reference's one key a
     step) or is injected as ``gumbel`` (K, max_new, B, V).
@@ -119,6 +125,8 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
     if (dataset is None) == (prompts is None):
         raise ValueError("pass exactly one of dataset= and prompts=")
     algorithm = algorithm or algorithms_lib.FIRMAlgorithm()
+    if graphs is None and state.lam.is_cuda:
+        graphs = update_graph.UpdateGraphs()
     kept = {"lam": [], "rewards": [], "kl": []}
     for k in range(k_steps):
         params = merge_trainable(state.trainable, frozen)
@@ -131,7 +139,7 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
             generator=None if generators is None else generators[k],
             gumbel=None if gumbel is None else gumbel[k])
         state, metrics = algorithm.step(cfg, fc, state, frozen, batch,
-                                        preference, extra)
+                                        preference, extra, graphs)
         for key, vals in kept.items():
             vals.append(metrics[key])
     return state, {key: torch.stack(vals) for key, vals in kept.items()}
@@ -221,6 +229,9 @@ class FederatedTrainer:
         self._uplink_state = [None] * fc.n_clients
         self._downlink_state = None
         self.d_trainable = trees.tree_size(trainable)
+        # the captured local updates, freed with the trainer
+        self.update_graphs = (update_graph.UpdateGraphs()
+                              if self.device.type == "cuda" else None)
         self.history: List[dict] = []
         self._rng = torch.Generator().manual_seed(ec.seed + 1)
         self._round_idx = 0
@@ -338,7 +349,8 @@ class FederatedTrainer:
                                 [gen_keys[k][ci] for k in range(k_steps)]),
                     gumbel=None if gumbel is None else gumbel[:, ci],
                     preference=self._stacked_pref[c] if has_pref else None,
-                    algorithm=self.algorithm, extra=extra)
+                    algorithm=self.algorithm, extra=extra,
+                    graphs=self.update_graphs)
                 kept.append(m)
             ms = {key: torch.stack([m[key] for m in kept], dim=1)
                   for key in ("lam", "rewards", "kl")}        # (K, P, ...)
@@ -458,7 +470,8 @@ class FederatedTrainer:
             gumbel=None if gumbel is None else gumbel[k, ci][None],
             algorithm=self.algorithm,
             extra=self.algorithm.traced_extra(cfc, self.ec,
-                                              device=self.device))
+                                              device=self.device),
+            graphs=self.update_graphs)
         return state, {key: v[0] for key, v in m.items()}
 
     def _prompt_blocks(self, participants: List[int], k_steps: int,

@@ -48,7 +48,9 @@ def shaped_rewards(kl: torch.Tensor, mask: torch.Tensor,
     s = mask.shape[1]
     pos = torch.arange(s, device=mask.device, dtype=mask.dtype)
     last_idx = torch.argmax(mask * pos[None], dim=-1)        # last response
-    last = torch.nn.functional.one_hot(last_idx, s).to(torch.float32)
+    # one_hot would check the indices' range on the host
+    last = (torch.arange(s, device=mask.device) == last_idx[:, None]).to(
+        torch.float32)
     r = -kl_coef * kl[..., None] * mask[..., None]
     return r + last[..., None] * rewards[:, None, :]
 

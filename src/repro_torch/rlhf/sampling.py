@@ -16,7 +16,8 @@ eagerly on the graph's side stream before the capture: it is real work
 and the warm-up of every lazy first call.  Before each step the noise is
 drawn (or copied, when injected) into its buffer outside the graph, so
 the draws are the eager loop's.  The kernels' launch counters are moved
-for the replays (``kernels.counters``).  A capture or replay that fails
+for the replays (``kernels.counters``).  No garbage collection runs
+during a capture (``no_collection``).  A capture or replay that fails
 raises; nothing falls back to the eager loop, which stays as
 ``_decode_eager`` for the tests and ``chip_smoke.py`` to hold the graph
 against.
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import time
 from typing import Optional
 
@@ -43,6 +45,36 @@ from repro_torch.rng import (categorical, gumbel_from_uniform, gumbel_noise,
 # captured; it is never replayed again.
 _SIDE_STREAMS: dict = {}
 _LAST_GRAPHS: dict = {}
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """The device's side stream, on which every graph of the port (the
+    decode step's, the local update's) is warmed and captured.  Each use
+    starts by waiting for the current stream, so a block freed on it is
+    reused only after the current stream's earlier work."""
+    device = torch.device(device)
+    key = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[key]
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Python's cyclic garbage collector off for the block (as it was
+    after it).  A CUDA graph freed while another is being captured (a
+    dropped trainer's update graph, collected with the trainer's
+    reference cycles) destroys its executable graph, which a capture in
+    progress does not permit: the capture is lost.  So no collection runs
+    during a capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _check_noise(generator, gumbel) -> None:
@@ -158,7 +190,8 @@ def _decode(cfg: ModelConfig, params, cache, last: torch.Tensor, *,
         graph.warm(step, state)
     if graph is not None and max_new > 1:
         before = counters.read()
-        graph.capture(step, state)
+        with no_collection():
+            graph.capture(step, state)
         per_replay = counters.since(before)
         counters.add(per_replay, -1)              # the capture ran nothing
     for i in range(1, max_new):
@@ -185,9 +218,7 @@ class _StepGraph:
         self.device = torch.device(device)
         self.key = self.device.index if self.device.index is not None \
             else torch.cuda.current_device()
-        if self.key not in _SIDE_STREAMS:
-            _SIDE_STREAMS[self.key] = torch.cuda.Stream(self.device)
-        self.side = _SIDE_STREAMS[self.key]
+        self.side = side_stream(self.device)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.capture_s = self.instantiate_s = self.ready_at = None
 
