@@ -194,7 +194,11 @@ line, for a first check of new kernels):
             int8 gradient uplink (its exchange phase: one quantize launch
             a step over the clients' gradient rows), and of ``firm``
             with client_local_steps=(1, 2, 1) (two cohorts; the injected
-            draws padded to the largest K), held the same way.
+            draws padded to the largest K), held the same way.  Then one
+            fused chunk of R=3 rounds of the tiny llama on each side
+            (``run_rounds_fused`` with the draws injected), ``wan`` and
+            ``wan`` up with the ``delta+int8`` downlink (its rounding bits
+            injected), held the same way round by round.
 22. algorithms: the baselines on llama-3.2-1b at full width, ``wan``
             preset: one ``fedcmoo`` round (C=2, K=2: each step the clients'
             M gradients up through the int8 codec in one quantize and one
@@ -224,7 +228,21 @@ line, for a first check of new kernels):
             gram once a client-step, one quantize and one dequantize); each
             client made its K steps.  Seconds by part, seconds a
             client-step beside the same call's ``wan`` rounds, peak memory.
-24. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+24. fused:  the fused executor (``run_rounds_fused``) at full width
+            (llama-3.2-1b, C=2, K=1) against the per-round executor from
+            the same seed and weights, one trainer after the other: ``wan``
+            over three chunks of 3 rounds (the second and third under
+            ``torch.cuda.set_sync_debug_mode("error")``, the second also
+            under ``torch.profiler``: exactly one device-to-host copy, the
+            idle share, host launch calls) against six per-round rounds,
+            ``mobile`` over one chunk of 2 against 2.  Bit for bit over
+            the rounds both ran: every summary key but ``dispatches``, the
+            global adapters and the residual rows; ``fused`` R and
+            ``dispatches`` 3 / R; exact launches (the round phase's a
+            round, times the rounds) and bytes; seconds a round of the
+            third chunk against per-round rounds 4-6, peak memory a
+            chunk.
+25. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             delta bit for bit; low-rank on the script's usual draw and five
@@ -233,9 +251,9 @@ line, for a first check of new kernels):
             max |flat + state|, cond(P) of the card's range sample in
             float64; the low-rank payload's bytes equal ``nbytes_static``
             (59,392).
-25. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
+26. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
             for llama-3.2-1b and for zamba2-1.2b.
-26. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+27. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
             llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
@@ -250,6 +268,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
@@ -305,7 +324,7 @@ PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
           "rollout", "rollout_hybrid", "decode_graph", "local_step",
           "local_step_hybrid", "update_graph",
           "round", "round_hybrid", "round_parity", "algorithms", "executors",
-          "codecs", "train", "serve")
+          "fused", "codecs", "train", "serve")
 TOPK_PASSES = 32               # bisection passes of one top-k selection
 # the host's calls that put work on a stream, as torch.profiler names them
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -427,31 +446,39 @@ def run(torch, stop_after) -> int:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    def device_profile(fn, steps: int):
+    def device_profile(fn, steps: int, cpu_ops: bool = True):
         """Device busy and idle share of ``fn`` under torch.profiler; the
         window runs from the first kernel's start to the last one's end.
         Read from kineto's raw events (an update's replays trace some
         70,000 kernels, too many to build the profiler's event tree in
         time).  None ("not measured") when the trace holds no device
-        time."""
+        time.  ``cpu_ops=False`` records no host operator (the CUDA
+        activity alone, whose runtime calls still give the host's launch
+        calls), for a window of whole rounds."""
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        activities = [torch.profiler.ProfilerActivity.CUDA]
+        if cpu_ops:
+            activities.append(torch.profiler.ProfilerActivity.CPU)
+        with torch.profiler.profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
-        events = list(prof.profiler.kineto_results.events())
+        # one pass over the events (a chunk of rounds traces ~10^6)
+        kernels, host = [], {}
+        on_card = torch.autograd.DeviceType.CUDA
+        on_host = torch.autograd.DeviceType.CPU
+        for e in prof.profiler.kineto_results.events():
+            kind = e.device_type()
+            if kind == on_card:
+                kernels.append((e.name(), e.start_ns(), e.duration_ns()))
+            elif kind == on_host:
+                name = e.name()
+                if name in HOST_LAUNCH_CALLS:
+                    host[name] = host.get(name, 0) + 1
         del prof
-        kernels = [(e.name(), e.start_ns(), e.duration_ns()) for e in events
-                   if e.device_type() == torch.autograd.DeviceType.CUDA]
         if not kernels:
             return None
         copies = sum(n.startswith(("Memcpy", "Memset")) for n, _, _ in kernels)
-        host = {}
-        for e in events:
-            if (e.device_type() == torch.autograd.DeviceType.CPU
-                    and e.name() in HOST_LAUNCH_CALLS):
-                host[e.name()] = host.get(e.name(), 0) + 1
+        to_host = sum(n.startswith("Memcpy DtoH") for n, _, _ in kernels)
         busy = sum(d_ for _, _, d_ in kernels) / 1e3
         window = (max(t + d_ for _, t, d_ in kernels)
                   - min(t for _, t, _ in kernels)) / 1e3
@@ -461,6 +488,7 @@ def run(torch, stop_after) -> int:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         return {"steps": steps, "kernels_per_step": len(kernels) / steps,
                 "memcpy_memset_per_step": copies / steps,
+                "device_to_host_copies": to_host,
                 "host_launches_per_step": sum(host.values()) / steps,
                 "host_launch_calls": host,
                 "device_busy_us_per_step": busy / steps,
@@ -2648,7 +2676,7 @@ def run(torch, stop_after) -> int:
                   for name, n in want_local.items()}
     names = {"_broadcast": "downlink", "_local_phase": "local_phase",
              "_delta_flat": "delta", "_uplink": "uplink_codec",
-             "_aggregate_flat": "aggregate", "_summary_stats": "summary"}
+             "_aggregate_flat": "aggregate", "_record": "summary"}
 
     def federated_rounds(preset: str):
         """ROUNDS counted rounds of a fresh trainer with the preset's
@@ -2909,10 +2937,12 @@ def run(torch, stop_after) -> int:
     # round's worst step (from the CPU steps' Gram matrices).  The zamba2
     # config runs the SSD kernels forward and backward (hd 64, ds 16).
     def parity_rounds(cfg_p, algorithm="firm", up="int8+ef", n_rounds=3,
-                      vectorized=True, het_steps=None):
+                      vectorized=True, het_steps=None, down="identity",
+                      fused=False):
         """n_rounds carried rounds on both sides; ``vectorized=False`` asks
         for the loop executor, ``het_steps`` for heterogeneous
-        client_local_steps (cohorts), one entry a client."""
+        client_local_steps (cohorts), one entry a client; ``fused`` runs
+        the rounds as one chunk of the fused executor on each side."""
         pb, pp, pnew = 2, 8, 12
         pc, k_max = ((len(het_steps), max(het_steps)) if het_steps
                      else (2, 1))
@@ -2920,7 +2950,9 @@ def run(torch, stop_after) -> int:
                                    batch_size=pb, n_objectives=N_OBJ,
                                    client_local_steps=het_steps)
         ec_p = EngineConfig(algorithm=algorithm, prompt_len=pp, max_new=pnew,
-                            uplink_codec=up, vectorized_clients=vectorized)
+                            uplink_codec=up, downlink_codec=down,
+                            vectorized_clients=vectorized,
+                            fused_rounds=n_rounds if fused else 1)
         g_cpu = torch.Generator().manual_seed(19)
         p_cpu = transformer.init_params(cfg_p, generator=g_cpu,
                                         device="cpu", dtype=torch.float32)
@@ -2938,8 +2970,12 @@ def run(torch, stop_after) -> int:
         beta = alg.resolve_config(fc_p).beta
         # the MGDA problems solved: the clients' Gram matrices (firm,
         # firm_unreg) or the server's average matrices (fedcmoo); linear
-        # solves none
+        # solves none.  The uplink's input rows and the new global adapters
+        # of every round, on each side.
         grams, uplinks = {"cpu": [], "cuda": []}, {"cpu": [], "cuda": []}
+        globals_ = {s_: [torch.cat([t.reshape(-1).cpu() for t in
+                                    common.tree_leaves(tr.global_trainable)])]
+                    for s_, tr in sides.items()}
         step_fn, solve_fn = local.firm_local_step, fedcmoo.server_solve
         side_of = {}
 
@@ -2958,19 +2994,27 @@ def run(torch, stop_after) -> int:
             grams[side_of["now"]].append((avg @ avg.T).numpy())
             return solve_fn(mats, *a, **kw)
         for side, tr in sides.items():
-            rt = tr.uplink_codec.roundtrip_stacked
-
-            def spy_up(flats, spec, states=None, _rt=rt, _side=side, **kw):
-                out = _rt(flats, spec, states, **kw)
+            # the host boundary, which both executors' rounds run
+            def spy_up(flats, *a, _rt=tr.uplink_codec.roundtrip_stacked,
+                       _side=side, **kw):
+                out = _rt(flats, *a, **kw)
                 uplinks[_side].append(flats.detach().cpu().clone())
                 return out
             tr.uplink_codec.roundtrip_stacked = spy_up
+
+            def spy_aggregate(*a, _agg=tr._aggregate_flat, _side=side):
+                out = _agg(*a)
+                globals_[_side].append(torch.cat(
+                    [t.reshape(-1).cpu() for t in common.tree_leaves(out)]))
+                return out
+            tr._aggregate_flat = spy_aggregate
         rows = -(-sides["cpu"].d_trainable // q_mod.BLOCK)
         lr = fc_p.actor_lr
         records = []
         local.firm_local_step = spy_step
         fedcmoo.server_solve = spy_solve
         transformer.prefill = f32_prefill
+        all_draws = []
         for r in range(n_rounds):
             draws = {
                 "prompts": torch.randint(0, cfg_p.vocab,
@@ -2982,28 +3026,47 @@ def run(torch, stop_after) -> int:
                 "up_bits": torch.randint(-2 ** 31, 2 ** 31 - 1,
                                          (pc, rows, 1024), dtype=torch.int32,
                                          generator=g_cpu)}
+            if down != "identity":
+                draws["down_bits"] = torch.randint(
+                    -2 ** 31, 2 ** 31 - 1, (rows, 1024), dtype=torch.int32,
+                    generator=g_cpu)
             if exchange:
                 draws["grad_bits"] = torch.randint(
                     -2 ** 31, 2 ** 31 - 1, (k_max, pc * N_OBJ, rows, 1024),
                     dtype=torch.int32, generator=g_cpu)
-            before = {s: torch.cat([t.reshape(-1).cpu() for t in
-                                    common.tree_leaves(tr.global_trainable)])
-                      for s, tr in sides.items()}
+            all_draws.append(draws)
+
+        def on(side, draws):
+            dev_s = torch.device("cpu") if side == "cpu" else dev
+            return {k: v.to(dev_s) for k, v in draws.items()}
+        # each round's delta uplink rows (a fedcmoo round sends its
+        # gradients through the same identity codec before them)
+        chunk, round_up = {}, {"cpu": [], "cuda": []}
+        if fused:
+            for side, tr in sides.items():
+                side_of["now"] = side
+                chunk[side], sec_ = wall(lambda: tr.run_rounds_fused(
+                    n_rounds, draws=[on(side, d_) for d_ in all_draws]))
+                chunk[side + "_s"] = sec_ / n_rounds
+                round_up[side] = uplinks[side][-n_rounds:]
+        for r in range(n_rounds):
             summ, sec = {}, {}
             for side, tr in sides.items():
                 side_of["now"] = side
-                dev_s = torch.device("cpu") if side == "cpu" else dev
-                summ[side], sec[side] = wall(lambda: tr.run_round(
-                    **{k: v.to(dev_s) for k, v in draws.items()}))
-            after = {s: torch.cat([t.reshape(-1).cpu() for t in
-                                   common.tree_leaves(tr.global_trainable)])
-                     for s, tr in sides.items()}
+                if fused:
+                    summ[side], sec[side] = chunk[side][r], chunk[side + "_s"]
+                else:
+                    summ[side], sec[side] = wall(lambda: tr.run_round(
+                        **on(side, all_draws[r])))
+                    round_up[side].append(uplinks[side][-1])
+            before = {s_: g_[r] for s_, g_ in globals_.items()}
+            after = {s_: g_[r + 1] for s_, g_ in globals_.items()}
             curv = []
             # the round's problems: one a step (fedcmoo's server) or one a
             # client-step
             n_solved = (k_max if exchange else
                         sum(het_steps) if het_steps else pc)
-            for g in grams["cpu"][-n_solved:]:
+            for g in grams["cpu"][r * n_solved:(r + 1) * n_solved]:
                 q = g / (np.trace(g) / N_OBJ) + 0.5 * beta * np.eye(N_OBJ)
                 curv.append(q[0, 0] + q[1, 1] - 2 * q[0, 1])
             slack = 1 / min(1.0, float(min(curv))) if curv else 1.0
@@ -3017,8 +3080,8 @@ def run(torch, stop_after) -> int:
                 """Share of entries past tol of the scale."""
                 a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
                 return float((np.abs(a - b) > tol * np.abs(b).max()).mean())
-            steps = {"client_steps": (uplinks["cuda"][-1] / lr,
-                                      uplinks["cpu"][-1] / lr),
+            steps = {"client_steps": (round_up["cuda"][r] / lr,
+                                      round_up["cpu"][r] / lr),
                      "global_step": ((after["cuda"] - before["cuda"]) / lr,
                                      (after["cpu"] - before["cpu"]) / lr)}
             rec = {
@@ -3028,7 +3091,8 @@ def run(torch, stop_after) -> int:
                 "exact": all(got[k] == want[k] for k in (
                     "comm_bytes", "up_bytes", "down_bytes", "participants",
                     "up_nbytes", "down_nbytes", "dispatches", "cohorts",
-                    "local_steps"))
+                    "local_steps")) and got.get("fused") == want.get("fused")
+                and got.get("fused") == (n_rounds if fused else None)
                 and bool(np.array_equal(got["rewards_per_client"],
                                         want["rewards_per_client"])),
                 "drift": of_scale(got["param_drift"], want["param_drift"]),
@@ -3111,8 +3175,24 @@ def run(torch, stop_after) -> int:
           and x_launches["fedcmoo loop"]["quantize"] == 3 * 2
           and x_launches["firm cohorts 1,2,1"]["gram"] == 3 * 4,
           f"round_parity executors' launches {x_launches}")
+    # the fused executor on the tiny llama: one chunk of R = 3 rounds on
+    # each side, wan, then wan up with the delta+int8 downlink (its
+    # rounding bits injected)
+    parity_fused = {}
+    for down_p in ("identity", "delta+int8"):
+        zero_counts()
+        parity_fused[f"wan up, {down_p} down"] = {
+            "rounds": parity_rounds(tiny_llama, "firm", "int8+ef", 3,
+                                    down=down_p, fused=True),
+            "card_launches": read_counts()}
+    f_launches = {k: v["card_launches"] for k, v in parity_fused.items()}
+    check(f_launches["wan up, identity down"]["quantize"] == 3
+          and f_launches["wan up, delta+int8 down"]["quantize"] == 6
+          and all(v["gram"] == 3 * 2 for v in f_launches.values()),
+          f"round_parity fused launches {f_launches}")
     emit(phase="round_parity", models=parity,
          algorithms=parity_algorithms, executors=parity_executors,
+         fused=parity_fused,
          tolerance="exact bytes, participants, dispatches and rewards; "
          "drift 1e-4 of its scale; KL 1e-6 absolute; lambda 1e-4 and the "
          "steps over actor_lr 1e-2 of their scale, each over min(1, D); "
@@ -3333,7 +3413,7 @@ def run(torch, stop_after) -> int:
             "_local_phase_cohorts", 2)}
     names_x = {"_broadcast": "downlink", "_delta_flat": "delta",
                "_uplink": "uplink_codec", "_aggregate_flat": "aggregate",
-               "_summary_stats": "summary"}
+               "_record": "summary"}
     wan_client_step_s = [s_ / N_CLIENTS
                          for s_ in wan_record["seconds_per_round"]]
     executors = {}
@@ -3427,7 +3507,193 @@ def run(torch, stop_after) -> int:
          "plan() allocates nothing on the card")
     done("executors")
 
-    # -------------------------------------------------------------- 24. codecs
+    # --------------------------------------------------------------- 24. fused
+    # the fused executor at full width (llama-3.2-1b, C = 2, K = 1) against
+    # the per-round executor from the same seed and the rollout phase's
+    # reference weights, one trainer after the other: each peaks at ~20.8
+    # GB besides its ~15 GB update pool, so two at once do not fit; each
+    # hands its summaries, global adapters and error-feedback rows to the
+    # host and is freed.  Each trainer's first chunk (of the per-round
+    # trainer: its first R rounds) warms and captures the update; the
+    # second runs under torch.cuda.set_sync_debug_mode("error"), where any
+    # synchronising call raises (the chunk's one copy to the host goes
+    # into pinned memory and the host waits on an event, which the mode
+    # does not flag).  wan: two chunks of 3 against six rounds, the second
+    # chunk timed against rounds 4-6.  mobile: three chunks of 2 against
+    # two rounds; the fused trainer's second chunk runs under
+    # torch.profiler (CUDA activity alone) for its idle share, host launch
+    # calls and traced device-to-host copies (at most one: the trace can
+    # lose its tail), the shortest window that holds a whole chunk; its
+    # third under CopiesToHost for the exact count of copies to the host
+    # (one).  Held bit for bit over the rounds both ran: every
+    # summary key but dispatches (and fused), the global adapters and the
+    # residual rows after them; fused is R and dispatches the reference's
+    # 3 / R.  The counts are zeroed just before each trainer's rounds and
+    # read just after: the round phase's launches a round, times the
+    # rounds.
+    fc_f = dataclasses.replace(fc, n_clients=N_CLIENTS, local_steps=1)
+    launches_a_round = {name: N_CLIENTS * n // k_steps
+                        for name, n in want_local.items()}
+
+    def host_copy(tr):
+        return ([t.cpu() for t in common.tree_leaves(tr.global_trainable)],
+                [r_.cpu() for r_ in tr._uplink_state])
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+
+    class CopiesToHost(TorchDispatchMode):
+        """Counts the ATen calls that bring card data to the host (a copy
+        or conversion of a CUDA tensor onto the CPU, a scalar read): the
+        exact count, where a CUPTI trace of ~10^6 records can lose its
+        tail (one run of this phase traced 0 copies in a chunk that
+        another traced with 1 copy and ~2,600 more records)."""
+
+        def __init__(self):
+            super().__init__()
+            self.count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            op = func.overloadpacket
+            if op is aten.copy_:
+                hit = args[0].device.type == "cpu" and args[1].is_cuda
+            elif op is aten._to_copy:
+                to = kwargs.get("device")
+                hit = (args[0].is_cuda and to is not None
+                       and torch.device(to).type == "cpu")
+            else:
+                hit = (op in (aten._local_scalar_dense, aten.item)
+                       and args[0].is_cuda)
+            self.count += hit
+            return func(*args, **kwargs)
+
+    def fused_case(preset: str, chunk: int, chunks: dict,
+                   profiled: bool = False):
+        """``chunks``: mode -> the number of chunks of ``chunk`` rounds it
+        runs; the fused trainer's second is profiled if ``profiled``."""
+        up, down = CODEC_PRESETS[preset]
+        codec_launches = 1 + (down != "identity")
+        n_common = chunk * min(chunks.values())
+        runs = {}
+        for mode, n_chunks in chunks.items():
+            tr = FederatedTrainer(cfg, fc_f, EngineConfig(
+                prompt_len=P, max_new=MAX_NEW, uplink_codec=up,
+                downlink_codec=down,
+                fused_rounds=chunk if mode == "fused" else 1),
+                params=ref_params, device=dev)
+            check(tr.plan.executor == ("fused" if mode == "fused"
+                                       else "vectorized"),
+                  f"{preset} {mode} executor {tr.plan.executor}")
+            hist, recs = [], []
+            torch.cuda.synchronize()
+            zero_counts()
+            for i in range(n_chunks):
+                strict = i > 0
+
+                def run_chunk():
+                    if strict:
+                        torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        if mode == "fused":
+                            return tr.run_rounds_fused(chunk)
+                        return [tr.run_round() for _ in range(chunk)]
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                rec = {"chunk": i + 1, "sync_debug_mode_error": strict}
+                if mode == "fused" and profiled and i == 1:
+                    box = []
+                    rec["profile"] = device_profile(
+                        lambda: box.append(run_chunk()), chunk,
+                        cpu_ops=False)
+                    out = box[0]
+                elif mode == "fused" and profiled and i == 2:
+                    # apart from the profile: the counter's host time
+                    # would show as device idle
+                    to_host = CopiesToHost()
+                    with to_host:
+                        out = run_chunk()
+                    rec["device_to_host_copies_aten"] = to_host.count
+                else:
+                    t0 = time.perf_counter()
+                    out = run_chunk()
+                    torch.cuda.synchronize()
+                    rec["seconds"] = time.perf_counter() - t0
+                    rec["seconds_per_round"] = rec["seconds"] / chunk
+                rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+                hist += out
+                recs.append(rec)
+                if len(hist) == n_common:
+                    common_state = host_copy(tr)
+            launches = read_counts()
+            n_rounds = chunk * n_chunks
+            want = {name: n_rounds * n for name, n in
+                    launches_a_round.items()}
+            want.update(quantize=n_rounds * codec_launches,
+                        dequantize=n_rounds * codec_launches)
+            check(launches == want, f"{preset} {mode} launch counts "
+                  f"{launches}, expected {want}")
+            runs[mode] = dict(hist=hist, chunks=recs, launches=launches,
+                              state=common_state)
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        fused, per = runs["fused"], runs["per_round"]
+        for r, sf in enumerate(fused["hist"]):
+            check(sf["fused"] == chunk and sf["dispatches"] == 3 / chunk
+                  and sf["comm_bytes"] == (r + 1) * N_CLIENTS * (
+                      make_codec(up).nbytes_static(d_lora)
+                      + make_codec(down).nbytes_static(d_lora)),
+                  f"{preset} fused round {r + 1}: {sf}")
+        for r, (sf, sp) in enumerate(zip(fused["hist"], per["hist"])):
+            check(list(sf) == list(sp) + ["fused"]
+                  and all(np.array_equal(np.asarray(sf[k]), np.asarray(sp[k]))
+                          for k in sp if k != "dispatches"),
+                  f"{preset} round {r + 1}: fused {sf} per round {sp}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            fused["state"][0] + fused["state"][1],
+            per["state"][0] + per["state"][1], strict=True)),
+            f"{preset}: the global adapters and residual rows after "
+            f"{n_common} rounds, bit for bit")
+        return {mode: dict(
+            chunks=run["chunks"], launches=run["launches"],
+            dispatches=[s_["dispatches"] for s_ in run["hist"]])
+            for mode, run in runs.items()} | dict(
+            preset=preset, uplink=up, downlink=down, chunk=chunk,
+            rounds_bit_for_bit=n_common,
+            comm_bytes=per["hist"][-1]["comm_bytes"],
+            kl=[s_["kl"] for s_ in fused["hist"]],
+            param_drift=[s_["param_drift"] for s_ in fused["hist"]])
+
+    fused_wan = fused_case("wan", 3, {"fused": 2, "per_round": 2})
+    fused_mobile = fused_case("mobile", 2, {"fused": 3, "per_round": 1},
+                              profiled=True)
+    prof_f = fused_mobile["fused"]["chunks"][1]["profile"]
+    aten_f = fused_mobile["fused"]["chunks"][2]["device_to_host_copies_aten"]
+    check(aten_f == 1 and prof_f is not None
+          and prof_f["device_to_host_copies"] <= 1,
+          f"fused chunks' device-to-host copies: {aten_f} counted (chunk "
+          f"3), {prof_f} traced (chunk 2)")
+    last3 = {"fused (chunk 2)":
+             fused_wan["fused"]["chunks"][1]["seconds_per_round"],
+             "per round (rounds 4-6)":
+             fused_wan["per_round"]["chunks"][1]["seconds_per_round"]}
+    emit(phase="fused", model=cfg.name, clients=N_CLIENTS, local_steps=1,
+         batch=B, prompt_len=P, max_new=MAX_NEW, d_trainable=d_lora,
+         nvidia_smi=smi, wan=fused_wan, mobile=fused_mobile,
+         seconds_per_round=last3,
+         fused_over_per_round=(last3["fused (chunk 2)"]
+                               / last3["per round (rounds 4-6)"]),
+         per_round_idle_share_of_a_profiled_round=(
+             None if round_profile is None else
+             round_profile["device_idle_share_of_profiled_window"]),
+         tolerance="bit for bit: every summary key but dispatches, the "
+         "global adapters and the residual rows; exact launches and bytes")
+    done("fused")
+
+    # -------------------------------------------------------------- 25. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -3530,7 +3796,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # --------------------------------------------------------------- 25. train
+    # --------------------------------------------------------------- 26. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -3561,7 +3827,7 @@ def run(torch, stop_after) -> int:
          zamba2={"seconds": z_train_s, "report": z_report.getvalue()})
     done("train")
 
-    # --------------------------------------------------------------- 26. serve
+    # --------------------------------------------------------------- 27. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(

@@ -1,6 +1,7 @@
 """The uplink/downlink codecs of the federated round (counterpart of
 ``repro.comms``): ``identity``, ``int8``/``int4``, ``topk``, ``lowrank``,
-``+ef`` and ``delta+``, at the host boundary."""
+``+ef`` and ``delta+``, at the host boundary and in the traced contract
+of the fused executor."""
 from repro_torch.comms.codec import (Codec, DeltaCodec, ErrorFeedback,
                                      IdentityCodec, Payload, TreeSpec,
                                      flat_to_tree, tree_to_flat)

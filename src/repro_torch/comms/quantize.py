@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.comms.codec import Codec, Payload
+from repro_torch.comms.codec import Codec, _rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize import BLOCK
 
@@ -107,19 +107,17 @@ class QuantizeCodec(Codec):
 
     # -- stacked-client path: one launch over all clients' rows -----------
     def _quantize_stacked(self, flats, keys=None, bits=None):
-        """(C, d) -> (codes, scales, rows, x) from ONE quantize over the
+        """(C, d) -> (codes, scales, x) from ONE quantize over the
         clients' concatenated rows ``x`` (C * rows, BLOCK); rows are
         independent, so each client's codes are those of its own encode.
         ``keys``: one generator (or None: round to nearest) per client;
         ``bits``: the injected (C, rows, BLOCK) draws instead."""
-        c = flats.shape[0]
         x, rows = _stacked_blocks(flats)
-        keys = list(keys) if keys is not None else [None] * c
-        rbits = torch.cat([self._rounding_bits(
-            rows, keys[i], None if bits is None else bits[i], x.device)
-            for i in range(c)])
+        keys, row_bits = _rows(flats.shape[0], keys, bits)
+        rbits = torch.cat([self._rounding_bits(rows, k, b, x.device)
+                           for k, b in zip(keys, row_bits)])
         codes, scales = ops.quantize(x, rbits, self.qmax)
-        return codes, scales, rows, x
+        return codes, scales, x
 
     @staticmethod
     def _dequantize(codes, scales, adj=None):
@@ -129,41 +127,45 @@ class QuantizeCodec(Codec):
             return ops.dequantize(codes, scales), None
         return ops.dequantize_with_residual(codes, scales, adj)
 
-    def _stacked_payloads(self, codes, scales, rows, c, spec, d):
-        payloads = []
-        for i in range(c):
-            ci = codes[i * rows:(i + 1) * rows]
-            if self.bits == 4:
-                ci = pack_int4(ci)
-            payloads.append(Payload(
-                self.name,
-                {"codes": ci, "scales": scales[i * rows:(i + 1) * rows]},
-                {"bits": self.bits, "spec": spec, "d": d}))
-        return payloads
+    def _wire(self, codes, scales):
+        """The concatenated rows' wire buffers: int4 codes packed."""
+        return {"codes": pack_int4(codes) if self.bits == 4 else codes,
+                "scales": scales}
 
-    def encode_stacked(self, flats, spec, states=None, *, keys=None,
-                       bits=None):
+    def encode_decode_traced_stacked(self, flats, *, keys=None, bits=None):
+        """One quantize and one dequantize launch over all C clients'
+        rows: (wire buffers in the concatenated-row layout, decoded (C,
+        d)).  Row c is ``encode_decode_traced(flats[c], key=keys[c])``."""
         c, d = flats.shape
-        codes, scales, rows, _ = self._quantize_stacked(flats, keys, bits)
-        return (self._stacked_payloads(codes, scales, rows, c, spec, d),
-                list(states) if states is not None else [None] * c)
+        codes, scales, _ = self._quantize_stacked(flats, keys, bits)
+        decoded = self._dequantize(codes, scales)[0]
+        return self._wire(codes, scales), decoded.reshape(c, -1)[:, :d]
 
-    def ef_roundtrip_stacked(self, adj, spec, *, keys=None, bits=None):
+    def encode_decode_residual_traced_stacked(self, adj, *, keys=None,
+                                              bits=None):
         """One quantize launch over all rows, then one dequantize launch
         whose epilogue writes the residual ``fma(-code, scale, adj)``."""
         c, d = adj.shape
-        codes, scales, rows, x = self._quantize_stacked(adj, keys, bits)
+        codes, scales, x = self._quantize_stacked(adj, keys, bits)
         decoded, residual = self._dequantize(codes, scales, adj=x)
-        return (self._stacked_payloads(codes, scales, rows, c, spec, d),
-                decoded.reshape(c, -1)[:, :d],
+        return (self._wire(codes, scales), decoded.reshape(c, -1)[:, :d],
                 residual.reshape(c, -1)[:, :d])
 
-    def roundtrip_stacked(self, flats, spec, states=None, *, keys=None,
-                          bits=None):
-        c, d = flats.shape
-        codes, scales, rows, _ = self._quantize_stacked(flats, keys, bits)
-        payloads = self._stacked_payloads(codes, scales, rows, c, spec, d)
-        decoded = self._dequantize(codes, scales)[0]
-        return (payloads,
-                list(states) if states is not None else [None] * c,
-                decoded.reshape(c, -1)[:, :d])
+    def encode_decode_traced(self, flat, *, key=None, bits=None):
+        arrays, decoded = self.encode_decode_traced_stacked(
+            flat[None], keys=[key], bits=None if bits is None else bits[None])
+        return arrays, decoded[0]
+
+    def stacked_payloads_from_arrays(self, arrays, c, spec, d):
+        """Slice the concatenated rows into per-client Payloads: the
+        layout (and bytes) of per-client encodes."""
+        rows = -(-d // BLOCK)
+        return [self.payload_from_arrays(
+            {k: v[i * rows:(i + 1) * rows] for k, v in arrays.items()},
+            spec, d) for i in range(c)]
+
+    def encode_stacked(self, flats, spec, states=None, *, keys=None,
+                       bits=None):
+        payloads, states, _ = self.roundtrip_stacked(flats, spec, states,
+                                                     keys=keys, bits=bits)
+        return payloads, states

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.comms.codec import Codec, Payload
+from repro_torch.comms.codec import Codec
 from repro_torch.comms.quantize import _stacked_blocks
 from repro_torch.kernels import ops
 
@@ -94,19 +94,18 @@ class TopKCodec(Codec):
     def meta_static(self, d: int):
         return {"k": self._k(d)}
 
-    def roundtrip_stacked(self, flats, spec, states=None, *, keys=None,
-                          bits=None):
-        """All C rows in one batched bisection; the keys and bits are not
-        read (selection is deterministic)."""
+    def encode_decode_traced_stacked(self, flats, *, keys=None, bits=None):
+        """All C rows in one batched bisection: (indices and values (C,
+        k), decoded (C, d)); the keys and bits are not read (selection is
+        deterministic), and row c is the row's own selection."""
         c, d = flats.shape
-        k = self._k(d)
-        idx, vals = topk_support_stacked(flats, k, self.use_kernel)
+        idx, vals = topk_support_stacked(flats, self._k(d), self.use_kernel)
         vals = vals.float()
-        payloads = [Payload(self.name, {"indices": idx[i], "values": vals[i]},
-                            {"k": k, "spec": spec, "d": d})
-                    for i in range(c)]
         decoded = torch.zeros((c, d), dtype=torch.float32,
                               device=flats.device)
         decoded.scatter_(1, idx.long(), vals)
-        return (payloads,
-                list(states) if states is not None else [None] * c, decoded)
+        return {"indices": idx, "values": vals}, decoded
+
+    def encode_decode_traced(self, flat, *, key=None, bits=None):
+        arrays, decoded = self.encode_decode_traced_stacked(flat[None])
+        return {k: v[0] for k, v in arrays.items()}, decoded[0]

@@ -29,8 +29,9 @@ def staleness_weights(staleness, pow: float = 0.5) -> torch.Tensor:
     """FedBuff-style discounting w_i proportional to (1 + s_i)^-pow,
     normalised; zero staleness gives exactly 1/C each."""
     s = torch.as_tensor(staleness, dtype=torch.float32)
-    w = (1.0 + s) ** (-torch.as_tensor(pow, dtype=torch.float32,
-                                       device=s.device))
+    # the exponent is filled on the device, not copied from the host
+    w = (1.0 + s) ** torch.full((), -pow, dtype=torch.float32,
+                                device=s.device)
     return w / w.sum()
 
 

@@ -241,10 +241,11 @@ class LinearAlgorithm(Algorithm):
                           batch, extra)
 
     def traced_extra(self, cfc, ec, device=None):
-        return torch.tensor(
-            ec.linear_weights
-            or [1.0 / cfc.n_objectives] * cfc.n_objectives,
-            dtype=torch.float32, device=device)
+        # built once a value and device: a copy from the host every round
+        # would make the host wait for the device
+        return firm.config_tensor(
+            tuple(ec.linear_weights
+                  or [1.0 / cfc.n_objectives] * cfc.n_objectives), device)
 
 
 class FedCMOOAlgorithm(Algorithm):

@@ -20,10 +20,11 @@ Every executor decision is a capability query against the algorithm
 registry (``fed.algorithms``); the planner and the trainer share
 ``resolve_local_mode`` and ``resolve_fused``, so the plan is what the
 trainer does.  The decisions, reasons and byte predictions equal the
-reference planner's for the same spec.  Two executors are planned but
-not run yet: a ``fused`` plan's ``run()`` and a plan with a scheduler
-(``spec.sched``) raise ``NotImplementedError`` (ROADMAP Queue 1 items 4
-and 5), never falling back to per-round rounds on their own.
+reference planner's for the same spec.  A ``fused`` plan runs through
+the trainer's fused executor (``FederatedTrainer.run_rounds_fused``), in
+the plan's ``fused_chunks``.  The scheduler is planned but not run yet: a
+plan with one (``spec.sched``) raises ``NotImplementedError`` (ROADMAP
+Queue 1 item 5), never falling back to the bare engine on its own.
 """
 from __future__ import annotations
 
@@ -68,8 +69,8 @@ class EngineConfig:
     # run the round's local phase as the vectorized executor's (one cohort
     # a static config); False asks for the per-client loop executor
     vectorized_clients: bool = True
-    # fuse R rounds into one program (the reference's round-level scan):
-    # planned as the reference plans it, not run yet (Queue 1 item 4)
+    # fuse R rounds into one chunk with one copy to the host at its end
+    # (the reference's round-level scan): FederatedTrainer.run_rounds_fused
     fused_rounds: int = 1
     # extra telemetry sinks (the reference's ``obs.metrics`` specs): not
     # ported yet (Queue 1 item 5); anything but None raises

@@ -44,13 +44,27 @@ drift statistics, the comms ledger and the round summary, whose
 ``dispatches`` and ``cohorts`` are the reference's for the mode taken.
 The clients run one after another in every mode: the kernels'
 ``autograd.Function``s have no vmap rule, and one client's update already
-peaks at ~17 GB at full width.  The fused multi-round executor and the
-scheduler are planned but not ported: a fused plan's ``run()`` raises.
+peaks at ~17 GB at full width.  The round's statistics reach the host in
+one copy at its end (``_to_host``).
+
+The fused executor (``run_rounds_fused``, the reference's round-level
+``lax.scan``) runs R ``vec`` rounds as one chunk through the same round
+body (``_round``), the participants worked out before the chunk starts,
+and copies the R rounds' statistics to the host in one copy after the
+last: on CUDA, where the rounds' generation and updates are captured
+programs, the host queues a whole chunk without waiting on the device.
+The reference's chunk runs its codecs through their traced contract
+because a jitted scan cannot hold a ``Payload``; the port's rounds run
+the host boundary, which is the same transform
+(``Codec.encode_decode_traced*``) and whose payloads read nothing from
+the device, so both executors count the payloads' bytes, which equal
+``nbytes_static``.  The scheduler is planned but not ported.
 """
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import device as device_lib
@@ -154,6 +168,25 @@ class LocalPhaseResult(NamedTuple):
     rewards_pc: torch.Tensor         # (P, M) per-client mean over steps
 
 
+# the round's statistics, in the order they are packed on the device
+STATS = ("rewards", "lam_mean", "lam_disagreement", "param_drift", "kl",
+         "per_client_lam", "rewards_per_client")
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host in one device-to-host copy.  On CUDA: a
+    non-blocking copy into pinned memory, then a wait on an event recorded
+    after it, the one point where the host waits for the device."""
+    if t.device.type != "cuda":
+        return t.detach().numpy().copy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    copied.synchronize()
+    return host.numpy().copy()
+
+
 class FederatedTrainer:
     """Server and C clients of a federated algorithm of the registry (FIRM,
     paper Alg. 1, by default), one round at a time.
@@ -183,7 +216,8 @@ class FederatedTrainer:
     the Gumbel noise and the codecs' bits: ``run_round(participants=...)``
     takes one round's sorted client indices, and ``run(R, participants=)``
     a schedule of R such lists, one a round, which it hands to
-    ``run_round``; without a schedule each round draws its own.
+    ``run_round`` (or ``run_rounds_fused``); without a schedule each round
+    draws its own.
     """
 
     def __init__(self, cfg: ModelConfig, fc: FIRMConfig,
@@ -278,6 +312,14 @@ class FederatedTrainer:
             vectorized_clients=self.ec.vectorized_clients,
             lift_preference=self._stacked_pref is not None)
         return mode, plan
+
+    def _fused_mode(self):
+        """(eligible, the cohort's config) for the fused executor:
+        ``api.resolve_fused`` over the whole population's local mode."""
+        mode, plan = self._local_phase_mode(list(range(self.fc.n_clients)))
+        ok, _ = api_lib.resolve_fused(self.algorithm, mode,
+                                      self.uplink_codec, self.downlink_codec)
+        return (True, plan[0].cfc) if ok else (False, None)
 
     # ------------------------------------------------------------------
     def _broadcast(self, bits=None):
@@ -516,19 +558,30 @@ class FederatedTrainer:
                                      self._delta_spec)
         return trees.tree_map(lambda b, d: b + d, anchor, agg)
 
-    def _summary_stats(self, res: LocalPhaseResult) -> dict:
-        """The round's statistics, moved to the host in one transfer."""
-        stats = {
-            "rewards": res.rewards_mean,
-            "lam_mean": res.lams.mean(0),
-            "lam_disagreement":
-                drift.lambda_disagreement(res.lams)["pairwise_mean"],
-            "param_drift": drift.param_drift_stacked(res.stacked_trainable),
-            "kl": res.kl_mean,
-            "per_client_lam": res.lams,
-            "rewards_per_client": res.rewards_pc,
-        }
-        return {k: v.detach().cpu().numpy() for k, v in stats.items()}
+    @staticmethod
+    def _round_stats(res: LocalPhaseResult) -> torch.Tensor:
+        """The round's statistics (``STATS``), packed on the device into
+        one f32 vector: the summary's values, bit for bit."""
+        stats = (res.rewards_mean, res.lams.mean(0),
+                 drift.lambda_disagreement(res.lams)["pairwise_mean"],
+                 drift.param_drift_stacked(res.stacked_trainable),
+                 res.kl_mean, res.lams, res.rewards_pc)
+        for name, t in zip(STATS, stats):
+            if t.dtype != torch.float32:
+                raise TypeError(f"round statistic {name} is {t.dtype}, "
+                                "not float32")
+        return torch.cat([t.detach().reshape(-1) for t in stats])
+
+    def _unpack_stats(self, row: np.ndarray, n_part: int) -> dict:
+        """A host row of ``_round_stats`` back into the statistics."""
+        m = self.fc.n_objectives
+        shapes = ((m,), (m,), (), (), (), (n_part, m), (n_part, m))
+        out, off = {}, 0
+        for name, shape in zip(STATS, shapes):
+            n = int(np.prod(shape))
+            out[name] = row[off:off + n].reshape(shape)
+            off += n
+        return out
 
     def _round_dispatches(self, mode: str, plan,
                           participants: List[int]) -> int:
@@ -541,6 +594,62 @@ class FederatedTrainer:
             self.algorithm, "loop" if mode == "loop" else "vectorized",
             mode, plan, [self._client_fcs[c] for c in participants],
             len(participants), 1)))
+
+    def _round(self, participants: List[int], *, prompts=None, gumbel=None,
+               up_bits=None, down_bits=None, grad_bits=None,
+               sketch_noise=None):
+        """The body of a round, for both executors: the broadcast, the
+        local phase, the stacked delta through the uplink, FedAvg and the
+        ledger.  It leaves the statistics on the device: it returns them
+        packed (``_round_stats``) beside the summary's other fields, which
+        ``_record`` turns into the summary.  The injected draws are
+        ``run_round``'s."""
+        dl_payload, broadcast = self._broadcast(down_bits)
+        for _ in participants:
+            self.ledger.send_down(dl_payload)
+        mode, plan = self._local_phase_mode(participants)
+        if mode == "vec":
+            res = self._local_phase(participants, broadcast, prompts, gumbel,
+                                    grad_bits, sketch_noise,
+                                    cfc=plan[0].cfc)
+        elif mode == "cohort":
+            res = self._local_phase_cohorts(plan, participants, broadcast,
+                                            prompts, gumbel)
+        else:
+            res = self._local_phase_loop(participants, broadcast, prompts,
+                                         gumbel, grad_bits, sketch_noise)
+        flat_deltas = self._delta_flat(res.stacked_trainable, broadcast)
+        payloads, decoded = self._uplink(participants, flat_deltas, up_bits)
+        self.global_trainable = self._aggregate_flat(
+            broadcast, decoded, torch.zeros(len(participants),
+                                            device=decoded.device))
+        self.ledger.next_round()
+        self._round_idx += 1
+        return self._round_stats(res), dict(
+            comm_bytes=self.ledger.total,
+            up_bytes=self.ledger.up_bytes,
+            down_bytes=self.ledger.down_bytes,
+            participants=participants,
+            dispatches=self._round_dispatches(mode, plan, participants),
+            up_nbytes=[int(p.nbytes) for p in payloads],
+            down_nbytes=comms.measured_bytes(dl_payload),
+            local_steps=[self._client_fcs[c].local_steps
+                         for c in participants],
+            cohorts=len(plan) if plan is not None else 0)
+
+    def _record(self, rounds, **fields) -> List[dict]:
+        """The summaries of ``rounds``, ``_round``'s (statistics, fields)
+        pairs, appended to the history: the statistics of all of them
+        come to the host in one copy.  ``fields`` override the rounds'."""
+        host = _to_host(torch.cat([row for row, _ in rounds]))
+        out, off = [], 0
+        for row, own in rounds:
+            stats = self._unpack_stats(host[off:off + row.numel()],
+                                       len(own["participants"]))
+            off += row.numel()
+            out.append(round_summary(stats=stats, **{**own, **fields}))
+        self.history += out
+        return out
 
     def run_round(self, participants: Optional[List[int]] = None, *,
                   prompts=None, gumbel=None, up_bits=None,
@@ -565,40 +674,61 @@ class FederatedTrainer:
         """
         if participants is None:
             participants = self._sample_participants()
-        dl_payload, broadcast = self._broadcast(down_bits)
-        for _ in participants:
-            self.ledger.send_down(dl_payload)
-        mode, plan = self._local_phase_mode(participants)
-        if mode == "vec":
-            res = self._local_phase(participants, broadcast, prompts, gumbel,
-                                    grad_bits, sketch_noise,
-                                    cfc=plan[0].cfc)
-        elif mode == "cohort":
-            res = self._local_phase_cohorts(plan, participants, broadcast,
-                                            prompts, gumbel)
-        else:
-            res = self._local_phase_loop(participants, broadcast, prompts,
-                                         gumbel, grad_bits, sketch_noise)
-        flat_deltas = self._delta_flat(res.stacked_trainable, broadcast)
-        payloads, decoded = self._uplink(participants, flat_deltas, up_bits)
-        self.global_trainable = self._aggregate_flat(
-            broadcast, decoded, [0.0] * len(participants))
-        self.ledger.next_round()
-        self._round_idx += 1
-        summary = round_summary(
-            stats=self._summary_stats(res),
-            comm_bytes=self.ledger.total,
-            up_bytes=self.ledger.up_bytes,
-            down_bytes=self.ledger.down_bytes,
-            participants=participants,
-            dispatches=self._round_dispatches(mode, plan, participants),
-            up_nbytes=[int(p.nbytes) for p in payloads],
-            down_nbytes=comms.measured_bytes(dl_payload),
-            local_steps=[self._client_fcs[c].local_steps
-                         for c in participants],
-            cohorts=len(plan) if plan is not None else 0)
-        self.history.append(summary)
-        return summary
+        return self._record([self._round(
+            participants, prompts=prompts, gumbel=gumbel, up_bits=up_bits,
+            down_bits=down_bits, grad_bits=grad_bits,
+            sketch_noise=sketch_noise)])[0]
+
+    def run_rounds_fused(self, rounds: int, *,
+                         participants: Optional[Sequence[Sequence[int]]]
+                         = None, draws: Optional[Sequence[dict]] = None
+                         ) -> List[dict]:
+        """``rounds`` rounds as one chunk, with one copy to the host at its
+        end; returns their summaries.
+
+        Each round is ``run_round``'s body (``_round``) on the ``vec``
+        path, so the chunk is the per-round rounds bit for bit; only the
+        statistics' copy to the host waits for the chunk's end.  The
+        summaries are ``run_round``'s but for ``dispatches``, the
+        reference's count for a fused chunk amortised over its rounds
+        (3 / R), and ``fused``, R.  ``participants`` is a schedule of one
+        sorted list a round (default: ``_sample_participants`` of each
+        round, worked out before the chunk starts); ``draws`` one dict a
+        round of ``run_round``'s injected draws (``prompts``, ``gumbel``,
+        ``up_bits``, ``down_bits``).  If a round raises, the rounds before
+        it are recorded as if the chunk had ended there, so the trainer is
+        where those rounds through ``run_round`` would leave it.  An
+        algorithm, executor or cohort structure the fused executor cannot
+        run raises ``ValueError``.
+        """
+        ok, cfc = self._fused_mode()
+        if not ok:
+            raise ValueError(
+                "fused_rounds requires a fusable algorithm (traced server "
+                "exchange, vmap-safe local step), one full-population "
+                "static-config cohort, and codecs supporting the traced "
+                "contract; use run()/run_round() instead")
+        for name, given in (("participant schedule", participants),
+                            ("draws", draws)):
+            if given is not None and len(given) != rounds:
+                raise ValueError(f"a fused chunk's {name} needs one entry a "
+                                 f"round: {len(given)} for {rounds} rounds")
+        round0 = self._round_idx
+        schedule = [self._sample_participants(round0 + r)
+                    if participants is None else list(participants[r])
+                    for r in range(rounds)]
+        chunk = dict(fused=rounds, dispatches=api_lib._dispatch_estimate(
+            self.algorithm, "fused", "vec", None, [cfc], self.fc.n_clients,
+            rounds))
+        done = []
+        try:
+            for parts, drawn in zip(schedule, draws or [{}] * rounds):
+                done.append(self._round(parts, **drawn))
+        except BaseException:
+            if done:
+                self._record(done, **chunk)
+            raise
+        return self._record(done, **chunk)
 
     def run(self, rounds: Optional[int] = None,
             participants: Optional[Sequence[Sequence[int]]] = None
@@ -606,22 +736,28 @@ class FederatedTrainer:
         """``rounds`` rounds (default ``fc.rounds``); returns the history.
 
         ``participants``, if given, is a schedule of one list of client
-        indices a round, each handed to ``run_round``; without it every
-        round draws its own.  A plan whose executor is ``fused`` raises:
-        the fused executor is not ported, and its rounds are not run one
-        by one in its place.
+        indices a round, each handed to ``run_round`` (or its chunk's to
+        ``run_rounds_fused``); without it every round draws its own.  With
+        ``fused_rounds`` R > 1 and a trainer the fused executor can run,
+        the horizon runs as chunks of R rounds, the last one shorter, a
+        last chunk of one round through ``run_round``, as the reference's
+        ``run`` does; otherwise round by round.
         """
-        if self.plan.executor == "fused":
-            raise NotImplementedError(
-                f"the plan's executor is 'fused' (fused_rounds="
-                f"{self.ec.fused_rounds}): the fused executor is not ported "
-                "yet: ROADMAP Queue 1 item 4; ask for fused_rounds=1")
         rounds = rounds or self.fc.rounds
         if participants is not None and len(participants) != rounds:
             raise ValueError(f"a participant schedule needs one entry a "
                              f"round: {len(participants)} for {rounds} "
                              "rounds")
-        for r in range(rounds):
-            self.run_round(None if participants is None
-                           else list(participants[r]))
+        chunk = (max(1, int(self.ec.fused_rounds)) if self._fused_mode()[0]
+                 else 1)
+        r = 0
+        while r < rounds:
+            n = min(chunk, rounds - r)
+            sched = (None if participants is None
+                     else [list(p) for p in participants[r:r + n]])
+            if n == 1:
+                self.run_round(None if sched is None else sched[0])
+            else:
+                self.run_rounds_fused(n, participants=sched)
+            r += n
         return self.history

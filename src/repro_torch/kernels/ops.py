@@ -117,12 +117,14 @@ def topk_threshold(x2, k: int, iters: int = 32, *, use_kernel: bool = True):
     passes is one count over all clients.  lo, hi and mid stay f32 tensors
     on the device: Python floats are f64 and would bisect to other
     thresholds, and reading them would wait for the device every pass.
+    The constants are filled on the device (``torch.full``), not copied
+    from the host, so the selection never waits for a copy either.
     """
     xf = x2.float()
     hi = torch.nextafter(xf.abs().amax(dim=(-2, -1)),
-                         torch.tensor(float("inf"), device=xf.device))
+                         torch.full((), float("inf"), device=xf.device))
     lo = torch.zeros_like(hi)
-    kf = torch.tensor(float(k), dtype=torch.float32, device=xf.device)
+    kf = torch.full((), float(k), dtype=torch.float32, device=xf.device)
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
         take = abs_threshold_count(xf, mid, use_kernel=use_kernel) >= kf

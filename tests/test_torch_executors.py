@@ -45,8 +45,8 @@ On the port alone: the loop executor against the vectorized executor,
 three rounds from the same seed, bit for bit on the adapters, the client
 states and the residuals (the summaries' reductions may differ in the
 last bit); heterogeneous K through the loop against cohorts, likewise;
-``plan().execute()`` against ``FederatedTrainer(...).run()``; and the
-explicit errors of what is not ported (a fused plan's run, a scheduler,
+``plan().execute()`` against ``FederatedTrainer(...).run()``; a fused
+plan's run; and the explicit errors of what is not ported (a scheduler,
 a metrics sink).
 """
 import dataclasses
@@ -459,8 +459,10 @@ def test_execute_is_the_trainer_run():
 
 
 def test_what_is_not_ported_raises_and_never_falls_back():
-    """A fused plan's run, a plan with a scheduler and a metrics sink each
-    raise NotImplementedError naming the ROADMAP item that ports them."""
+    """A fused plan runs through the fused executor, in its chunks, from
+    ``build().run()`` and ``execute()`` alike; a plan with a scheduler and
+    a metrics sink each raise NotImplementedError naming the ROADMAP item
+    that ports them."""
     _, tcfg = _cfgs()
     fc = dataclasses.replace(FIRMConfig(), n_clients=2, local_steps=1,
                              batch_size=B, n_objectives=M)
@@ -468,14 +470,20 @@ def test_what_is_not_ported_raises_and_never_falls_back():
     p = api.plan(api.RunSpec(tcfg, fc, ec, rounds=2))
     assert p.executor == "fused" and p.fused_chunks == (2,)
     tr = p.build(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tr.run()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        p.execute(device="cpu")
-    assert tr.history == [] and tr.ledger.total == 0
-    # the same spec asked per round runs
-    assert api.plan(api.RunSpec(tcfg, fc, dataclasses.replace(
-        ec, fused_rounds=1))).build(device="cpu").run(1)[0]["cohorts"] == 1
+    hist = tr.run(2)
+    assert [s["fused"] for s in hist] == [2, 2]
+    assert [s["dispatches"] for s in hist] == [p.dispatches_per_round] * 2
+    assert tr.ledger.total == 2 * (p.up_bytes_per_round
+                                   + p.down_bytes_per_round)
+    executed = p.execute(device="cpu")
+    assert [s["fused"] for s in executed] == [2, 2]
+    for a, b in zip(hist, executed):
+        np.testing.assert_array_equal(a["rewards_per_client"],
+                                      b["rewards_per_client"])
+    # the same spec asked per round runs per round, with no fused key
+    per_round = api.plan(api.RunSpec(tcfg, fc, dataclasses.replace(
+        ec, fused_rounds=1))).build(device="cpu").run(1)[0]
+    assert per_round["cohorts"] == 1 and "fused" not in per_round
     sched = api.plan(api.RunSpec(tcfg, fc, EngineConfig(prompt_len=P),
                                  sched=SchedConfig(policy="deadline")))
     assert sched.policy == "deadline" and sched.executor == "vectorized"
