@@ -242,7 +242,33 @@ line, for a first check of new kernels):
             round, times the rounds) and bytes; seconds a round of the
             third chunk against per-round rounds 4-6, peak memory a
             chunk.
-25. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+25. sched:  the scheduled path at full width (llama-3.2-1b, ``wan``, B=16,
+            P=128, 128 new tokens, K=1), each trainer built by
+            ``plan(RunSpec(..., sched=SchedConfig(...))).build()`` and
+            freed before the next: (a) ``sync`` (C=2, bimodal profiles of
+            seed 1, a JSONL sink) against the bare engine from the same
+            seed, 2 rounds: every summary key and the global adapters bit
+            for bit, ``sim_time``, ``round_duration`` and
+            ``client_seconds`` from ``client_round_segments`` over the
+            rounds' measured bytes, one JSONL line a record; (b)
+            ``fedbuff`` at zero staleness (C=B=2, homogeneous), 2
+            aggregations: (a)'s per-client rewards, bytes and adapters
+            bit for bit, staleness [0, 0] at weights 0.5; (c)
+            ``deadline`` (C=4, participation 0.5, overselect 2, bimodal
+            seed 1, quantile 0.2), 2 rounds: clients 0 and 2 dropped each
+            round, the round the deadline long, the dropped clients'
+            broadcasts on the ledger, the trace valid and its server
+            track summing to the last ``sim_time``; (d) ``fedbuff``
+            under staleness (C=4, B=2, uniform profiles of seed 0, beta
+            gain 1), 3 aggregations: arrivals stale by 1 and 2 at
+            discounted weights, two betas through one update graph (one
+            key, one capture; its pool's bytes), flows and the in-flight
+            counter in the trace.  Launches exact for each case (the
+            round phase's a client-step; one quantize and one dequantize
+            a sync or deadline round, one a fedbuff client), seconds a
+            round or aggregation, peak memory, and one copy to the host
+            a round or aggregation (``CopiesToHost``).
+26. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             delta bit for bit; low-rank on the script's usual draw and five
@@ -251,9 +277,9 @@ line, for a first check of new kernels):
             max |flat + state|, cond(P) of the card's range sample in
             float64; the low-rank payload's bytes equal ``nbytes_static``
             (59,392).
-26. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
+27. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
             for llama-3.2-1b and for zamba2-1.2b.
-27. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+28. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
             llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
@@ -324,7 +350,7 @@ PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
           "rollout", "rollout_hybrid", "decode_graph", "local_step",
           "local_step_hybrid", "update_graph",
           "round", "round_hybrid", "round_parity", "algorithms", "executors",
-          "fused", "codecs", "train", "serve")
+          "fused", "sched", "codecs", "train", "serve")
 TOPK_PASSES = 32               # bisection passes of one top-k selection
 # the host's calls that put work on a stream, as torch.profiler names them
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -2537,7 +2563,8 @@ def run(torch, stop_after) -> int:
         bits = [same_update(g_, w_) for g_, w_ in zip(got, want)]
         check(all(bits), f"{mcfg.name}: the graph's updates A, B, A are not "
               f"the eager updates' bit for bit: {bits}")
-        g = runner.graph("firm", mcfg, fc, state_a, frz, batches[0])
+        g = runner.graph("firm", mcfg, fc, state_a, frz, batches[0],
+                         (firm.config_tensor(fc.beta, dev),))
         check(runner.captures == 1 and g is not None,
               f"{mcfg.name}: {runner.captures} captures for one key")
         pool = pool_bytes(g.graph)
@@ -3693,7 +3720,221 @@ def run(torch, stop_after) -> int:
          "global adapters and the residual rows; exact launches and bytes")
     done("fused")
 
-    # -------------------------------------------------------------- 25. codecs
+    # --------------------------------------------------------------- 25. sched
+    # the scheduled path at full width (llama-3.2-1b, the rollout phase's
+    # reference weights, wan, B = 16, P = 128, 128 new tokens, K = 1),
+    # every trainer through plan(RunSpec(..., sched=)).build() and freed
+    # before the next is built (each holds a ~15 GB update pool).  Each
+    # case's rounds (or aggregations) are timed and their launches counted
+    # (zeroed just before, read just after); then one more run of one
+    # round (for fedbuff: a dispatch of every client and one aggregation)
+    # under CopiesToHost gives the exact count of copies to the host.
+    # (a) sync (C = 2, bimodal seed 1, a JSONL sink) against the bare
+    # engine from the same seed: every summary key and the global adapters
+    # bit for bit, the clock from the rounds' measured bytes; (b) fedbuff
+    # at zero staleness (C = B = 2, homogeneous) against (a)'s rounds;
+    # (c) deadline (C = 4, participation 0.5, overselect 2, bimodal seed
+    # 1: clients 1 and 3 fast) drops clients 0 and 2 each round; (d)
+    # fedbuff under staleness (C = 4, B = 2, uniform seed 0, gain 1): the
+    # fast pair of bimodal seed 1 would fill every buffer and leave every
+    # staleness 0, so the profiles are uniform seed 0, whose arrivals are
+    # stale by 1 and 2 and whose third dispatch runs two beta buckets,
+    # both through the one update graph.
+    from repro_torch.configs.base import SchedConfig
+    from repro_torch.core import comms as comms_lib
+    from repro_torch.fed.sched import ScheduledTrainer, sample_profiles
+    from repro_torch.obs import span_seconds_by_track, validate_trace
+    seq_len = P + MAX_NEW
+    per_step = {name: n // k_steps for name, n in want_local.items()}
+    ec_s = EngineConfig(prompt_len=P, max_new=MAX_NEW, uplink_codec=wan_up,
+                        downlink_codec=wan_down)
+
+    def build_sched(n_clients, sc=None, ec_=ec_s, **fc_kw):
+        fc_s = dataclasses.replace(fc, n_clients=n_clients, local_steps=1,
+                                   **fc_kw)
+        p_ = api.plan(api.RunSpec(cfg, fc_s, ec_, sched=sc))
+        built = p_.build(device=dev, params=ref_params)
+        check((sc is None) != isinstance(built, ScheduledTrainer),
+              f"plan(sched={sc}).build() gave {type(built).__name__}")
+        return built
+
+    def sched_run(label, obj, n, client_steps, codec_calls):
+        """``obj.run(n)`` timed, its launches exact; returns the last
+        n entries of the history and the case's record."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        hist, sec = wall(lambda: obj.run(n))
+        launches = read_counts()
+        want = {name: client_steps * k for name, k in per_step.items()}
+        want.update(quantize=codec_calls, dequantize=codec_calls)
+        check(launches == want, f"sched {label} launch counts {launches}, "
+              f"expected {want}")
+        return list(hist[-n:]), dict(
+            seconds=sec, seconds_per_round=sec / n, launches=launches,
+            peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+    def copies_to_host(obj):
+        """Copies to the host of one more run of one round."""
+        to_host = CopiesToHost()
+        with to_host:
+            obj.run(1)
+        return to_host.count
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def same_summaries(got, want, keys):
+        return all(np.array_equal(np.asarray(g[k]), np.asarray(w[k]))
+                   for g, w in zip(got, want, strict=True) for k in keys)
+
+    sched_out = {}
+    # (a) sync against the bare engine
+    bare = build_sched(2)
+    hist_e, rec_e = sched_run("bare engine", bare, 2, 4, 2)
+    adapters_e = host_copy(bare)[0]
+    del bare
+    release()
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = Path(tmp, "sched.jsonl")
+        st = build_sched(2, SchedConfig(policy="sync", profile="bimodal",
+                                        profile_seed=1),
+                         dataclasses.replace(ec_s,
+                                             metrics_sink=f"jsonl:{jsonl}"))
+        hist_a, rec_a = sched_run("sync", st, 2, 4, 2)
+        adapters_a = host_copy(st.trainer)[0]
+        check(same_summaries(hist_a, hist_e, list(hist_e[0]))
+              and all(torch.equal(x, y) for x, y in zip(
+                  adapters_a, adapters_e, strict=True)),
+              "sync: the bare engine's summaries and adapters bit for bit")
+        profs = sample_profiles(2, "bimodal", 1)
+        t_sim = 0.0
+        for s_ in hist_a:
+            durs = [sum(x for _, x in comms_lib.client_round_segments(
+                profs[c], s_["down_nbytes"], s_["up_nbytes"][i], 1, B,
+                seq_len)) for i, c in enumerate(s_["participants"])]
+            t_sim += max(durs)
+            check(s_["sim_time"] == t_sim
+                  and s_["round_duration"] == max(durs)
+                  and s_["client_seconds"] == [round(x, 6) for x in durs],
+                  f"sync clock {s_['sim_time']} {s_['client_seconds']}, "
+                  f"from the measured bytes {t_sim} {durs}")
+        rec_a["device_to_host_copies_a_round"] = copies_to_host(st)
+        st.obs.close()
+        lines = [json.loads(x) for x in jsonl.read_text().splitlines()]
+        kl_lines = [x["value"] for x in lines if x["name"] == "round/kl"]
+        check(len(lines) == len(st.obs.records)
+              and kl_lines == [s_["kl"] for s_ in st.trainer.history],
+              f"sync JSONL: {len(lines)} lines, {len(st.obs.records)} "
+              f"records, round/kl {kl_lines}")
+        rec_a.update(jsonl_lines=len(lines), sim_time=hist_a[-1]["sim_time"],
+                     client_seconds=[s_["client_seconds"] for s_ in hist_a])
+    del st
+    release()
+    sched_out["sync"] = rec_a
+    sched_out["bare_engine"] = rec_e
+    # (b) fedbuff at zero staleness against (a)'s sync rounds
+    st = build_sched(2, SchedConfig(policy="fedbuff", buffer_size=2))
+    hist_b, rec_b = sched_run("fedbuff B=C", st, 2, 4, 4)
+    check(same_summaries(hist_b, hist_a, ["rewards_per_client",
+                                          "comm_bytes"])
+          and all(s_["staleness"] == [0, 0]
+                  and s_["staleness_weights"] == [0.5, 0.5]
+                  for s_ in hist_b)
+          and all(torch.equal(x, y) for x, y in zip(
+              host_copy(st.trainer)[0], adapters_a, strict=True)),
+          "fedbuff at zero staleness: sync's rewards, bytes and adapters "
+          f"bit for bit, {[s_['staleness'] for s_ in hist_b]}")
+    rec_b["device_to_host_copies_an_aggregation"] = copies_to_host(st)
+    del st
+    release()
+    sched_out["fedbuff_zero_staleness"] = rec_b
+    # (c) deadline
+    st = build_sched(4, SchedConfig(policy="deadline", overselect=2.0,
+                                    profile="bimodal", profile_seed=1,
+                                    deadline_quantile=0.2),
+                     participation=0.5)
+    hist_c, rec_c = sched_run("deadline", st, 2, 4, 2)
+    for r, s_ in enumerate(hist_c):
+        check(s_["selected"] == [0, 1, 2, 3] and s_["dropped"] == [0, 2]
+              and s_["participants"] == [1, 3]
+              and s_["round_duration"] == s_["deadline"]
+              and s_["down_bytes"] == (r + 1) * 4 * s_["down_nbytes"],
+              f"deadline round {r}: {s_}")
+    trace_c = st.trace.to_dict()
+    validate_trace(trace_c)
+    server_s = span_seconds_by_track(trace_c)[(1, 0)]
+    check(abs(server_s - hist_c[-1]["sim_time"])
+          <= 1e-9 * hist_c[-1]["sim_time"],
+          f"deadline server track {server_s} s, sim_time "
+          f"{hist_c[-1]['sim_time']}")
+    rec_c["device_to_host_copies_a_round"] = copies_to_host(st)
+    rec_c.update(deadline_s=[s_["deadline"] for s_ in hist_c],
+                 sim_time=hist_c[-1]["sim_time"], server_track_s=server_s,
+                 down_bytes=hist_c[-1]["down_bytes"])
+    del st
+    release()
+    sched_out["deadline"] = rec_c
+    # (d) fedbuff under staleness: one update graph for every beta
+    st = build_sched(4, SchedConfig(policy="fedbuff", buffer_size=2,
+                                    profile="uniform", profile_seed=0,
+                                    staleness_beta_gain=1.0))
+    betas = []
+    phase_fn = st.trainer._local_phase
+
+    def beta_spy(members, broadcast, *a, cfc, **kw):
+        betas.append(cfc.beta)
+        return phase_fn(members, broadcast, *a, cfc=cfc, **kw)
+    st.trainer._local_phase = beta_spy
+    hist_d, rec_d = sched_run("fedbuff stale", st, 3, 8, 8)
+    betas_d = list(betas)       # the copies' run below dispatches again
+    graphs_d = st.trainer.update_graphs
+    stale = [s_["staleness"] for s_ in hist_d]
+    check(max(max(x) for x in stale) >= 1
+          and all(dict(zip(s_["staleness"], s_["staleness_weights"]))[
+              max(s_["staleness"])] < 0.5 for s_ in hist_d
+              if max(s_["staleness"]) > min(s_["staleness"]))
+          and len(set(betas_d)) == 2
+          and graphs_d.captures == 1 and len(graphs_d._entries) == 1,
+          f"fedbuff stale: staleness {stale}, betas {betas_d}, "
+          f"{graphs_d.captures} captures, {len(graphs_d._entries)} keys")
+    trace_d = st.trace.to_dict()
+    validate_trace(trace_d)
+    check({"s", "f", "C"} <= {e["ph"] for e in trace_d["traceEvents"]},
+          "fedbuff trace: flows and the in-flight counter")
+    (entry_d,) = graphs_d._entries.values()
+    pool_d = pool_bytes(entry_d.graph.graph)
+    rec_d.update(
+        device_to_host_copies_an_aggregation=copies_to_host(st),
+        staleness=stale,
+        staleness_weights=[s_["staleness_weights"] for s_ in hist_d],
+        participants=[s_["participants"] for s_ in hist_d],
+        betas=betas_d, update_graph_keys=len(graphs_d._entries),
+        pool_bytes=pool_d,
+        pool_bytes_with_beta_in_the_key=(
+            None if pool_d is None else len(set(betas_d)) * pool_d),
+        sim_time=hist_d[-1]["sim_time"])
+    del st, graphs_d, entry_d
+    release()
+    sched_out["fedbuff_stale"] = rec_d
+    for key_, want_ in (("sync", "device_to_host_copies_a_round"),
+                        ("fedbuff_zero_staleness",
+                         "device_to_host_copies_an_aggregation"),
+                        ("deadline", "device_to_host_copies_a_round"),
+                        ("fedbuff_stale",
+                         "device_to_host_copies_an_aggregation")):
+        check(sched_out[key_][want_] == 1,
+              f"sched {key_}: {sched_out[key_][want_]} copies to the host")
+    emit(phase="sched", model=cfg.name, batch=B, prompt_len=P,
+         max_new=MAX_NEW, local_steps=1, preset="wan", nvidia_smi=smi,
+         phase_seconds=time.perf_counter() - phase_end[0], **sched_out,
+         tolerance="bit for bit: sync against the bare engine, fedbuff "
+         "at zero staleness against sync; exact launches, bytes, clock and "
+         "copies to the host")
+    done("sched")
+
+    # -------------------------------------------------------------- 26. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -3796,7 +4037,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # --------------------------------------------------------------- 26. train
+    # --------------------------------------------------------------- 27. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -3827,7 +4068,7 @@ def run(torch, stop_after) -> int:
          zamba2={"seconds": z_train_s, "report": z_report.getvalue()})
     done("train")
 
-    # --------------------------------------------------------------- 27. serve
+    # --------------------------------------------------------------- 28. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(

@@ -186,8 +186,7 @@ class FIRMConfig:
 @dataclasses.dataclass(frozen=True)
 class SchedConfig:
     """Scheduler knobs (the reference's ``repro.fed.sched``), field for
-    field.  The port's scheduler is not there yet: only the planner reads
-    this, for the policy name.
+    field, read by the planner and ``fed.sched.ScheduledTrainer``.
 
     ``policy`` selects the aggregation discipline; ``profile`` names a
     heterogeneity preset.  The deadline policy over-selects by

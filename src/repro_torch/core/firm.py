@@ -7,10 +7,12 @@ tensors, the plain version for CPU ones), solves the beta-regularised MGDA
 QP, optionally smooths lambda with the eta_t schedule, and returns the
 consensus direction g = sum_j lambda_j g_j.
 
-What the config fixes (its preference, ``eta0``) becomes a device tensor
-once per value and device (``config_tensor``), never inside a step: on
-CUDA a tensor built from Python values is a copy from pageable host
-memory, which a captured update cannot hold.
+What the config fixes (its preference, ``eta0``, beta) becomes a device
+tensor once per value and device (``config_tensor``), never inside a
+step: on CUDA a tensor built from Python values is a copy from pageable
+host memory, which a captured update cannot hold.  A captured update
+reads beta from such a tensor among its inputs, so one graph serves
+every beta (fedbuff's staleness-scaled ones).
 """
 from __future__ import annotations
 
@@ -35,13 +37,15 @@ def resolve(grads: Sequence, fc: FIRMConfig,
             prev_lam: Optional[torch.Tensor] = None,
             eta: Optional[torch.Tensor] = None,
             gram_fn=None,
-            preference: Optional[torch.Tensor] = None) -> ResolveResult:
+            preference: Optional[torch.Tensor] = None,
+            beta: Optional[torch.Tensor] = None) -> ResolveResult:
     """Resolve M per-objective gradients into one direction (Eq. 1).
 
     grads: list of M gradient trees.  prev_lam/eta: the lambda smoothing
     state (Alg. 2 Eq. 12).  gram_fn: override of the Gram computation
     (e.g. ``mgda.gram_matrix``).  preference: (M,) overriding
-    ``fc.preference``.
+    ``fc.preference``.  beta: a 0-d f32 tensor overriding ``fc.beta``,
+    with the same bits (``mgda.regularize``).
     """
     G = (gram_fn or ops.gram_from_pytrees)(grads)
     if preference is not None:
@@ -51,7 +55,8 @@ def resolve(grads: Sequence, fc: FIRMConfig,
         pref = config_tensor(tuple(fc.preference), G.device)
     else:
         pref = None
-    lam_star = mgda.solve(G, fc.beta, preference=pref,
+    lam_star = mgda.solve(G, fc.beta if beta is None else beta,
+                          preference=pref,
                           trace_normalize=fc.trace_normalize,
                           solver=fc.solver, iters=fc.solver_iters)
     if fc.lambda_smoothing and prev_lam is not None:

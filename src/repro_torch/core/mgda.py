@@ -37,17 +37,23 @@ def gram_matrix(grads) -> torch.Tensor:
                         for i in range(m)])
 
 
-def regularize(G: torch.Tensor, beta: float,
+def regularize(G: torch.Tensor, beta,
                preference: Optional[torch.Tensor] = None,
                trace_normalize: bool = True) -> torch.Tensor:
-    """G^ + (beta/2) I  or  G^ + Diag(p^-1)  (Eq. 9 / Eq. 3)."""
+    """G^ + (beta/2) I  or  G^ + Diag(p^-1)  (Eq. 9 / Eq. 3).
+
+    ``beta`` is a float or a 0-d f32 tensor (how a captured update reads
+    it).  Both give the bits of ``G + 0.5 * beta * I`` (halving is exact
+    in f32) in the same three kernels: the identity, its product with
+    beta, and the sum with the half folded in as ``alpha``."""
     m = G.shape[0]
     if trace_normalize:
         G = G / torch.clamp(torch.trace(G) / m, min=1e-12)      # App. A
     if preference is not None:
         p = torch.as_tensor(preference, dtype=torch.float32, device=G.device)
         return G + torch.diag(1.0 / torch.clamp(p, min=1e-9))
-    return G + 0.5 * beta * torch.eye(m, dtype=G.dtype, device=G.device)
+    return torch.add(G, torch.eye(m, dtype=G.dtype, device=G.device) * beta,
+                     alpha=0.5)
 
 
 def project_simplex(v: torch.Tensor) -> torch.Tensor:
@@ -104,7 +110,7 @@ def solve_qp_frank_wolfe(Q: torch.Tensor, iters: int = 100) -> torch.Tensor:
     return lam
 
 
-def solve(G: torch.Tensor, beta: float,
+def solve(G: torch.Tensor, beta,
           preference: Optional[torch.Tensor] = None,
           trace_normalize: bool = True, solver: str = "pgd",
           iters: int = 100) -> torch.Tensor:

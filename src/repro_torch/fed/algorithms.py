@@ -180,14 +180,17 @@ def _step_major(trainer, participants: List[int]):
                 yield k, ci, c
 
 
-def _firm_step(cfg, cfc, state, frozen, batch, pref):
+def _firm_step(cfg, cfc, state, frozen, batch, operands):
     # looked up at each call, so that a wrapper put on the module's
     # firm_local_step (a test's spy) is the one captured
+    beta, *pref = operands
     return local_lib.firm_local_step(cfg, cfc, state, frozen, batch,
-                                     preference=pref)
+                                     preference=pref[0] if pref else None,
+                                     beta=beta)
 
 
-def _linear_step(cfg, cfc, state, frozen, batch, weights):
+def _linear_step(cfg, cfc, state, frozen, batch, operands):
+    (weights,) = operands
     return local_lib.linear_local_step(cfg, cfc, state, frozen, batch,
                                        weights)
 
@@ -205,12 +208,15 @@ class FIRMAlgorithm(Algorithm):
         if graphs is None:
             return local_lib.firm_local_step(cfg, cfc, state, frozen, batch,
                                              preference=pref)
+        dev = state.lam.device
         if pref is None and cfc.preference is not None:
-            # the config's preference rides the graph's static operand
-            pref = firm.config_tensor(tuple(cfc.preference),
-                                      state.lam.device)
+            # the config's preference rides the graph's static operands
+            pref = firm.config_tensor(tuple(cfc.preference), dev)
+        # so does beta: one graph serves every beta (fedbuff's
+        # staleness-scaled ones), each update its own beta's bits
+        beta = firm.config_tensor(cfc.beta, dev)
         return graphs.run(self.kernel, _firm_step, cfg, cfc, state, frozen,
-                          batch, pref)
+                          batch, (beta,) if pref is None else (beta, pref))
 
 
 class FIRMUnregAlgorithm(FIRMAlgorithm):
@@ -238,7 +244,7 @@ class LinearAlgorithm(Algorithm):
             return local_lib.linear_local_step(cfg, cfc, state, frozen,
                                                batch, extra)
         return graphs.run(self.kernel, _linear_step, cfg, cfc, state, frozen,
-                          batch, extra)
+                          batch, (extra,))
 
     def traced_extra(self, cfc, ec, device=None):
         # built once a value and device: a copy from the host every round

@@ -22,9 +22,9 @@ registry (``fed.algorithms``); the planner and the trainer share
 trainer does.  The decisions, reasons and byte predictions equal the
 reference planner's for the same spec.  A ``fused`` plan runs through
 the trainer's fused executor (``FederatedTrainer.run_rounds_fused``), in
-the plan's ``fused_chunks``.  The scheduler is planned but not run yet: a
-plan with one (``spec.sched``) raises ``NotImplementedError`` (ROADMAP
-Queue 1 item 5), never falling back to the bare engine on its own.
+the plan's ``fused_chunks``.  A plan with a scheduler (``spec.sched``)
+builds a ``fed.sched.ScheduledTrainer`` around the trainer, whose policy
+(``sync``, ``deadline``, ``fedbuff``) runs it on a simulated clock.
 """
 from __future__ import annotations
 
@@ -41,8 +41,8 @@ from repro_torch.fed.algorithms import (Algorithm, Capabilities,
                                         client_configs, get_algorithm)
 from repro_torch.fed.sched.cohort import build_cohorts, cohort_summaries
 
-# the scheduler's policy names (the reference's ``sched.policies``); the
-# policies themselves are not ported yet
+# the scheduler's policy names (``sched.policies._POLICIES``, which the
+# planner does not import: the policies import the engine)
 POLICIES = ("deadline", "fedbuff", "sync")
 
 
@@ -72,8 +72,8 @@ class EngineConfig:
     # fuse R rounds into one chunk with one copy to the host at its end
     # (the reference's round-level scan): FederatedTrainer.run_rounds_fused
     fused_rounds: int = 1
-    # extra telemetry sinks (the reference's ``obs.metrics`` specs): not
-    # ported yet (Queue 1 item 5); anything but None raises
+    # extra telemetry sinks (``obs.metrics.make_sink`` specs, e.g.
+    # "jsonl:PATH,csv:PATH"); an in-memory sink is always attached
     metrics_sink: Optional[str] = None
 
 
@@ -197,17 +197,16 @@ class ExecutionPlan:
     def build(self, device=None, params=None):
         """The trainer this plan describes, on ``device`` (``cuda`` unless
         the caller asks for the CPU); parameters are allocated here (from
-        ``params`` if given), never at plan time.  A plan with a scheduler
-        raises: the scheduler is not ported yet."""
-        if self.spec.sched is not None:
-            raise NotImplementedError(
-                "a RunSpec with sched= needs the scheduler "
-                "(ScheduledTrainer), which is not ported yet: ROADMAP "
-                "Queue 1 item 5")
+        ``params`` if given), never at plan time.  With a scheduler, the
+        trainer inside a ``ScheduledTrainer``."""
         from repro_torch.fed.engine import FederatedTrainer
-        return FederatedTrainer(self.spec.model, self.spec.firm,
-                                self.spec.engine, plan=self, params=params,
-                                device=device)
+        tr = FederatedTrainer(self.spec.model, self.spec.firm,
+                              self.spec.engine, plan=self, params=params,
+                              device=device)
+        if self.spec.sched is None:
+            return tr
+        from repro_torch.fed.sched.policies import ScheduledTrainer
+        return ScheduledTrainer(tr, self.spec.sched)
 
     def execute(self, rounds: Optional[int] = None, device=None
                 ) -> List[dict]:

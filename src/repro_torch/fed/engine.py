@@ -58,7 +58,15 @@ because a jitted scan cannot hold a ``Payload``; the port's rounds run
 the host boundary, which is the same transform
 (``Codec.encode_decode_traced*``) and whose payloads read nothing from
 the device, so both executors count the payloads' bytes, which equal
-``nbytes_static``.  The scheduler is planned but not ported.
+``nbytes_static``.
+
+Every summary goes out as typed records (``obs.records``) through the
+trainer's pipeline (``obs``, with the sinks ``EngineConfig.metrics_sink``
+names) from the one place summaries are made, ``_record``, after the
+statistics' one copy to the host: emission reads nothing from the device,
+for a round and a chunk alike.  ``host_transfers`` counts those copies.
+The scheduler (``fed.sched``) drives the trainer through ``run_round``,
+``run`` and the round's pieces.
 """
 from __future__ import annotations
 
@@ -80,6 +88,7 @@ from repro_torch.fed import api as api_lib
 from repro_torch.fed.api import EngineConfig  # noqa: F401  (its home is api)
 from repro_torch.models import transformer
 from repro_torch.models.common import merge_trainable, split_trainable
+from repro_torch.obs.metrics import MetricsPipeline
 from repro_torch.obs.records import round_summary
 from repro_torch.rlhf import local as local_lib
 from repro_torch.rlhf import ppo, rewards as rewards_lib
@@ -228,10 +237,6 @@ class FederatedTrainer:
         # path decision reads; (fc, ec) is checked before any work
         self.algorithm = algorithms_lib.get_algorithm(ec.algorithm)
         self.algorithm.validate(fc, ec)
-        if ec.metrics_sink is not None:
-            raise NotImplementedError(
-                f"EngineConfig.metrics_sink={ec.metrics_sink!r}: the metric "
-                "sinks are not ported yet: ROADMAP Queue 1 item 5")
         self.cfg, self.fc, self.ec = cfg, fc, ec
         self.device = device_lib.resolve(device)
         gen = torch.Generator(device=self.device).manual_seed(ec.seed)
@@ -267,6 +272,11 @@ class FederatedTrainer:
         self.update_graphs = (update_graph.UpdateGraphs()
                               if self.device.type == "cuda" else None)
         self.history: List[dict] = []
+        # the statistics' copies to the host: one a round, one a chunk
+        self.host_transfers = 0
+        # every summary fans out as records through this pipeline (an
+        # in-memory sink always, and those ec.metrics_sink names)
+        self.obs = MetricsPipeline.from_spec(ec.metrics_sink)
         self._rng = torch.Generator().manual_seed(ec.seed + 1)
         self._round_idx = 0
         # per-client configs, expanded through the algorithm
@@ -289,12 +299,16 @@ class FederatedTrainer:
         seed = int(torch.randint(0, 2 ** 63 - 1, (), generator=self._rng))
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _sample_participants(self, round_idx: Optional[int] = None
-                             ) -> List[int]:
+    def _sample_participants(self, n: Optional[int] = None,
+                             round_idx: Optional[int] = None) -> List[int]:
         """This round's participants, from a stream keyed on (seed, round)
-        only: the same draw whatever else consumed the main stream."""
+        only: the same draw whatever else consumed the main stream.  ``n``
+        overrides the participation's count (the deadline policy
+        over-selects); the first clients of one permutation, so a larger
+        ``n`` keeps the smaller draw's clients."""
         fc = self.fc
-        n = max(1, int(round(fc.participation * fc.n_clients)))
+        if n is None:
+            n = max(1, int(round(fc.participation * fc.n_clients)))
         if n >= fc.n_clients:
             return list(range(fc.n_clients))
         r = self._round_idx if round_idx is None else round_idx
@@ -639,9 +653,12 @@ class FederatedTrainer:
 
     def _record(self, rounds, **fields) -> List[dict]:
         """The summaries of ``rounds``, ``_round``'s (statistics, fields)
-        pairs, appended to the history: the statistics of all of them
-        come to the host in one copy.  ``fields`` override the rounds'."""
+        pairs of the last ``len(rounds)`` rounds, appended to the history
+        and emitted through ``obs``: the statistics of all of them come to
+        the host in one copy.  ``fields`` override the rounds'."""
         host = _to_host(torch.cat([row for row, _ in rounds]))
+        self.host_transfers += 1
+        round0 = self._round_idx - len(rounds)
         out, off = [], 0
         for row, own in rounds:
             stats = self._unpack_stats(host[off:off + row.numel()],
@@ -649,6 +666,8 @@ class FederatedTrainer:
             off += row.numel()
             out.append(round_summary(stats=stats, **{**own, **fields}))
         self.history += out
+        for r, summary in enumerate(out):
+            self.obs.emit_round(summary, round=round0 + r)
         return out
 
     def run_round(self, participants: Optional[List[int]] = None, *,
@@ -714,7 +733,7 @@ class FederatedTrainer:
                 raise ValueError(f"a fused chunk's {name} needs one entry a "
                                  f"round: {len(given)} for {rounds} rounds")
         round0 = self._round_idx
-        schedule = [self._sample_participants(round0 + r)
+        schedule = [self._sample_participants(round_idx=round0 + r)
                     if participants is None else list(participants[r])
                     for r in range(rounds)]
         chunk = dict(fused=rounds, dispatches=api_lib._dispatch_estimate(

@@ -49,19 +49,20 @@ def init_client_state(trainable, m: int, d_model: int,
 
 def firm_local_step(cfg: ModelConfig, fc: FIRMConfig, state: ClientState,
                     frozen, batch: ppo.PPOBatch, gram_fn=None,
-                    preference=None):
+                    preference=None, beta=None):
     """One local FIRM update.  Returns (new_state, metrics).
 
     ``gram_fn`` overrides ``resolve``'s Gram matrix (by default the kernel
     on CUDA); ``preference`` is an (M,) tensor overriding
     ``fc.preference``, which is how the round passes each client its own
-    preference.
+    preference; ``beta`` a 0-d f32 tensor overriding ``fc.beta``, which
+    is how a captured update reads it.
     """
     grads, losses, extras = fedcmoo_local_grads(cfg, fc, state, frozen,
                                                 batch)
     eta = firm.eta_schedule(state.step + 1) if fc.lambda_smoothing else None
     res = firm.resolve(grads, fc, prev_lam=state.lam, eta=eta,
-                       gram_fn=gram_fn, preference=preference)
+                       gram_fn=gram_fn, preference=preference, beta=beta)
     new_state, metrics = _apply(fc, state, res.direction, res.lam, extras)
     return new_state, dict(metrics, losses=losses, lam_star=res.lam_star,
                            gram=res.gram, rewards=batch.rewards.mean(0))

@@ -25,16 +25,18 @@ memory pool of gigabytes, so no cache outlives its owner).  For a key,
 
 The inputs are the client state (every adapter, Adam's moments and count,
 the critic, lambda, the KL coefficient, the step), the five ``PPOBatch``
-tensors and the algorithm's operand (the client's (M,) preference, or
-``linear``'s weights); the outputs are the new state and every metric.  A
+tensors and the algorithm's operands (``firm``'s 0-d beta and the
+client's (M,) preference if it has one, or ``linear``'s weights); the
+outputs are the new state and every metric.  A
 whole tree moves by one ``torch._foreach_copy_`` a dtype.  What is handed
 back is fresh tensors: the caller's state is never written (the round's
 clients share the broadcast adapters, which anchor the delta), and a
 tensor handed back does not change at the next replay.
 
-The key: ``cfg``; ``cfc`` with the fields the step never reads fixed
-(``_UNREAD``), so cohorts of different K and clients of different
-preferences share one graph; the algorithm's ``kernel``; the device; the
+The key: ``cfg``; ``cfc`` with the fields the step never reads from the
+config fixed (``_UNREAD``), so cohorts of different K, clients of
+different preferences and updates of different beta share one graph; the
+algorithm's ``kernel``; the device; the
 inputs' shapes and dtypes; and ``(data_ptr, shape, stride, dtype)`` of every
 leaf of ``frozen``, which the graph reads where it lay at the capture: a
 new frozen tree is a new capture, while an in-place write to a leaf needs
@@ -64,11 +66,12 @@ from repro_torch.rlhf.ppo import PPOBatch
 from repro_torch.train.optim import AdamState
 from repro_torch.trees import tree_leaves, tree_map
 
-# FIRMConfig fields a local update never reads, fixed in the key (the
-# preference rides the static operand instead)
+# FIRMConfig fields a local update never reads from the config, fixed in
+# the key (the preference and beta ride the static operands instead)
 _UNREAD = dict(n_clients=1, rounds=1, local_steps=1, batch_size=1,
                participation=1.0, client_preferences=None,
-               client_local_steps=None, kl_coef_init=0.0, preference=None)
+               client_local_steps=None, kl_coef_init=0.0, preference=None,
+               beta=0.0)
 
 
 def _state_leaves(state: ClientState) -> list:
@@ -131,33 +134,32 @@ class UpdateGraphs:
         self._entries: Dict[tuple, _Entry] = {}
         self.captures = 0
 
-    def graph(self, kernel, cfg, cfc, state, frozen, batch, operand=None):
+    def graph(self, kernel, cfg, cfc, state, frozen, batch, operands=()):
         """The graph object these arguments' key holds, or None."""
         entry = self._entries.get(_key(
-            kernel, cfg, cfc, self._inputs(state, batch, operand), frozen))
+            kernel, cfg, cfc, self._inputs(state, batch, operands), frozen))
         return None if entry is None else entry.graph
 
     @staticmethod
-    def _inputs(state, batch, operand) -> list:
-        return (_state_leaves(state) + list(batch)
-                + ([] if operand is None else [operand]))
+    def _inputs(state, batch, operands) -> list:
+        return _state_leaves(state) + list(batch) + list(operands)
 
     def run(self, kernel: str, step, cfg: ModelConfig, cfc: FIRMConfig,
-            state: ClientState, frozen, batch: PPOBatch, operand=None):
-        """``step(cfg, cfc, state, frozen, batch, operand)`` -> (new state,
-        metrics), through the key's graph.  ``kernel`` names the step
-        program (``Algorithm.kernel``); ``operand`` is its tensor operand
-        or None."""
-        inputs = self._inputs(state, batch, operand)
+            state: ClientState, frozen, batch: PPOBatch, operands=()):
+        """``step(cfg, cfc, state, frozen, batch, operands)`` -> (new
+        state, metrics), through the key's graph.  ``kernel`` names the
+        step program (``Algorithm.kernel``); ``operands`` is the tuple of
+        its tensor operands."""
+        inputs = self._inputs(state, batch, operands)
         key = _key(kernel, cfg, cfc, inputs, frozen)
         entry = self._entries.get(key)
-        n_state = len(inputs) - len(batch) - (operand is not None)
+        n_state = len(inputs) - len(batch) - len(operands)
 
         def flat_step(args):
             st = _state_like(state, args[:n_state])
             b = PPOBatch(*args[n_state:n_state + len(batch)])
-            op = None if operand is None else args[-1]
-            new_state, metrics = step(cfg, cfc, st, frozen, b, op)
+            ops = tuple(args[n_state + len(batch):])
+            new_state, metrics = step(cfg, cfc, st, frozen, b, ops)
             names = sorted(metrics)
             return (_state_leaves(new_state)
                     + [metrics[k] for k in names]), names

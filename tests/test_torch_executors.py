@@ -46,8 +46,8 @@ three rounds from the same seed, bit for bit on the adapters, the client
 states and the residuals (the summaries' reductions may differ in the
 last bit); heterogeneous K through the loop against cohorts, likewise;
 ``plan().execute()`` against ``FederatedTrainer(...).run()``; a fused
-plan's run; and the explicit errors of what is not ported (a scheduler,
-a metrics sink).
+plan's run; and what ran into explicit errors before it was ported (a
+scheduler, a metrics sink), which now runs.
 """
 import dataclasses
 import functools
@@ -74,6 +74,7 @@ from repro_torch.configs import FIRMConfig  # noqa: E402
 from repro_torch.configs.base import CODEC_PRESETS, SchedConfig  # noqa
 from repro_torch.fed import api  # noqa: E402
 from repro_torch.fed.engine import EngineConfig, FederatedTrainer  # noqa
+from repro_torch.fed.sched import ScheduledTrainer  # noqa: E402
 from test_torch_algorithm_rounds import (  # noqa: E402
     B, M, MAX_NEW, P, STEP_TOL, _cfgs, _f32_model,
     _flat, _jit_one_client, _np, _server_curvature, _snapshot, _spy,
@@ -458,11 +459,12 @@ def test_execute_is_the_trainer_run():
         2 * (p.up_bytes_per_round + p.down_bytes_per_round)
 
 
-def test_what_is_not_ported_raises_and_never_falls_back():
+def test_what_is_not_ported_raises_and_never_falls_back(tmp_path):
     """A fused plan runs through the fused executor, in its chunks, from
-    ``build().run()`` and ``execute()`` alike; a plan with a scheduler and
-    a metrics sink each raise NotImplementedError naming the ROADMAP item
-    that ports them."""
+    ``build().run()`` and ``execute()`` alike; a plan with a scheduler
+    builds a ``ScheduledTrainer`` around the planned trainer and runs its
+    policy (never the bare engine in its place), and a metrics sink is
+    attached to the trainer and written a round's records."""
     _, tcfg = _cfgs()
     fc = dataclasses.replace(FIRMConfig(), n_clients=2, local_steps=1,
                              batch_size=B, n_objectives=M)
@@ -484,11 +486,21 @@ def test_what_is_not_ported_raises_and_never_falls_back():
     per_round = api.plan(api.RunSpec(tcfg, fc, dataclasses.replace(
         ec, fused_rounds=1))).build(device="cpu").run(1)[0]
     assert per_round["cohorts"] == 1 and "fused" not in per_round
-    sched = api.plan(api.RunSpec(tcfg, fc, EngineConfig(prompt_len=P),
+    sched = api.plan(api.RunSpec(tcfg, fc, EngineConfig(prompt_len=P,
+                                                        max_new=4),
                                  sched=SchedConfig(policy="deadline")))
     assert sched.policy == "deadline" and sched.executor == "vectorized"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sched.build(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        FederatedTrainer(tcfg, fc, EngineConfig(
-            metrics_sink="jsonl:m.jsonl"), device="cpu")
+    st = sched.build(device="cpu")
+    assert isinstance(st, ScheduledTrainer)
+    assert st.trainer.plan is sched and st.policy.name == "deadline"
+    (s,) = st.run(1)
+    assert s["policy"] == "deadline" and s["dropped"] == []
+    assert s["sim_time"] == s["round_duration"] > 0
+    jpath = tmp_path / "m.jsonl"
+    tr = FederatedTrainer(tcfg, fc, EngineConfig(
+        prompt_len=P, max_new=4, metrics_sink=f"jsonl:{jpath}"),
+        device="cpu")
+    assert [sink.kind for sink in tr.obs.sinks] == ["memory", "jsonl"]
+    tr.run(1)
+    tr.obs.close()
+    assert len(jpath.read_text().splitlines()) == len(tr.obs.records) > 0

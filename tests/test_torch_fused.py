@@ -258,7 +258,7 @@ def test_fused_chunks_are_the_per_round_rounds_bit_for_bit(case):
     if case == "participation 0.5 of 4":
         assert all(len(s["participants"]) == 2 for s in hf)
         assert [s["participants"] for s in hf] == [
-            fused._sample_participants(r) for r in range(rounds)]
+            fused._sample_participants(round_idx=r) for r in range(rounds)]
     if case == "client_local_steps 2,2":
         assert hf[0]["local_steps"] == [2, 2]
 

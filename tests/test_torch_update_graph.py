@@ -301,7 +301,8 @@ def test_runner_matches_the_eager_step_bit_for_bit(model, alg_name,
     assert counters.read() == want_counts
     assert [_same(g, w) for g, w in zip(got, want)] == [True] * 3
     g = graphs.graph(alg_name, tcfg, tfc, a, frozen, batches[0],
-                     None if alg_name == "firm" else torch.zeros(M))
+                     (firm.config_tensor(tfc.beta, a.lam.device),)
+                     if alg_name == "firm" else (torch.zeros(M),))
     assert (g.warms, g.captures, g.replays) == (1, 1, 2)
     assert graphs.captures == 1
 
@@ -386,7 +387,7 @@ def test_tensors_handed_back_do_not_change_at_the_next_call():
     assert not static & {t.data_ptr() for t in _flat(out)}
 
 
-@pytest.mark.parametrize("change", ["new frozen tree", "beta",
+@pytest.mark.parametrize("change", ["new frozen tree", "trace_normalize",
                                     "solver_iters", "algorithm",
                                     "batch shape"])
 def test_what_changes_the_program_means_a_new_capture(change):
@@ -400,8 +401,8 @@ def test_what_changes_the_program_means_a_new_capture(change):
     alg_name, batch = "firm", batches[2]
     if change == "new frozen tree":
         frozen = common.tree_map(lambda t: t.clone(), frozen)
-    elif change == "beta":
-        tfc = dataclasses.replace(tfc, beta=0.5)
+    elif change == "trace_normalize":
+        tfc = dataclasses.replace(tfc, trace_normalize=False)
     elif change == "solver_iters":
         tfc = dataclasses.replace(tfc, solver_iters=7)
     elif change == "algorithm":
@@ -418,15 +419,18 @@ def test_what_changes_the_program_means_a_new_capture(change):
 @pytest.mark.parametrize("change", ["local_steps", "client_local_steps",
                                     "n_clients and rounds",
                                     "a second client's preference",
+                                    "beta",
                                     "in-place write to frozen"])
 def test_what_leaves_the_program_alone_needs_no_capture(change):
     """Fields the update never reads (K, the cohort's K, the client count),
-    a second client with its own preference, and an in-place write to a
-    leaf of the frozen tree replay the graph as it is, and the result is
-    the eager step's on the new inputs."""
+    a second client with its own preference, another beta (an operand,
+    as the preference is) and an in-place write to a leaf of the frozen
+    tree replay the graph as it is, and the result is the eager step's on
+    the new inputs."""
     tcfg, tfc, frozen, a, b, batches = _client("llama")
     graphs = update_graph.UpdateGraphs(_StandInGraph)
-    pref = torch.tensor([0.7, 0.3])
+    # beta is read only without a preference
+    pref = None if change == "beta" else torch.tensor([0.7, 0.3])
     for k in range(2):
         _step("firm", tcfg, tfc, a, frozen, batches[k], graphs, pref)
     cfc = tfc
@@ -438,6 +442,8 @@ def test_what_leaves_the_program_alone_needs_no_capture(change):
         cfc = dataclasses.replace(tfc, n_clients=3, rounds=9)
     elif change == "a second client's preference":
         pref = torch.tensor([0.2, 0.8])
+    elif change == "beta":
+        cfc = dataclasses.replace(tfc, beta=0.5)
     else:
         leaf = common.tree_leaves(frozen["final_norm"])[0]
         leaf.mul_(1.5)
