@@ -268,7 +268,26 @@ line, for a first check of new kernels):
             a sync or deadline round, one a fedbuff client), seconds a
             round or aggregation, peak memory, and one copy to the host
             a round or aggregation (``CopiesToHost``).
-26. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+26. audit:  the plan audit (``obs.audit_run(tr).raise_on_drift()``) of
+            the reference's smoke matrix at full width: llama-3.2-1b,
+            ``firm``, C=2, K=1, through ``plan(RunSpec(...)).build()``,
+            over {identity, int8+ef} uplinks x {per round, fused R=2},
+            then zamba2-1.2b fused (``wan``, R=2); each report on a line
+            of its own, held exactly: no update-graph capture after the
+            warm-up, one copy to the host a round (1/2 fused), the plan's
+            bytes, 10 programs a round, one decode capture a client-step,
+            the round phases' kernel launches a round, and one more fused
+            chunk under ``jitwatch.record()`` with one copy to the host
+            (``CopiesToHost``).  Then the debug switches (``obs.debug``):
+            a llama client-step with the NaN check on (no graph captured,
+            the eager path's launches), a NaN in an adapter entry
+            (``FloatingPointError`` naming the op), two steps with it off
+            (one update capture, two decode captures), an f64 tensor in
+            the rmsnorm wrapper (``TypeError``, no launch), and a
+            full-width ``wan`` round with f64 as the default dtype (its
+            outcome recorded).  Audit seconds, decode captures and their
+            seconds.
+27. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             delta bit for bit; low-rank on the script's usual draw and five
@@ -277,9 +296,9 @@ line, for a first check of new kernels):
             max |flat + state|, cond(P) of the card's range sample in
             float64; the low-rank payload's bytes equal ``nbytes_static``
             (59,392).
-27. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
+28. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
             for llama-3.2-1b and for zamba2-1.2b.
-28. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+29. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
             llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
@@ -350,7 +369,7 @@ PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
           "rollout", "rollout_hybrid", "decode_graph", "local_step",
           "local_step_hybrid", "update_graph",
           "round", "round_hybrid", "round_parity", "algorithms", "executors",
-          "fused", "sched", "codecs", "train", "serve")
+          "fused", "sched", "audit", "codecs", "train", "serve")
 TOPK_PASSES = 32               # bisection passes of one top-k selection
 # the host's calls that put work on a stream, as torch.profiler names them
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -3934,7 +3953,189 @@ def run(torch, stop_after) -> int:
          "copies to the host")
     done("sched")
 
-    # -------------------------------------------------------------- 26. codecs
+    # --------------------------------------------------------------- 26. audit
+    # the plan audit (obs.audit) of the reference's smoke matrix
+    # (benchmarks/bench_report.py --smoke) at full width: llama-3.2-1b,
+    # firm, C = 2, K = 1, B = 16, P = 128, 128 new tokens, the rollout
+    # phase's reference weights, through plan(RunSpec(...)).build(), over
+    # {identity, int8+ef} uplinks x {per round, fused R = 2}; then
+    # zamba2-1.2b fused (wan, R = 2).  Each audit_run(tr).raise_on_drift()
+    # (one warm-up round or chunk, then 2 rounds or 2 chunks), its report
+    # on a line of its own, and held exactly: no update-graph capture
+    # after the warm-up, one copy to the host a round (1/2 fused), the
+    # plan's bytes, 10 programs a round (the reference's 6, or 3 / R
+    # fused), one decode capture a client-step, and the kernels' launches
+    # a round the round phases'; a fused trainer runs one more chunk under
+    # jitwatch.record() and CopiesToHost (one copy).  Each trainer is freed
+    # before the next.  Then the debug switches on llama (obs.debug): one
+    # client-step with the NaN check on (no graph captured, the eager
+    # path's launches), one with a NaN written into an adapter entry
+    # (FloatingPointError naming the first op), two with the switch off
+    # (a capture and a replay again), an f64 tensor handed to the rmsnorm
+    # wrapper (TypeError, no launch), and one full-width wan round with
+    # f64 as the default dtype, whose outcome is recorded.
+    from repro_torch.obs import audit_run, debug, jitwatch
+    fc_a = dataclasses.replace(fc, n_clients=N_CLIENTS, local_steps=1,
+                               rounds=4)
+    per_round = {name: N_CLIENTS * n for name, n in per_step.items()}
+
+    def last_decode_capture_s():
+        g_ = sampling._LAST_GRAPHS[torch.cuda.current_device()]
+        return g_.capture_s + g_.instantiate_s
+
+    def audit_case(mcfg, params, uplink, chunk, want_round):
+        ec_a = EngineConfig(prompt_len=P, max_new=MAX_NEW,
+                            uplink_codec=uplink, fused_rounds=chunk)
+        p_a = api.plan(api.RunSpec(mcfg, fc_a, ec_a))
+        check(p_a.executor == ("fused" if chunk > 1 else "vectorized"),
+              f"audit plan executor {p_a.executor}")
+        tr = p_a.build(device=dev, params=params)
+        t0 = time.perf_counter()
+        report = audit_run(tr).raise_on_drift()
+        audit_s = time.perf_counter() - t0
+        rec = report.to_json()
+        emit(phase="audit_report", model=mcfg.name, **rec)
+        got = {c.name: c.observed for c in report.checks}
+        d = tr.d_trainable
+        up_b = N_CLIENTS * make_codec(uplink).nbytes_static(d)
+        want = {k: float(v) for k, v in want_round.items() if v}
+        check(got["recompiles_after_warmup"] == 0
+              and got["host_transfers_per_round"] == 1 / chunk
+              and got["up_bytes_per_round"] == p_a.up_bytes_per_round == up_b
+              and got["down_bytes_per_round"] == p_a.down_bytes_per_round
+              == N_CLIENTS * 4 * d
+              and got["dispatches_per_round"] == 10
+              and report.reference_dispatches_per_round
+              == (6 if chunk == 1 else 3 / chunk)
+              and report.decode_captures_per_round == N_CLIENTS
+              and report.compiles_by_name == {}
+              and report.launches_per_round == want,
+              f"audit {mcfg.name} {uplink} R={chunk}: {rec}, launches "
+              f"expected {want}")
+        out = dict(seconds=audit_s, window_seconds=report.seconds,
+                   seconds_per_round=report.seconds / report.rounds,
+                   decode_captures_per_round=report.decode_captures_per_round,
+                   decode_capture_s=last_decode_capture_s(),
+                   up_bytes_per_round=got["up_bytes_per_round"],
+                   launches_per_round=report.launches_per_round)
+        if chunk > 1:
+            to_host = CopiesToHost()
+            with jitwatch.record() as log_, to_host:
+                tr.run(chunk)
+            check(to_host.count == 1 and log_.compile_count == 0,
+                  f"an instrumented fused chunk: {to_host.count} copies to "
+                  f"the host, {log_.compile_count} captures")
+            out["device_to_host_copies_a_chunk_aten"] = to_host.count
+        del tr
+        release()
+        return out
+
+    audit_out = {}
+    for uplink in ("identity", wan_up):
+        want_a = dict(per_round, quantize=int(uplink != "identity"),
+                      dequantize=int(uplink != "identity"))
+        for chunk in (1, 2):
+            audit_out[f"llama {uplink} R={chunk}"] = audit_case(
+                cfg, ref_params, uplink, chunk, want_a)
+    audit_out["zamba2 wan R=2"] = audit_case(zcfg, z_ref, wan_up, 2,
+                                             want_zround)
+
+    # the debug switches: one llama client-step at a time
+    dbg_gen = torch.Generator(device=dev).manual_seed(26)
+    dbg_ds = make_client_datasets(1, cfg.vocab, P, generator=dbg_gen,
+                                  device=dev)[0]
+
+    def dbg_steps(state, graphs, k=1):
+        return client_local_steps(
+            cfg, fc, state, frozen0, ref_params, band_h, band_x, k_steps=k,
+            max_new=MAX_NEW, length_tol=length_tol, dataset=dbg_ds,
+            generators=[dbg_gen] * k, graphs=graphs)
+
+    dbg = {}
+    graphs_d = update_graph.UpdateGraphs()
+    dc0 = sampling.decode_captures
+    debug.set_debug_nan(True)
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        (st_d, m_d), dbg_s = wall(lambda: dbg_steps(state0, graphs_d))
+        launches_d = read_counts()
+        check(launches_d == per_step and graphs_d.captures == 0
+              and not graphs_d._entries and sampling.decode_captures == dc0
+              and bool(m_d["kl"].isfinite().all()),
+              f"a client-step under the NaN check: launches {launches_d}, "
+              f"expected {per_step}; {graphs_d.captures} update captures, "
+              f"{sampling.decode_captures - dc0} decode captures")
+        poisoned = common.tree_map(lambda t: t.clone(), state0.trainable)
+        common.tree_leaves(poisoned)[0].view(-1)[0] = float("nan")
+        try:
+            dbg_steps(state0._replace(trainable=poisoned), graphs_d)
+            nan_error = None
+        except FloatingPointError as e:
+            nan_error = str(e)
+        check(nan_error is not None and "NaN in the output of" in nan_error,
+              f"a NaN adapter entry under the NaN check: {nan_error}")
+    finally:
+        debug.set_debug_nan(False)
+    zero_counts()
+    dc1 = sampling.decode_captures
+    (_, m_on), on_s = wall(lambda: dbg_steps(state0, graphs_d, k=2))
+    launches_on = read_counts()
+    check(graphs_d.captures == 1 and sampling.decode_captures == dc1 + 2
+          and launches_on == {k: 2 * v for k, v in per_step.items()},
+          f"the switch off: {graphs_d.captures} update captures, "
+          f"{sampling.decode_captures - dc1} decode captures, launches "
+          f"{launches_on}")
+    dbg.update(debug_nans_step_s=dbg_s, launches=launches_d,
+               nan_error=nan_error, switched_off_two_steps_s=on_s,
+               switched_off_update_captures=graphs_d.captures)
+    del graphs_d, st_d
+    release()
+    x64 = torch.ones((4, cfg.d_model), dtype=torch.float64, device=dev)
+    before_ = read_counts()["rmsnorm"]
+    try:
+        rn_mod.rmsnorm_fwd(x64, x64[0].contiguous())
+        f64_error = None
+    except TypeError as e:
+        f64_error = str(e)
+    check(f64_error is not None and read_counts()["rmsnorm"] == before_,
+          f"an f64 tensor in the rmsnorm wrapper: {f64_error}")
+    dbg["f64_kernel_error"] = f64_error
+    # one full-width wan round with float64 the default dtype: it must
+    # run, with the reference's f32/int32 client state (a raise fails the
+    # phase)
+    debug.set_x64(True)
+    try:
+        tr_x = FederatedTrainer(
+            cfg, fc_a, EngineConfig(prompt_len=P, max_new=MAX_NEW,
+                                    uplink_codec=wan_up,
+                                    downlink_codec=wan_down),
+            params=ref_params, device=dev)
+        s_x, x_s = wall(tr_x.run_round)
+        state_dtypes = sorted({str(t.dtype) for t in
+                               update_graph._state_leaves(
+                                   tr_x.client_states[0])})
+        del tr_x
+    finally:
+        debug.set_x64(False)
+    check(math.isfinite(s_x["kl"]) and s_x["comm_bytes"]
+          == N_CLIENTS * (make_codec(wan_up).nbytes_static(d_lora)
+                          + 4 * d_lora)
+          and state_dtypes == ["torch.float32", "torch.int32"],
+          f"the f64 round: {s_x}, client-state dtypes {state_dtypes}")
+    dbg["x64_round"] = dict(outcome="ran", seconds=x_s,
+                            client_state_dtypes=state_dtypes,
+                            kl=s_x["kl"], rewards=s_x["rewards"].tolist())
+    release()
+    emit(phase="audit", model=cfg.name, clients=N_CLIENTS, local_steps=1,
+         batch=B, prompt_len=P, max_new=MAX_NEW, nvidia_smi=smi,
+         audits=audit_out, debug=dbg,
+         phase_seconds=time.perf_counter() - phase_end[0],
+         tolerance="exact: captures after warm-up, copies to the host, "
+         "bytes, programs and launches a round")
+    done("audit")
+
+    # -------------------------------------------------------------- 27. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -4037,7 +4238,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # --------------------------------------------------------------- 27. train
+    # --------------------------------------------------------------- 28. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -4068,7 +4269,7 @@ def run(torch, stop_after) -> int:
          zamba2={"seconds": z_train_s, "report": z_report.getvalue()})
     done("train")
 
-    # --------------------------------------------------------------- 28. serve
+    # --------------------------------------------------------------- 29. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(

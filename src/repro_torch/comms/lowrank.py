@@ -57,7 +57,8 @@ class LowRankCodec(Codec):
             return bits.to(device=device, dtype=torch.float32)
         if key is None:
             key = torch.Generator(device=device).manual_seed(0)
-        return torch.randn((b, self.rank), generator=key, device=key.device)
+        return torch.randn((b, self.rank), generator=key, device=key.device,
+                           dtype=torch.float32)
 
     def range_sample(self, flat, omega):
         """The padded (a, b) matrix X of ``flat`` and its (a, r) range

@@ -50,6 +50,11 @@ reference's loop, which sends each gradient alone.  The reference's
 ``local_step_fn`` (a jitted step bound to a client's config) has no
 counterpart: ``client_local_steps`` takes the client's config and the
 algorithm, which binds ``step`` to it.
+
+FedCMOO's exchange runs three programs of ``obs.jitwatch``
+(``fedcmoo_grads`` and ``fedcmoo_apply`` a client-step, ``grads_flat`` a
+step); ``programs_per_client_step`` and ``programs_per_step`` give the
+plan audit an algorithm's count of programs.
 """
 from __future__ import annotations
 
@@ -61,6 +66,7 @@ import torch
 from repro_torch.comms import ErrorFeedback
 from repro_torch.configs.base import FIRMConfig
 from repro_torch.core import fedavg, fedcmoo, firm
+from repro_torch.obs import jitwatch
 from repro_torch.rlhf import local as local_lib
 
 
@@ -101,6 +107,10 @@ class Algorithm:
     # the planner's cost model: the reference's jitted dispatches a
     # client-step on the loop executor
     loop_dispatches_per_client_step: int = 3
+    # the port's programs (obs.jitwatch) a client-step (generate,
+    # ref_logprobs, step) and a local step: the plan audit's count
+    programs_per_client_step: int = 3
+    programs_per_step: int = 0
 
     # ---- config resolution -------------------------------------------
     def validate(self, fc: FIRMConfig, ec) -> None:
@@ -268,6 +278,9 @@ class FedCMOOAlgorithm(Algorithm):
     caps = Capabilities(vmap_safe=True, traced_server_exchange=False,
                         single_cohort_required=True, fusable=False)
     loop_dispatches_per_client_step = 2     # generate, ref logprobs
+    # generate, ref_logprobs, fedcmoo_grads, fedcmoo_apply; grads_flat
+    programs_per_client_step = 4
+    programs_per_step = 1
 
     def validate(self, fc, ec):
         if fc.client_local_steps is not None:
@@ -322,14 +335,10 @@ class FedCMOOAlgorithm(Algorithm):
                     c, states[ci].trainable, prompts[k, ci],
                     generator=None if gumbel is not None else gen_keys[ci],
                     gumbel=None if gumbel is None else gumbel[k, ci])
-                grads, _, extras = local_lib.fedcmoo_local_grads(
+                grads, _, extras = _fedcmoo_grads(
                     trainer.cfg, cfc, states[ci], trainer.frozen, batch)
                 phase1.append((grads, extras, batch.rewards.mean(0)))
-            # (P, M, d) client-major: the reference's upload order, so
-            # the codec's draws and the ledger's bytes line up with it
-            gmat = fedcmoo.stack_grads_flat(
-                [fedavg.stack_trees([g[j] for g, _, _ in phase1])
-                 for j in range(m)], m)
+            gmat = _grads_flat([g for g, _, _ in phase1], m)
             payloads, _, decoded = grad_codec.roundtrip_stacked(
                 gmat.reshape(p_count * m, -1), trainer._delta_spec,
                 keys=grad_keys,
@@ -342,13 +351,28 @@ class FedCMOOAlgorithm(Algorithm):
                 generator=trainer._next_key(),
                 noise=None if sketch_noise is None else sketch_noise[k])
             for ci, (grads, extras, _) in enumerate(phase1):
-                states[ci], met = local_lib.fedcmoo_local_apply(
-                    cfc, states[ci], grads, lam, extras)
+                states[ci], met = _fedcmoo_apply(cfc, states[ci], grads, lam,
+                                                 extras)
                 kl_hist.append(met["kl"])
             rew_hist.append(torch.stack([r for _, _, r in phase1]))
         rew = torch.stack(rew_hist)                           # (K, P, M)
         return (lam[None].repeat(p_count, 1), rew.reshape(-1, m).mean(0),
                 torch.stack(kl_hist).mean(), rew.mean(0), states)
+
+
+def _grads_flat(client_grads: list, m: int) -> torch.Tensor:
+    """Every participant's M gradient trees -> (P, M, d) flat rows,
+    client-major: the reference's upload order, so that the codec's draws
+    and the ledger's bytes line up with it."""
+    return fedcmoo.stack_grads_flat(
+        [fedavg.stack_trees([g[j] for g in client_grads]) for j in range(m)],
+        m)
+
+
+# FedCMOO's exchange programs (obs.jitwatch)
+_fedcmoo_grads = jitwatch.wrap("fedcmoo_grads", local_lib.fedcmoo_local_grads)
+_grads_flat = jitwatch.wrap("grads_flat", _grads_flat)
+_fedcmoo_apply = jitwatch.wrap("fedcmoo_apply", local_lib.fedcmoo_local_apply)
 
 
 # ---------------------------------------------------------------- registry

@@ -67,6 +67,15 @@ statistics' one copy to the host: emission reads nothing from the device,
 for a round and a chunk alike.  ``host_transfers`` counts those copies.
 The scheduler (``fed.sched``) drives the trainer through ``run_round``,
 ``run`` and the round's pieces.
+
+The round's stages are programs of ``obs.jitwatch``, under the reference's
+names: ``generate`` and ``ref_logprobs`` (the rollout), ``step[<kernel>]``
+(the update), ``stack_trees``, ``delta_flat``, ``flat_aggregate`` and
+``summary_device``.  The plan audit (``obs.audit``) counts their calls
+under ``jitwatch.record()`` and holds them to the plan; the summary's
+``dispatches`` stays the reference's count.  While
+the NaN check is on (``obs.debug``) the update runs without graphs and
+the fused executor refuses.
 """
 from __future__ import annotations
 
@@ -88,12 +97,22 @@ from repro_torch.fed import api as api_lib
 from repro_torch.fed.api import EngineConfig  # noqa: F401  (its home is api)
 from repro_torch.models import transformer
 from repro_torch.models.common import merge_trainable, split_trainable
+from repro_torch.obs import debug, jitwatch
 from repro_torch.obs.metrics import MetricsPipeline
 from repro_torch.obs.records import round_summary
 from repro_torch.rlhf import local as local_lib
 from repro_torch.rlhf import ppo, rewards as rewards_lib
 from repro_torch.rlhf import update_graph
 from repro_torch.rlhf.sampling import generate
+
+
+def _ref_logprobs(cfg: ModelConfig, ref_params, tokens: torch.Tensor):
+    """The frozen reference's logprobs of ``tokens``."""
+    ref_out = transformer.forward_seq(cfg, ref_params, tokens)
+    return ppo.token_logprobs(ref_out["logits"], tokens)
+
+
+_ref_logprobs = jitwatch.wrap("ref_logprobs", _ref_logprobs)
 
 
 @torch.no_grad()
@@ -113,8 +132,7 @@ def rollout_batch(cfg: ModelConfig, params, ref_params, prompts: torch.Tensor,
                                     generator=generator, gumbel=gumbel)
     r = rewards_lib.score_batch_banded(band_h, band_x, tokens, mask,
                                        n_objectives, length_tol)
-    ref_out = transformer.forward_seq(cfg, ref_params, tokens)
-    ref_lp = ppo.token_logprobs(ref_out["logits"], tokens)
+    ref_lp = _ref_logprobs(cfg, ref_params, tokens)
     return ppo.PPOBatch(tokens, mask, old_lp, ref_lp, r)
 
 
@@ -134,10 +152,11 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
 
     Each step merges the client's adapters into ``frozen``, rolls out
     ``fc.batch_size`` prompts and runs ``algorithm.step`` (FIRM's
-    ``firm_local_step`` by default) with ``extra``, the algorithm's
-    ``traced_extra``.  On CUDA the update runs through ``graphs`` (the
-    trainer's captured updates; without them, a set of this call's own),
-    on the CPU eagerly.  Prompts come
+    ``firm_local_step`` by default, the program ``step[<kernel>]``) with
+    ``extra``, the algorithm's ``traced_extra``.  On CUDA the update runs
+    through ``graphs`` (the trainer's captured updates; without them, a
+    set of this call's own), on the CPU and while the NaN check is on
+    (``obs.debug``) eagerly.  Prompts come
     from ``dataset`` or are injected as ``prompts`` (K, B, P); step k's
     sampling noise comes from ``generators[k]`` (the reference's one key a
     step) or is injected as ``gumbel`` (K, max_new, B, V).
@@ -148,8 +167,13 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
     if (dataset is None) == (prompts is None):
         raise ValueError("pass exactly one of dataset= and prompts=")
     algorithm = algorithm or algorithms_lib.FIRMAlgorithm()
-    if graphs is None and state.lam.is_cuda:
+    if debug.nans_enabled():
+        graphs = None       # the NaN check reads tensors back: no capture
+    elif graphs is None and state.lam.is_cuda:
         graphs = update_graph.UpdateGraphs()
+    step = jitwatch.wrap(f"step[{algorithm.kernel}]", algorithm.step,
+                         captures=None if graphs is None
+                         else lambda: graphs.captures)
     kept = {"lam": [], "rewards": [], "kl": []}
     for k in range(k_steps):
         params = merge_trainable(state.trainable, frozen)
@@ -161,8 +185,8 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
             length_tol=length_tol,
             generator=None if generators is None else generators[k],
             gumbel=None if gumbel is None else gumbel[k])
-        state, metrics = algorithm.step(cfg, fc, state, frozen, batch,
-                                        preference, extra, graphs)
+        state, metrics = step(cfg, fc, state, frozen, batch, preference,
+                              extra, graphs)
         for key, vals in kept.items():
             vals.append(metrics[key])
     return state, {key: torch.stack(vals) for key, vals in kept.items()}
@@ -180,6 +204,45 @@ class LocalPhaseResult(NamedTuple):
 # the round's statistics, in the order they are packed on the device
 STATS = ("rewards", "lam_mean", "lam_disagreement", "param_drift", "kl",
          "per_client_lam", "rewards_per_client")
+
+
+def _delta_flat(stacked, anchor) -> torch.Tensor:
+    """All P client deltas against the anchor -> (P, d) f32 rows in
+    sorted-key leaf order."""
+    return torch.cat([(a - b).float().reshape(a.shape[0], -1)
+                      for a, b in zip(trees.tree_leaves(stacked),
+                                      trees.tree_leaves(anchor))], dim=1)
+
+
+def _flat_aggregate(anchor, flats, staleness, staleness_pow: float, spec):
+    """Staleness-weighted FedAvg of the (P, d) decoded deltas, applied to
+    the anchor tree (uniform at zero staleness)."""
+    w = fedavg.staleness_weights(
+        torch.as_tensor(staleness, dtype=torch.float32,
+                        device=flats.device), staleness_pow)
+    agg = codec_lib.flat_to_tree(fedavg.fedavg_flat_weighted(flats, w), spec)
+    return trees.tree_map(lambda b, d: b + d, anchor, agg)
+
+
+def _summary_device(res: "LocalPhaseResult") -> torch.Tensor:
+    """The round's statistics (``STATS``), packed on the device into one
+    f32 vector: the summary's values, bit for bit."""
+    stats = (res.rewards_mean, res.lams.mean(0),
+             drift.lambda_disagreement(res.lams)["pairwise_mean"],
+             drift.param_drift_stacked(res.stacked_trainable),
+             res.kl_mean, res.lams, res.rewards_pc)
+    for name, t in zip(STATS, stats):
+        if t.dtype != torch.float32:
+            raise TypeError(f"round statistic {name} is {t.dtype}, "
+                            "not float32")
+    return torch.cat([t.detach().reshape(-1) for t in stats])
+
+
+# the round's programs after the local phase (obs.jitwatch)
+_stack_trees = jitwatch.wrap("stack_trees", fedavg.stack_trees)
+_delta_flat = jitwatch.wrap("delta_flat", _delta_flat)
+_flat_aggregate = jitwatch.wrap("flat_aggregate", _flat_aggregate)
+_summary_device = jitwatch.wrap("summary_device", _summary_device)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -417,7 +480,7 @@ class FederatedTrainer:
             self.client_states[c] = states[ci]
         return LocalPhaseResult(
             lams, rewards_mean, kl_mean,
-            fedavg.stack_trees([s.trainable for s in states]), rewards_pc)
+            _stack_trees([s.trainable for s in states]), rewards_pc)
 
     def _local_phase_cohorts(self, plan, participants: List[int], broadcast,
                              prompts=None, gumbel=None) -> LocalPhaseResult:
@@ -458,8 +521,8 @@ class FederatedTrainer:
             w_tot += w
         return LocalPhaseResult(
             torch.stack(lams), rew_acc / w_tot, kl_acc / w_tot,
-            fedavg.stack_trees([self.client_states[c].trainable
-                                for c in participants]),
+            _stack_trees([self.client_states[c].trainable
+                          for c in participants]),
             torch.stack(rewards_pc))
 
     def _local_phase_loop(self, participants: List[int], broadcast,
@@ -497,7 +560,7 @@ class FederatedTrainer:
             torch.stack([last_lam[c] for c in participants]),
             torch.stack([m["rewards"] for m in entries]).mean(0),
             torch.stack([m["kl"] for m in entries]).mean(),
-            fedavg.stack_trees([s.trainable for s in states]), rewards_pc)
+            _stack_trees([s.trainable for s in states]), rewards_pc)
 
     def _step_prompts(self, c: int, ci: int, k: int, prompts=None):
         """Client ``c``'s (B, prompt_len) prompt block of step ``k``: drawn
@@ -543,10 +606,8 @@ class FederatedTrainer:
 
     def _delta_flat(self, stacked, anchor) -> torch.Tensor:
         """All P client deltas against the anchor -> (P, d) f32 rows in
-        sorted-key leaf order."""
-        return torch.cat([(a - b).float().reshape(a.shape[0], -1)
-                          for a, b in zip(trees.tree_leaves(stacked),
-                                          trees.tree_leaves(anchor))], dim=1)
+        sorted-key leaf order (``delta_flat``)."""
+        return _delta_flat(stacked, anchor)
 
     def _uplink(self, participants: List[int], flat_deltas, bits=None):
         """Every participant's delta through the uplink codec in one
@@ -564,27 +625,15 @@ class FederatedTrainer:
     def _aggregate_flat(self, anchor, flats, staleness,
                         staleness_pow: float = 0.5):
         """(anchor tree, (P, d) decoded deltas, (P,) staleness) -> new
-        params: staleness-weighted FedAvg (uniform at zero staleness)."""
-        w = fedavg.staleness_weights(
-            torch.as_tensor(staleness, dtype=torch.float32,
-                            device=flats.device), staleness_pow)
-        agg = codec_lib.flat_to_tree(fedavg.fedavg_flat_weighted(flats, w),
-                                     self._delta_spec)
-        return trees.tree_map(lambda b, d: b + d, anchor, agg)
+        params: staleness-weighted FedAvg (uniform at zero staleness;
+        ``flat_aggregate``)."""
+        return _flat_aggregate(anchor, flats, staleness, staleness_pow,
+                               self._delta_spec)
 
-    @staticmethod
-    def _round_stats(res: LocalPhaseResult) -> torch.Tensor:
-        """The round's statistics (``STATS``), packed on the device into
-        one f32 vector: the summary's values, bit for bit."""
-        stats = (res.rewards_mean, res.lams.mean(0),
-                 drift.lambda_disagreement(res.lams)["pairwise_mean"],
-                 drift.param_drift_stacked(res.stacked_trainable),
-                 res.kl_mean, res.lams, res.rewards_pc)
-        for name, t in zip(STATS, stats):
-            if t.dtype != torch.float32:
-                raise TypeError(f"round statistic {name} is {t.dtype}, "
-                                "not float32")
-        return torch.cat([t.detach().reshape(-1) for t in stats])
+    def _round_stats(self, res: LocalPhaseResult) -> torch.Tensor:
+        """The round's statistics packed on the device
+        (``summary_device``)."""
+        return _summary_device(res)
 
     def _unpack_stats(self, row: np.ndarray, n_part: int) -> dict:
         """A host row of ``_round_stats`` back into the statistics."""
@@ -636,6 +685,7 @@ class FederatedTrainer:
         payloads, decoded = self._uplink(participants, flat_deltas, up_bits)
         self.global_trainable = self._aggregate_flat(
             broadcast, decoded, torch.zeros(len(participants),
+                                            dtype=torch.float32,
                                             device=decoded.device))
         self.ledger.next_round()
         self._round_idx += 1
@@ -718,8 +768,14 @@ class FederatedTrainer:
         it are recorded as if the chunk had ended there, so the trainer is
         where those rounds through ``run_round`` would leave it.  An
         algorithm, executor or cohort structure the fused executor cannot
-        run raises ``ValueError``.
+        run raises ``ValueError``, and so does a chunk while the NaN check
+        is on (``obs.debug``): its checks would read the chunk back.
         """
+        if debug.nans_enabled():
+            raise ValueError(
+                "the fused executor reads nothing back before a chunk "
+                "ends, and the NaN check (obs.debug.set_debug_nan) reads "
+                "every operation's output: run the rounds with run_round")
         ok, cfc = self._fused_mode()
         if not ok:
             raise ValueError(

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, nancheck
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels each dtype's C entry launches (csrc/flash_attention.cu)
@@ -103,6 +103,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise RuntimeError(
                 f"flash_attention kernel launch failed: CUDA error {err}")
         launches += 1
+        nancheck.check_output("flash_attention", o, lse)
     return (o, lse) if with_lse else o
 
 
@@ -140,6 +141,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             f"flash_attention backward kernel launch failed: CUDA error {err}")
     bwd_launches += 1
+    nancheck.check_output("flash_attention_bwd", dq, dk, dv)
     return dq, dk, dv
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, nancheck
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 M_MAX = 8             # the Pallas kernel's M_PAD
@@ -45,4 +45,5 @@ def gram(x: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"gram kernel launch failed: CUDA error {err}")
     launches += 1
+    nancheck.check_output("gram", g)
     return g

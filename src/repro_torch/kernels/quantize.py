@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, nancheck
 
 BLOCK = 1024          # elements per row: one scale each
 
@@ -62,6 +62,7 @@ def quantize(x: torch.Tensor, bits: torch.Tensor, qmax: int = 127):
     if err:
         raise RuntimeError(f"quantize kernel launch failed: CUDA error {err}")
     quantize_launches += 1
+    nancheck.check_output("quantize", scales)
     return codes, scales
 
 
@@ -99,6 +100,7 @@ def dequantize(codes: torch.Tensor, scales: torch.Tensor,
         raise RuntimeError(f"dequantize kernel launch failed: CUDA error "
                            f"{err}")
     dequantize_launches += 1
+    nancheck.check_output("dequantize", out, residual)
     return out, residual
 
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, nancheck
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -58,6 +58,7 @@ def rmsnorm_fwd(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
     if err:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
     launches += 1
+    nancheck.check_output("rmsnorm", y)
     return y
 
 
@@ -77,6 +78,7 @@ def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
         raise RuntimeError(
             f"rmsnorm backward kernel launch failed: CUDA error {err}")
     bwd_launches += 1
+    nancheck.check_output("rmsnorm_bwd", dx)
     return dx
 
 

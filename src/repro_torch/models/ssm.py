@@ -53,9 +53,10 @@ def init_mamba2(cfg: ModelConfig, *, generator: torch.Generator, device,
                                 1.0 / cfg.conv_dim, dtype,
                                 generator=generator, device=device),
         "conv_b": torch.zeros(lead + (conv_ch,), dtype=dtype, device=device),
-        "A_log": const(torch.log(torch.linspace(1.0, 16.0, nh))),
-        "D": const(torch.ones(nh)),
-        "dt_bias": const(torch.zeros(nh)),
+        "A_log": const(torch.log(torch.linspace(1.0, 16.0, nh,
+                                                dtype=torch.float32))),
+        "D": const(torch.ones(nh, dtype=torch.float32)),
+        "dt_bias": const(torch.zeros(nh, dtype=torch.float32)),
         "out_proj": common.init_linear(din, d, **kw),
     }
 

@@ -16,11 +16,14 @@ eagerly on the graph's side stream before the capture: it is real work
 and the warm-up of every lazy first call.  Before each step the noise is
 drawn (or copied, when injected) into its buffer outside the graph, so
 the draws are the eager loop's.  The kernels' launch counters are moved
-for the replays (``kernels.counters``).  No garbage collection runs
-during a capture (``no_collection``).  A capture or replay that fails
-raises; nothing falls back to the eager loop, which stays as
-``_decode_eager`` for the tests and ``chip_smoke.py`` to hold the graph
-against.
+for the replays (``kernels.counters``), and ``decode_captures`` counts
+the captures (one a ``decode`` call, which the plan audit reports).  No
+garbage collection runs during a capture (``no_collection``).  A capture
+or replay that fails raises; nothing falls back to the eager loop, which
+stays as ``_decode_eager`` for the tests and ``chip_smoke.py`` to hold
+the graph against.  While the NaN check is on (``obs.debug``) nothing is
+captured: every step runs eagerly (``step_graph``).  ``generate`` is a
+program of ``obs.jitwatch``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import counters
 from repro_torch.models import transformer
+from repro_torch.obs import debug, jitwatch
 from repro_torch.rng import (categorical, gumbel_from_uniform, gumbel_noise,
                              uniform_noise)
 
@@ -45,6 +49,8 @@ from repro_torch.rng import (categorical, gumbel_from_uniform, gumbel_noise,
 # captured; it is never replayed again.
 _SIDE_STREAMS: dict = {}
 _LAST_GRAPHS: dict = {}
+# decode-step graphs captured so far
+decode_captures = 0
 
 
 def side_stream(device) -> "torch.cuda.Stream":
@@ -83,10 +89,10 @@ def _check_noise(generator, gumbel) -> None:
 
 
 @torch.no_grad()
-def generate(cfg: ModelConfig, params, prompt: torch.Tensor, *,
-             max_new: int = 32, temperature: float = 1.0,
-             generator: Optional[torch.Generator] = None,
-             gumbel: Optional[torch.Tensor] = None):
+def _generate(cfg: ModelConfig, params, prompt: torch.Tensor, *,
+              max_new: int = 32, temperature: float = 1.0,
+              generator: Optional[torch.Generator] = None,
+              gumbel: Optional[torch.Tensor] = None):
     """prompt: (B, P) -> (tokens (B, P+max_new), logprobs, mask).
 
     logprobs are the sampling logprobs at generated positions, 0 elsewhere;
@@ -113,6 +119,9 @@ def generate(cfg: ModelConfig, params, prompt: torch.Tensor, *,
     return tokens, logprobs, mask
 
 
+generate = jitwatch.wrap("generate", _generate)
+
+
 @torch.no_grad()
 def decode(cfg: ModelConfig, params, cache, last: torch.Tensor, *,
            max_new: int, temperature: float = 1.0,
@@ -121,11 +130,21 @@ def decode(cfg: ModelConfig, params, cache, last: torch.Tensor, *,
     """``max_new`` sampled steps from a prefilled ``cache`` (updated in
     place), the first fed ``last`` (B, 1) -> (tokens (B, max_new) int64,
     logprobs (B, max_new) f32).  On CUDA the steps after the first are
-    replays of one captured graph."""
-    graph = _StepGraph(last.device) if last.is_cuda else None
+    replays of one captured graph (``step_graph``)."""
+    graph = step_graph(last.device)
     return _decode(cfg, params, cache, last, max_new=max_new,
                    temperature=temperature, generator=generator,
                    gumbel=gumbel, graph=graph)
+
+
+def step_graph(device) -> Optional["_StepGraph"]:
+    """The graph a decode on ``device`` captures its step into: a
+    ``_StepGraph`` on CUDA; None (every step eager) elsewhere and while the
+    NaN check is on (``obs.debug.set_debug_nan``), whose checks read
+    tensors back to the host."""
+    if torch.device(device).type != "cuda" or debug.nans_enabled():
+        return None
+    return _StepGraph(device)
 
 
 def _new_state(cfg: ModelConfig, cache, last: torch.Tensor, max_new: int,
@@ -169,6 +188,7 @@ def _decode(cfg: ModelConfig, params, cache, last: torch.Tensor, *,
     """The decode runner.  ``graph`` None runs every step eagerly; else it
     is a ``_StepGraph`` (or, in the tests, a stand-in with its
     ``warm``/``capture``/``replay``)."""
+    global decode_captures
     _check_noise(generator, gumbel)
     dev = last.device
     state = _new_state(cfg, cache, last, max_new,
@@ -192,6 +212,7 @@ def _decode(cfg: ModelConfig, params, cache, last: torch.Tensor, *,
         before = counters.read()
         with no_collection():
             graph.capture(step, state)
+        decode_captures += 1
         per_replay = counters.since(before)
         counters.add(per_replay, -1)              # the capture ran nothing
     for i in range(1, max_new):

@@ -140,6 +140,10 @@ class UpdateGraphs:
             kernel, cfg, cfc, self._inputs(state, batch, operands), frozen))
         return None if entry is None else entry.graph
 
+    def uncaptured(self) -> int:
+        """Keys called once (warmed) and not yet captured."""
+        return sum(entry.outputs is None for entry in self._entries.values())
+
     @staticmethod
     def _inputs(state, batch, operands) -> list:
         return _state_leaves(state) + list(batch) + list(operands)
