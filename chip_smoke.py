@@ -19,10 +19,15 @@ line, for a first check of new kernels):
             MHA with 32 query and 32 KV heads; then the tensor-core
             kernels' edges in bf16: Dh = 16, Sq = 1 and Skv = 1, S = 2048
             at B = 1 (32 key tiles of online softmax), GQA groups of 1, 4
-            and 8, a window of 16), the same bits from a second call, the
-            path (tensor-core or FMA) that served each case and the HMMA
-            instructions of each flash kernel (``cuobjdump -sass``); then
-            timed beside ``F.scaled_dot_product_attention``.
+            and 8, a window of 16), then head_dim 128 (mixtral's training
+            shape B=16, S=256, 32 query and 8 KV heads; GQA groups of 1, 3,
+            12 and 16; Sq = 1; windows of 16 and 4096 at B = 1, S = 4608;
+            f32 within 1e-4), the same bits from a second call, the
+            path (tensor-core or FMA) that served each case, the HMMA
+            instructions of each flash kernel (``cuobjdump -sass``) and the
+            forward kernels' registers and spills; then timed beside
+            ``F.scaled_dot_product_attention`` at the rollout's shape and
+            at head_dim 128.
 5. gram:    the CUDA Gram kernel against its plain version at the local
             step's shape (2, 3,407,872) f32 and off it (M = 3 and 8, ragged
             d, bf16, a misaligned row; FedCMOO's server solve on a sketch,
@@ -63,7 +68,9 @@ line, for a first check of new kernels):
             versions (autograd of the plain forward) at the local step's
             shapes and off them (the forwards' extra cases, the flash
             kernels' new edges included), the same bits twice, then timed
-            beside the backward of ``F.rms_norm`` and of SDPA.  flash_bwd
+            beside the backward of ``F.rms_norm`` and of SDPA (flash_bwd
+            also at head_dim 128, whose cases it runs too, with the
+            backward kernels' registers and spills).  flash_bwd
             also sets the kernel's dq, dk, dv beside autograd of the plain
             f32 forward and beside FlashAttention-2's formula with D from
             the bf16 O, to measure what D from the bf16 O adds to the
@@ -179,9 +186,11 @@ line, for a first check of new kernels):
             reference's ledger, tests/test_torch_hybrid_training.py),
             lambda on the simplex, drift > 0, residuals carried; seconds by
             part and peak memory.
-21. round_parity: R=3 carried ``wan`` rounds of a tiny f32 llama and a
+21. round_parity: R=3 carried ``wan`` rounds of a tiny f32 llama, a
             tiny f32 zamba2 (hd 64, ds 16: the SSD kernels forward and
-            backward) on the card and on the CPU, the same weights and
+            backward) and a tiny f32 mixtral (4 experts top 2, window 8,
+            capacity factor 0.5: tokens drop) on the card and on the CPU,
+            the same weights and
             injected draws, both decoding with an f32 K/V cache; the
             summaries held within tests/test_torch_round.py's tolerances.
             Then on the tiny llama R=3 carried rounds of ``firm_unreg``,
@@ -287,7 +296,25 @@ line, for a first check of new kernels):
             full-width ``wan`` round with f64 as the default dtype (its
             outcome recorded).  Audit seconds, decode captures and their
             seconds.
-27. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+27. moe:    mixtral-8x7b at full width (d 4096, 32 query and 8 KV heads
+            of 128, d_ff 14336, 8 experts top 2, capacity factor 1.25,
+            window 4096, vocab 32000), depth cut to 4 of its 32 layers
+            (all 32 hold 93.4 GB in bf16, more than the card's 80), random
+            weights from a seed: (a) one decode of B = 16 prompts of 128
+            tokens, 128 new, through the captured step against the eager
+            loop, bit for bit, launches exact; (b) one client's K = 2
+            local steps through an update graph against the same rollouts
+            and eager updates, bit for bit, launches exact, the graph's
+            pool; (c) R = 2 ``wan`` rounds (C = 2, K = 1) through
+            ``plan(RunSpec(...)).build()``: launches a round exact, each
+            round's bytes the plan's (3,421,184 up, 13,631,488 down),
+            seconds by part, peak memory, a third round profiled for the
+            idle share; (d) one prompt of 4608 tokens (the window bites):
+            the logits through the kernels against the plain path, the
+            ring (position p at slot p % 4096), and 64 decode steps that
+            wrap it through the captured step against the eager loop, bit
+            for bit.
+28. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             delta bit for bit; low-rank on the script's usual draw and five
@@ -296,9 +323,9 @@ line, for a first check of new kernels):
             max |flat + state|, cond(P) of the card's range sample in
             float64; the low-rank payload's bytes equal ``nbytes_static``
             (59,392).
-28. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
+29. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
             for llama-3.2-1b and for zamba2-1.2b.
-29. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+30. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
             llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
@@ -350,6 +377,37 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def parse_ptxas(log: str, name: str) -> dict:
+    """Registers, spills and static shared memory of each instance of
+    kernel ``name`` (e.g. ``ssd_scan_kernel``) in the log of an ``nvcc
+    -Xptxas -v`` build."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(rf"{name}I(\w*?)Li(\d+)E", m[1])
+            cur = None if k is None else f"{name}<" + (
+                "bf16, " if "bfloat16" in k[1] else
+                "f32, " if k[1] == "f" else "") + f"{k[2]}>"
+            if cur:
+                out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
+        if m:
+            out[cur]["spill_stores"] = int(m[1])
+            out[cur]["spill_loads"] = int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m[1])
+            sm_ = re.search(r"(\d+) bytes smem", ln)
+            out[cur]["static_smem"] = int(sm_[1]) if sm_ else 0
+            cur = None
+    return out
+
+
 def ssd_flops(b: int, s: int, nh: int, hd: int, ds: int, chunk: int) -> int:
     """Operations the chunked SSD scan needs for these shapes: for each
     chunk of n positions and each head, 2 hd per causal (i, j) pair
@@ -369,7 +427,86 @@ PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
           "rollout", "rollout_hybrid", "decode_graph", "local_step",
           "local_step_hybrid", "update_graph",
           "round", "round_hybrid", "round_parity", "algorithms", "executors",
-          "fused", "sched", "audit", "codecs", "train", "serve")
+          "fused", "sched", "audit", "moe", "codecs", "train", "serve")
+# flash-attention cases: (label, (b, sq, skv, hq, hkv, dh), dtype, causal,
+# window).  The forward runs FLASH_CASES, FLASH_EDGE_CASES and
+# FLASH_D128_CASES, the backward FLASH_BWD_CASES, FLASH_EDGE_CASES and
+# FLASH_D128_CASES; scripts/flash_same_bits.py those below head_dim 128.
+# dh = 32 and 16 and the two Sq != Skv cases cover the other head dims the
+# kernels are built for and query and key lengths that differ
+FLASH_CASES = [
+    ("rollout S=256 causal", (B, 256, 256, 32, 8, 64), "bf16", True, 0),
+    ("prefill S=128 causal", (B, P, P, 32, 8, 64), "bf16", True, 0),
+    ("ragged S=77 causal", (2, 77, 77, 32, 8, 64), "bf16", True, 0),
+    ("non-causal S=256", (2, 256, 256, 32, 8, 64), "bf16", False, 0),
+    ("window 64 S=256", (2, 256, 256, 32, 8, 64), "bf16", True, 64),
+    ("f32 ragged S=100", (2, 100, 100, 32, 8, 64), "f32", True, 0),
+    ("dh=32 S=40 causal", (2, 40, 40, 8, 2, 32), "bf16", True, 0),
+    ("dh=16 f32 S=33 causal", (2, 33, 33, 4, 1, 16), "f32", True, 0),
+    ("Sq=50 Skv=130 non-causal", (2, 50, 130, 32, 8, 64), "bf16", False, 0),
+    ("Sq=130 Skv=50 causal", (2, 130, 50, 32, 8, 64), "bf16", True, 0),
+    ("zamba2 MHA S=256 causal", (B, 256, 256, 32, 32, 64), "bf16", True, 0),
+]
+# the tensor-core kernels' edges (a single query or key, 32 key tiles of
+# online softmax, GQA groups of 1, 4 and 8, a window of 16 that leaves rows
+# of a tile with no key)
+FLASH_EDGE_CASES = [
+    ("dh=16 S=33 causal", (2, 33, 33, 4, 1, 16), "bf16", True, 0),
+    ("Sq=1 Skv=1 causal", (2, 1, 1, 32, 8, 64), "bf16", True, 0),
+    ("Sq=1 Skv=77 non-causal", (2, 1, 77, 32, 8, 64), "bf16", False, 0),
+    ("Sq=77 Skv=1 non-causal", (2, 77, 1, 32, 8, 64), "bf16", False, 0),
+    ("S=2048 B=1 causal", (1, 2048, 2048, 32, 8, 64), "bf16", True, 0),
+    ("GQA group 1 S=128 causal", (2, 128, 128, 8, 8, 64), "bf16", True, 0),
+    ("GQA group 4 S=128 causal", (2, 128, 128, 32, 8, 64), "bf16", True, 0),
+    ("GQA group 8 S=128 causal", (2, 128, 128, 32, 4, 64), "bf16", True, 0),
+    ("window 16 S=200", (2, 200, 200, 32, 8, 64), "bf16", True, 16),
+]
+# the forward's cases but zamba2's, for the backward
+FLASH_BWD_CASES = [
+    ("local step S=256 causal", (B, 256, 256, 32, 8, 64), "bf16", True, 0),
+    ("ragged S=77 causal", (2, 77, 77, 32, 8, 64), "bf16", True, 0),
+    ("non-causal S=256", (2, 256, 256, 32, 8, 64), "bf16", False, 0),
+    ("window 64 S=256", (2, 256, 256, 32, 8, 64), "bf16", True, 64),
+    ("f32 ragged S=100", (2, 100, 100, 32, 8, 64), "f32", True, 0),
+    ("dh=32 S=40 causal", (2, 40, 40, 8, 2, 32), "bf16", True, 0),
+    ("dh=16 f32 S=33 causal", (2, 33, 33, 4, 1, 16), "f32", True, 0),
+    ("Sq=50 Skv=130 non-causal", (2, 50, 130, 32, 8, 64), "bf16", False, 0),
+    ("Sq=130 Skv=50 causal", (2, 130, 50, 32, 8, 64), "bf16", True, 0),
+]
+# head_dim 128 (mixtral, moonshot, phi4-mini, mistral-large, glm4):
+# mixtral's training shape, GQA groups of 1, 3, 12 and 16, a single query,
+# windows of 16 and 4096 at S = 4608 (where 4096 bites), a window of 100
+# (more than a key tile and not a multiple of one: tiles the window cuts
+# beside tiles it keeps whole), f32
+FLASH_D128_CASES = [
+    ("dh=128 mixtral S=256 causal", (B, 256, 256, 32, 8, 128), "bf16", True,
+     0),
+    ("dh=128 GQA group 1 S=128 causal", (2, 128, 128, 16, 16, 128), "bf16",
+     True, 0),
+    ("dh=128 GQA group 3 S=128 causal", (2, 128, 128, 24, 8, 128), "bf16",
+     True, 0),
+    ("dh=128 GQA group 12 S=128 causal", (1, 128, 128, 96, 8, 128), "bf16",
+     True, 0),
+    ("dh=128 GQA group 16 S=128 causal", (2, 128, 128, 32, 2, 128), "bf16",
+     True, 0),
+    ("dh=128 ragged S=77 causal", (2, 77, 77, 32, 8, 128), "bf16", True, 0),
+    ("dh=128 Sq=1 Skv=1 causal", (2, 1, 1, 32, 8, 128), "bf16", True, 0),
+    ("dh=128 Sq=1 Skv=77 non-causal", (2, 1, 77, 32, 8, 128), "bf16", False,
+     0),
+    ("dh=128 window 16 S=4608 B=1", (1, 4608, 4608, 32, 8, 128), "bf16",
+     True, 16),
+    ("dh=128 window 4096 S=4608 B=1", (1, 4608, 4608, 32, 8, 128), "bf16",
+     True, 4096),
+    ("dh=128 window 100 S=300", (2, 300, 300, 32, 8, 128), "bf16", True,
+     100),
+    ("dh=128 f32 ragged S=100 causal", (2, 100, 100, 32, 8, 128), "f32",
+     True, 0),
+    ("dh=128 f32 window 16 S=200", (2, 200, 200, 32, 8, 128), "f32", True,
+     16),
+    ("dh=128 f32 Sq=1 Skv=77 non-causal", (2, 1, 77, 32, 8, 128), "f32",
+     False, 0),
+    ("dh=128 f32 GQA group 3 S=64", (2, 64, 64, 24, 8, 128), "f32", True, 0),
+]
 TOPK_PASSES = 32               # bisection passes of one top-k selection
 # the host's calls that put work on a stream, as torch.profiler names them
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -573,33 +710,8 @@ def run(torch, stop_after) -> int:
     done("build")
 
     def ptxas_by_kernel(name: str) -> dict:
-        """Registers, spills and static shared memory of each instance of
-        kernel ``name`` (e.g. ``ssd_scan_kernel``), from the build log."""
-        out, cur = {}, None
-        for ln in lib_path.with_suffix(".log").read_text().splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", ln)
-            if m:
-                k = re.search(rf"{name}I(\w*?)Li(\d+)E", m[1])
-                cur = None if k is None else f"{name}<" + (
-                    "bf16, " if "bfloat16" in k[1] else
-                    "f32, " if k[1] == "f" else "") + f"{k[2]}>"
-                if cur:
-                    out[cur] = {}
-                continue
-            if cur is None:
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", ln)
-            if m:
-                out[cur]["spill_stores"] = int(m[1])
-                out[cur]["spill_loads"] = int(m[2])
-            m = re.search(r"Used (\d+) registers", ln)
-            if m:
-                out[cur]["registers"] = int(m[1])
-                sm_ = re.search(r"(\d+) bytes smem", ln)
-                out[cur]["static_smem"] = int(sm_[1]) if sm_ else 0
-                cur = None
-        return out
+        """``parse_ptxas`` of the library's build log."""
+        return parse_ptxas(lib_path.with_suffix(".log").read_text(), name)
 
     libcuda = ctypes.CDLL("libcuda.so.1")
     graph_kernel_node = 0          # CU_GRAPH_NODE_TYPE_KERNEL
@@ -677,6 +789,356 @@ def run(torch, stop_after) -> int:
             shape, generator=gen if generator is None else generator,
             device=dev).to(dtype)
 
+    def identical(a, b) -> bool:
+        """The same dtype, shape and bits."""
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).contiguous().view(torch.uint8),
+            b.reshape(-1).contiguous().view(torch.uint8))
+
+    def clone_cache(cache):
+        return {"slots": common.tree_map(lambda t: t.clone(), cache["slots"]),
+                "pos": cache["pos"].clone()}
+
+    def flat_out(out):
+        new_state, metrics = out
+        return (update_graph._state_leaves(new_state)
+                + [metrics[k] for k in sorted(metrics)])
+
+    def same_update(got, want) -> bool:
+        g, w = flat_out(got), flat_out(want)
+        return len(g) == len(w) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(g, w))
+
+    def pool_bytes(graph):
+        """Bytes of the segments of the graph's private pool, from the
+        allocator's snapshot; None when the snapshot names no pool."""
+        pool = tuple(graph.pool())
+        segs = torch.cuda.memory_snapshot()
+        if not segs or "segment_pool_id" not in segs[0]:
+            return None
+        return sum(sg["total_size"] for sg in segs
+                   if tuple(sg["segment_pool_id"]) == pool)
+
+    def moe_phase() -> dict:
+        """The ``moe`` phase (the module docstring's 27): mixtral-8x7b at
+        full width and 4 of its 32 layers.  Emits its record and returns
+        each flash kernel's launches in one round of (c)."""
+        from repro_torch.fed import api as api_m
+        mcfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=4,
+                                   n_periods=4)
+        check(mcfg.head_dim == 128 and mcfg.sliding_window == 4096
+              and mcfg.moe.n_experts == 8 and mcfg.moe.top_k == 2,
+              f"mixtral-8x7b's config changed: {mcfg}")
+        fc_m = FIRMConfig()
+        g_m = torch.Generator(device=dev).manual_seed(28)
+        torch.cuda.synchronize()
+        held_before = torch.cuda.memory_allocated()
+        m_ref, init_s = wall(lambda: transformer.init_params(
+            mcfg, generator=g_m, device=dev))
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in common.tree_leaves(m_ref))
+        m_train0, m_frozen = common.split_trainable(m_ref)
+        # a policy one training step away from the reference
+        m_train = common.tree_map(lambda t: t + 1e-3 * torch.randn(
+            t.shape, generator=g_m, device=dev), m_train0)
+        m_policy = common.merge_trainable(m_train, m_frozen)
+        m_prompts = make_client_datasets(1, mcfg.vocab, P, generator=g_m,
+                                         device=dev)[0].next_batch(B)
+        bands = rewards.variant_bands(mcfg.vocab)
+        tol_len = max(4, MAX_NEW // 2)
+        fwd_norms, n_l = 2 * mcfg.n_layers + 1, mcfg.n_layers
+        none = {name: 0 for name in counters}
+        record = {"model": mcfg.name, "layers": mcfg.n_layers,
+                  "params": mcfg.param_count(),
+                  "active_params": mcfg.param_count(active_only=True),
+                  "weight_bytes": weight_bytes, "init_s": init_s,
+                  "memory_held_before_bytes": held_before}
+
+        # (a) one rollout's decode through the captured step against the
+        # eager loop: B = 16 prompts of 128 tokens, 128 new
+        def decode_with(graph, seed=5):
+            cache = transformer.prefill(mcfg, m_policy, m_prompts,
+                                        cache_len=P + MAX_NEW)[1]
+            fn = sampling._decode if graph else sampling._decode_eager
+            kw = {"graph": sampling._StepGraph(dev)} if graph else {}
+            return fn(mcfg, m_policy, cache, m_prompts[:, -1:],
+                      max_new=MAX_NEW, temperature=1.0,
+                      generator=torch.Generator(device=dev).manual_seed(seed),
+                      **kw)
+        decode_with(True)                     # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        (tok_g, lp_g), graph_s = wall(lambda: decode_with(True))
+        dec_launches = read_counts()
+        check(dec_launches == dict(none, rmsnorm=fwd_norms * (MAX_NEW + 1),
+                                   flash_attention=n_l),
+              f"moe decode launches {dec_launches}")
+        (tok_e, lp_e), eager_s = wall(lambda: decode_with(False))
+        check(identical(tok_g, tok_e) and identical(lp_g, lp_e),
+              "moe: the captured decode's tokens and logprobs are not the "
+              "eager loop's bit for bit")
+        check(bool(((tok_g >= 0) & (tok_g < mcfg.vocab)).all()
+                   & lp_g.isfinite().all() & (lp_g <= 0).all()),
+              "moe decode: token ids in range, finite logprobs <= 0")
+        g_last = sampling._LAST_GRAPHS[torch.cuda.current_device()]
+        record["decode"] = {
+            "batch": B, "prompt_len": P, "max_new": MAX_NEW,
+            "graph_s": graph_s, "eager_s": eager_s,
+            "capture_s": g_last.capture_s,
+            "instantiate_s": g_last.instantiate_s,
+            "seconds_per_step_graph": graph_s / MAX_NEW,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches": dec_launches}
+        del tok_e, lp_e
+
+        # (b) one client, K = 2 steps (rollout, then the FIRM update)
+        # through an update graph (warm, then capture and replay) against
+        # the same rollouts and eager updates
+        k_m = 2
+        state0 = local.init_client_state(m_train, fc_m.n_objectives,
+                                         mcfg.d_model,
+                                         kl_coef=fc_m.kl_coef_init,
+                                         device=dev)
+        prompts_k = torch.stack([m_prompts.roll(k, 0) for k in range(k_m)])
+
+        def gens():
+            return [torch.Generator(device=dev).manual_seed(40 + k)
+                    for k in range(k_m)]
+        runner = update_graph.UpdateGraphs()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        zero_counts()
+        (st_g, met_g), k_graph_s = wall(lambda: client_local_steps(
+            mcfg, fc_m, state0, m_frozen, m_ref, *bands, k_steps=k_m,
+            max_new=MAX_NEW, length_tol=tol_len, prompts=prompts_k,
+            generators=gens(), graphs=runner))
+        k_launches = read_counts()
+        k_peak = torch.cuda.max_memory_allocated() - mem0
+        per_client_step = dict(
+            none, rmsnorm=fwd_norms * (MAX_NEW + 3),
+            flash_attention=3 * n_l, rmsnorm_bwd=N_OBJ * 2 * n_l,
+            flash_attention_bwd=N_OBJ * n_l, gram=1)
+        check(k_launches == {k: k_m * v for k, v in per_client_step.items()},
+              f"moe local steps' launches {k_launches}")
+        st_e, batches, eager_upd_s = state0, [], []
+        for k, g_k in enumerate(gens()):
+            batch_k = rollout_batch(
+                mcfg, common.merge_trainable(st_e.trainable, m_frozen),
+                m_ref, prompts_k[k], *bands, n_objectives=N_OBJ,
+                max_new=MAX_NEW, length_tol=tol_len, generator=g_k)
+            batches.append(batch_k)
+            (st_e, met_e), sec = wall(lambda: local.firm_local_step(
+                mcfg, fc_m, st_e, m_frozen, batch_k))
+            eager_upd_s.append(sec)
+        check(all(identical(a, b_) for a, b_ in zip(
+            update_graph._state_leaves(st_g),
+            update_graph._state_leaves(st_e))) and identical(
+                met_g["lam"][-1], met_e["lam"]),
+              "moe: K = 2 steps through the update graph are not the eager "
+              "updates bit for bit")
+        g_upd = runner.graph("firm", mcfg, fc_m, state0, m_frozen,
+                             batches[0], (firm.config_tensor(fc_m.beta,
+                                                             dev),))
+        check(runner.captures == 1 and g_upd is not None,
+              f"moe: {runner.captures} update captures for one key")
+        firm_alg = algorithms_lib.get_algorithm("firm")
+        _, replay_s = wall(lambda: firm_alg.step(
+            mcfg, fc_m, st_e, m_frozen, batches[1], None, None, runner))
+        record["local_steps"] = {
+            "k_steps": k_m, "seconds": k_graph_s, "launches": k_launches,
+            "update_eager_s": eager_upd_s, "update_replay_s": replay_s,
+            "graph_pool_bytes": pool_bytes(g_upd.graph),
+            "peak_memory_bytes": k_peak,
+            "lam": met_g["lam"].tolist(), "kl": met_g["kl"].tolist()}
+        del runner, g_upd, st_g, st_e, batches
+        release_m()
+
+        # (c) R = 2 wan rounds, C = 2, K = 1, through the front door
+        fc_r = dataclasses.replace(fc_m, n_clients=N_CLIENTS, local_steps=1,
+                                   rounds=ROUNDS)
+        up, down = CODEC_PRESETS["wan"]
+        plan_m = api_m.plan(api_m.RunSpec(mcfg, fc_r, EngineConfig(
+            prompt_len=P, max_new=MAX_NEW, uplink_codec=up,
+            downlink_codec=down)))
+        tr = plan_m.build(device=dev, params=m_ref)
+        check(tr.d_trainable == plan_m.d_trainable == 1_703_936,
+              f"moe d_trainable {tr.d_trainable}")
+        part_s = {}
+        names_m = {"_broadcast": "downlink", "_local_phase": "local_phase",
+                   "_delta_flat": "delta", "_uplink": "uplink_codec",
+                   "_aggregate_flat": "aggregate", "_record": "summary"}
+
+        def timed(name, fn):
+            def run_part(*a, **kw):
+                out, sec = wall(lambda: fn(*a, **kw))
+                part_s.setdefault(names_m[name], []).append(sec)
+                return out
+            return run_part
+        for name in names_m:
+            setattr(tr, name, timed(name, getattr(tr, name)))
+        per_round = {k: N_CLIENTS * v for k, v in per_client_step.items()}
+        per_round.update(quantize=1, dequantize=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        summaries, round_s, launches_r = [], [], []
+        for r in range(ROUNDS):
+            zero_counts()
+            s_r, sec = wall(tr.run_round)
+            launches_r.append(read_counts())
+            summaries.append(s_r)
+            round_s.append(sec)
+            check(launches_r[-1] == per_round,
+                  f"moe round {r + 1} launches {launches_r[-1]}, expected "
+                  f"{per_round}")
+            check(s_r["comm_bytes"] == (r + 1) * (
+                plan_m.up_bytes_per_round + plan_m.down_bytes_per_round)
+                and sum(s_r["up_nbytes"]) == plan_m.up_bytes_per_round
+                == 3_421_184
+                and N_CLIENTS * s_r["down_nbytes"]
+                == plan_m.down_bytes_per_round == 13_631_488
+                and s_r["participants"] == list(range(N_CLIENTS)),
+                f"moe round {r + 1} bytes {s_r['comm_bytes']} against the "
+                f"plan's {plan_m.up_bytes_per_round} up, "
+                f"{plan_m.down_bytes_per_round} down")
+            lam_pc = s_r["per_client_lam"]
+            check((lam_pc >= 0).all() and abs(lam_pc.sum(-1) - 1).max() < 1e-5
+                  and math.isfinite(s_r["kl"]),
+                  f"moe round {r + 1}: lambda on the simplex, finite KL")
+        check(summaries[0]["param_drift"] > 0, "moe: clients drifted apart")
+        round_peak = torch.cuda.max_memory_allocated()
+        prof = device_profile(lambda: tr.run_round(), 1, cpu_ops=False)
+        record["rounds"] = {
+            "preset": "wan", "clients": N_CLIENTS, "local_steps": 1,
+            "rounds": ROUNDS, "d_trainable": tr.d_trainable,
+            "plan": {"up_bytes_per_round": plan_m.up_bytes_per_round,
+                     "down_bytes_per_round": plan_m.down_bytes_per_round,
+                     "executor": plan_m.executor},
+            "comm_bytes": summaries[-1]["comm_bytes"],
+            "seconds_per_round": round_s,
+            "breakdown_s": {k: v[:ROUNDS] for k, v in part_s.items()},
+            "peak_memory_bytes": round_peak,
+            "launches_per_round": launches_r[0],
+            "device_idle_share": None if prof is None
+            else prof["device_idle_share"], "profile": prof,
+            "param_drift": [s_["param_drift"] for s_ in summaries],
+            "lam_mean": [s_["lam_mean"].tolist() for s_ in summaries],
+            "kl": [s_["kl"] for s_ in summaries]}
+        del tr
+        release_m()
+
+        # (d) the window at full width: one prompt of 4608 tokens (the
+        # window of 4096 bites), then 64 new tokens on the ring
+        p_long, new_long = 4608, 64
+        long_prompt = torch.randint(0, mcfg.vocab, (1, p_long),
+                                    generator=g_m, device=dev)
+        with torch.no_grad():
+            zero_counts()
+            fwd_k, fwd_k_s = wall(lambda: transformer.forward_seq(
+                mcfg, m_policy, long_prompt, collect_kv=True))
+            check(read_counts()["flash_attention"] == n_l,
+                  "moe long prompt: one flash launch a layer")
+            logits = {"kernels": fwd_k["logits"].float(),
+                      "plain": transformer.forward_seq(
+                          mcfg, m_policy, long_prompt,
+                          use_kernel=False)["logits"].float()}
+            policy32 = common.tree_map(lambda t: t.float(), m_policy)
+            for name, kern in (("f32_kernels", True), ("f32_plain", False)):
+                logits[name] = transformer.forward_seq(
+                    mcfg, policy32, long_prompt,
+                    use_kernel=kern)["logits"].float()
+            del policy32
+        want32 = logits["f32_plain"]
+        scale = max(1.0, float(want32.abs().max()))
+
+        def dist(a, b):
+            d_ = (a - b).abs()
+            return {"max_abs": float(d_.max()), "mean_abs": float(d_.mean()),
+                    "q999_abs": float(torch.quantile(d_.flatten()[::97],
+                                                     0.999))}
+        long_rec = {"prompt_len": p_long, "max_new": new_long,
+                    "window": mcfg.sliding_window, "forward_s": fwd_k_s,
+                    "logits_scale": scale,
+                    "kernels_vs_f32": dist(logits["kernels"], want32),
+                    "plain_vs_f32": dist(logits["plain"], want32),
+                    "kernels_vs_plain": dist(logits["kernels"],
+                                             logits["plain"]),
+                    "f32_kernels_vs_f32_plain": dist(logits["f32_kernels"],
+                                                     want32)}
+        # bf16 by the f32 rule: the kernels' logits no further from the f32
+        # forward than the plain bf16 path's (1.25x on the mean).  A
+        # last-bit difference at a near-tie of the router moves a token's
+        # expert, and through the capacity and the later layers' attention
+        # other tokens, so no bf16 path stays within 2e-2 of another here
+        # (on an H100: max 4.77 of a scale of 6.0).  The f32 forward
+        # through the kernels (the FMA path) against the plain f32 forward:
+        # 1e-3 of the scale on 99.9% of a 1/97 sample.
+        check(long_rec["kernels_vs_f32"]["mean_abs"]
+              <= 1.25 * long_rec["plain_vs_f32"]["mean_abs"]
+              and long_rec["f32_kernels_vs_f32_plain"]["q999_abs"]
+              <= 1e-3 * scale,
+              f"moe long prompt: {long_rec}")
+        del logits, want32
+        k_all = fwd_k["kv"]["0"]["k"]
+        del fwd_k
+        (_, cache_l), prefill_s = wall(lambda: transformer.prefill(
+            mcfg, m_policy, long_prompt, cache_len=p_long + new_long))
+        c_ring = cache_l["slots"]["0"]["k"].shape[2]
+        ring_slots = torch.arange(p_long - c_ring, p_long, device=dev) % c_ring
+        check(c_ring == mcfg.sliding_window
+              and identical(cache_l["slots"]["0"]["k"][:, :, ring_slots],
+                            k_all[:, :, -c_ring:]),
+              "moe long prompt: prefill's ring holds position p at slot "
+              "p % 4096")
+        del k_all
+        before = cache_l["slots"]["0"]["k"].clone()
+        cache_e = clone_cache(cache_l)
+        (tok_lg, lp_lg), long_graph_s = wall(lambda: sampling._decode(
+            mcfg, m_policy, cache_l, long_prompt[:, -1:], max_new=new_long,
+            temperature=1.0, generator=torch.Generator(
+                device=dev).manual_seed(7), graph=sampling._StepGraph(dev)))
+        (tok_le, lp_le), long_eager_s = wall(lambda: sampling._decode_eager(
+            mcfg, m_policy, cache_e, long_prompt[:, -1:], max_new=new_long,
+            temperature=1.0, generator=torch.Generator(
+                device=dev).manual_seed(7)))
+        check(identical(tok_lg, tok_le) and identical(lp_lg, lp_le)
+              and all(identical(a, b_) for a, b_ in zip(
+                  common.tree_leaves(cache_l["slots"]),
+                  common.tree_leaves(cache_e["slots"]))),
+              "moe long decode: the captured ring decode is not the eager "
+              "loop's bit for bit")
+        # the decode wrote positions 4608..4671 at slots 512..575 and
+        # left the others as prefill laid them out
+        moved = (cache_l["slots"]["0"]["k"] != before).flatten(3).any(
+            -1).any(0).any(0)
+        written = torch.zeros(c_ring, dtype=torch.bool, device=dev)
+        written[torch.arange(p_long, p_long + new_long, device=dev)
+                % c_ring] = True
+        check(int(cache_l["pos"]) == p_long + new_long
+              and torch.equal(moved, written),
+              "moe long decode: positions 4608..4671 went to slots "
+              "p % 4096 and nowhere else")
+        long_rec.update(prefill_s=prefill_s, decode_graph_s=long_graph_s,
+                        decode_eager_s=long_eager_s,
+                        ring_slots=c_ring)
+        record["long_window"] = long_rec
+        del cache_l, cache_e, before
+        del m_ref, m_policy, m_train, m_train0, m_frozen
+        release_m()
+        emit(phase="moe", **record,
+             tolerance="graphs bit for bit their eager paths; launches and "
+             "bytes exact; long prompt: the kernels' bf16 logits no further "
+             "from the plain f32 forward than the plain bf16 path's (1.25x "
+             "on the mean), the f32 kernels within 1e-3 of the scale of the "
+             "plain f32 forward on 99.9% of a 1/97 sample")
+        return {name: launches_r[0][name]
+                for name in ("flash_attention", "flash_attention_bwd")}
+
+    def release_m():
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # -------------------------------------------------------------- 3. rmsnorm
     def bf16_ulps(a, b) -> int:
         """Largest distance between two bf16 tensors in units in the last
@@ -745,65 +1207,53 @@ def run(torch, stop_after) -> int:
         return tuple(randn(shape, dtype, generator) for shape in (
             (b, sq, hq, dh), (b, skv, hkv, dh), (b, skv, hkv, dh)))
 
-    def identical(a, b) -> bool:
-        """The same dtype, shape and bits."""
-        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-            a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
 
-    # (b, sq, skv, hq, hkv, dh); dh = 32 and 16 and the two Sq != Skv cases
-    # cover the other head dims the kernels are built for and query and key
-    # lengths that differ
-    flash_cases = [
-        ("rollout S=256 causal", (B, 256, 256, 32, 8, 64), torch.bfloat16,
-         True, 0),
-        ("prefill S=128 causal", (B, P, P, 32, 8, 64), torch.bfloat16, True,
-         0),
-        ("ragged S=77 causal", (2, 77, 77, 32, 8, 64), torch.bfloat16, True,
-         0),
-        ("non-causal S=256", (2, 256, 256, 32, 8, 64), torch.bfloat16, False,
-         0),
-        ("window 64 S=256", (2, 256, 256, 32, 8, 64), torch.bfloat16, True,
-         64),
-        ("f32 ragged S=100", (2, 100, 100, 32, 8, 64), torch.float32, True,
-         0),
-        ("dh=32 S=40 causal", (2, 40, 40, 8, 2, 32), torch.bfloat16, True, 0),
-        ("dh=16 f32 S=33 causal", (2, 33, 33, 4, 1, 16), torch.float32, True,
-         0),
-        ("Sq=50 Skv=130 non-causal", (2, 50, 130, 32, 8, 64), torch.bfloat16,
-         False, 0),
-        ("Sq=130 Skv=50 causal", (2, 130, 50, 32, 8, 64), torch.bfloat16,
-         True, 0),
-        ("zamba2 MHA S=256 causal", (B, 256, 256, 32, 32, 64),
-         torch.bfloat16, True, 0),
-    ]
-    # the tensor-core kernels' edges (a single query or key, 32 key tiles of
-    # online softmax, GQA groups of 1, 4 and 8, a window of 16 that leaves
-    # rows of a tile with no key), drawn from a generator of their own so
-    # that the later phases' inputs stay as they were
+    def plain_lse(q, k, causal, window):
+        """The (B, Hq, Sq) log-sum-exp of the plain version's masked
+        scaled scores, in f32."""
+        b, sq, hq, dh = q.shape
+        skv = k.shape[1]
+        kx = k.repeat_interleave(hq // k.shape[2], dim=2).float()
+        s_ = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) * dh ** -0.5
+        qp = torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(skv, device=q.device)[None, :]
+        keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= qp >= kp
+        if window:
+            keep &= qp - kp < window
+        return torch.logsumexp(s_.masked_fill(~keep, -math.inf), dim=-1)
+
+    def check_flash_fwd(label, q, k, causal, window, got, lse, want, tol):
+        """The forward's o against the plain version: within tol + tol
+        |want| each element, and in bf16 also within 2e-2 of each row's
+        max |want| (a row of 4096 kept keys has |o| ~ 0.026, where the
+        element rule is as large as the values); its lse within 4e-3
+        (bf16: P is rounded to bf16, up to 2**-9 of the sum) or 1e-4 (f32)
+        of the plain log-sum-exp, which a key tile wrongly kept whole
+        moves by log(1 + 63 / 4096) = 0.015 at a window of 4096."""
+        bf = got.dtype == torch.bfloat16
+        diff = (got.float() - want.float()).abs()
+        ok = bool((diff <= tol + tol * want.float().abs()).all())
+        if bf:
+            row_max = want.float().abs().amax(dim=-1)
+            ok = ok and bool((diff.amax(dim=-1) <= 2e-2 * row_max).all())
+        lse_err = float((lse - plain_lse(q, k, causal, window)).abs().max())
+        ok = ok and lse_err <= (4e-3 if bf else 1e-4)
+        flash_err[label] = float(diff.max())
+        flash_lse_err[label] = lse_err
+        check(ok, f"flash attention {label}: max abs err "
+              f"{float(diff.max())}, lse err {lse_err}")
+
+    # drawn from a generator of their own, so that the later phases'
+    # inputs stay as they were
     edge_gen = torch.Generator(device=dev).manual_seed(1)
-    flash_edge_cases = [
-        ("dh=16 S=33 causal", (2, 33, 33, 4, 1, 16), torch.bfloat16, True,
-         0),
-        ("Sq=1 Skv=1 causal", (2, 1, 1, 32, 8, 64), torch.bfloat16, True, 0),
-        ("Sq=1 Skv=77 non-causal", (2, 1, 77, 32, 8, 64), torch.bfloat16,
-         False, 0),
-        ("Sq=77 Skv=1 non-causal", (2, 77, 1, 32, 8, 64), torch.bfloat16,
-         False, 0),
-        ("S=2048 B=1 causal", (1, 2048, 2048, 32, 8, 64), torch.bfloat16,
-         True, 0),
-        ("GQA group 1 S=128 causal", (2, 128, 128, 8, 8, 64), torch.bfloat16,
-         True, 0),
-        ("GQA group 4 S=128 causal", (2, 128, 128, 32, 8, 64),
-         torch.bfloat16, True, 0),
-        ("GQA group 8 S=128 causal", (2, 128, 128, 32, 4, 64),
-         torch.bfloat16, True, 0),
-        ("window 16 S=200", (2, 200, 200, 32, 8, 64), torch.bfloat16, True,
-         16),
-    ]
-    flash_err, flash_paths = {}, {}
-    for (label, (b, sq, skv, hq, hkv, dh), dtype, causal, window), g_ in [
-            (case, gen) for case in flash_cases] + [
-            (case, edge_gen) for case in flash_edge_cases]:
+    flash_err, flash_lse_err, flash_paths = {}, {}, {}
+    for (label, (b, sq, skv, hq, hkv, dh), dt, causal, window), g_ in [
+            (case, gen) for case in FLASH_CASES] + [
+            (case, edge_gen) for case in FLASH_EDGE_CASES]:
+        dtype = dtypes[dt]
         q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype, g_)
         got = fa_mod.flash_attention(q, k, v, causal=causal,
                                      sliding_window=window)
@@ -816,14 +1266,33 @@ def run(torch, stop_after) -> int:
         want = ref.flash_attention(q, k, v, causal=causal,
                                    sliding_window=window)
         torch.cuda.synchronize()
-        tol = 2e-2 if dtype == torch.bfloat16 else 2e-4
-        diff = (got.float() - want.float()).abs()
-        ok = bool((diff <= tol + tol * want.float().abs()).all())
-        flash_err[label] = float(diff.max())
         flash_paths[label] = fa_mod.PATHS[dtype]
-        check(ok, f"flash attention {label}: max abs err {float(diff.max())}")
+        check_flash_fwd(label, q, k, causal, window, got, lse, want,
+                        2e-2 if dtype == torch.bfloat16 else 2e-4)
         check(identical(got, again) and identical(lse, lse2),
               f"flash attention {label}: a second call gave other bits")
+    # head_dim 128, drawn from a generator of their own; f32 is held to
+    # 1e-4 here
+    d128_gen = torch.Generator(device=dev).manual_seed(2)
+    for label, (b, sq, skv, hq, hkv, dh), dt, causal, window in \
+            FLASH_D128_CASES:
+        dtype = dtypes[dt]
+        q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype, d128_gen)
+        got, lse = fa_mod.flash_attention_fwd(q, k, v, causal=causal,
+                                              sliding_window=window,
+                                              with_lse=True)
+        again, lse2 = fa_mod.flash_attention_fwd(q, k, v, causal=causal,
+                                                  sliding_window=window,
+                                                  with_lse=True)
+        want = ref.flash_attention(q, k, v, causal=causal,
+                                   sliding_window=window)
+        torch.cuda.synchronize()
+        flash_paths[label] = fa_mod.PATHS[dtype]
+        check_flash_fwd(label, q, k, causal, window, got, lse, want,
+                        2e-2 if dtype == torch.bfloat16 else 1e-4)
+        check(identical(got, again) and identical(lse, lse2),
+              f"flash attention {label}: a second call gave other bits")
+        del q, k, v, got, again, want
 
     def sass_hmma(lib) -> dict:
         """HMMA (tensor-core) instructions in each flash and SSD kernel of
@@ -843,7 +1312,7 @@ def run(torch, stop_after) -> int:
     hmma = sass_hmma(lib_path)
     flash_hmma = {k: n for k, n in hmma.items() if k.startswith("flash_")}
     tc_kernels = [f"flash_{part}_mma_kernel<{dh}>" for part in
-                  ("fwd", "bwd_dq", "bwd_dkv") for dh in (16, 32, 64)]
+                  ("fwd", "bwd_dq", "bwd_dkv") for dh in fa_mod.HEAD_DIMS]
     check(all(flash_hmma.get(name, 0) > 0 for name in tc_kernels),
           f"a tensor-core flash kernel without HMMA: {flash_hmma}")
     s = 256
@@ -873,10 +1342,29 @@ def run(torch, stop_after) -> int:
     pairs = B * 32 * s * (s + 1) // 2          # causal (query, key) pairs
     flash_row["bound_ms"], flash_row["bound_by"] = bound_ms(
         n_bytes, 4 * 64 * pairs, "bf16")
+    # the same at head_dim 128, mixtral's training shape
+    q, k, v = qkv(B, s, s, 32, 8, 128, torch.bfloat16, d128_gen)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flash_row.update({
+        "max_abs_err_dh128": flash_err["dh=128 mixtral S=256 causal"],
+        "ms_dh128": timed_ms(lambda: fa_mod.flash_attention(q, k, v,
+                                                            causal=True)),
+        "plain_ms_dh128": timed_ms(lambda: ref.flash_attention(
+            q, k, v, causal=True), iters=10),
+        "library_ms_dh128": timed_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+    })
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    flash_row["bound_ms_dh128"], flash_row["bound_by_dh128"] = bound_ms(
+        n_bytes, 4 * 128 * pairs, "bf16")
+    flash_regs = ptxas_by_kernel("flash_fwd_mma_kernel")
+    flash_regs.update(ptxas_by_kernel("flash_fwd_fma_kernel"))
     emit(phase="flash", shape=[B, s, 32, 8, 64], dtype="bf16", causal=True,
-         checks=flash_err, paths=flash_paths, same_bits_twice=True,
-         hmma=flash_hmma,
-         tolerance="2e-2 bf16, 2e-4 f32 (atol and rtol)", **flash_row)
+         checks=flash_err, lse_checks=flash_lse_err, paths=flash_paths,
+         same_bits_twice=True, hmma=flash_hmma, registers=flash_regs,
+         tolerance="2e-2 bf16, 2e-4 f32 (atol and rtol); 1e-4 f32 at "
+         "dh=128; bf16 also 2e-2 of each row's max |plain|; lse 4e-3 bf16, "
+         "1e-4 f32 of the plain log-sum-exp", **flash_row)
     done("flash")
 
     # ----------------------------------------------------------------- 5. gram
@@ -1416,26 +1904,10 @@ def run(torch, stop_after) -> int:
     # ----------------------------------------------------------- 11. flash_bwd
     # the forward's cases but zamba2's, with the tensor-core kernels' edges
     flash_bwd_err, flash_bwd_paths = {}, {}
-    edge_labels = {case[0] for case in flash_edge_cases}
-    for label, (b, sq, skv, hq, hkv, dh), dtype, causal, window in [
-            ("local step S=256 causal", (B, 256, 256, 32, 8, 64),
-             torch.bfloat16, True, 0),
-            ("ragged S=77 causal", (2, 77, 77, 32, 8, 64), torch.bfloat16,
-             True, 0),
-            ("non-causal S=256", (2, 256, 256, 32, 8, 64), torch.bfloat16,
-             False, 0),
-            ("window 64 S=256", (2, 256, 256, 32, 8, 64), torch.bfloat16,
-             True, 64),
-            ("f32 ragged S=100", (2, 100, 100, 32, 8, 64), torch.float32,
-             True, 0),
-            ("dh=32 S=40 causal", (2, 40, 40, 8, 2, 32), torch.bfloat16,
-             True, 0),
-            ("dh=16 f32 S=33 causal", (2, 33, 33, 4, 1, 16), torch.float32,
-             True, 0),
-            ("Sq=50 Skv=130 non-causal", (2, 50, 130, 32, 8, 64),
-             torch.bfloat16, False, 0),
-            ("Sq=130 Skv=50 causal", (2, 130, 50, 32, 8, 64),
-             torch.bfloat16, True, 0)] + flash_edge_cases:
+    edge_labels = {case[0] for case in FLASH_EDGE_CASES}
+    for label, (b, sq, skv, hq, hkv, dh), dt, causal, window in \
+            FLASH_BWD_CASES + FLASH_EDGE_CASES:
+        dtype = dtypes[dt]
         g_ = edge_gen if label in edge_labels else gen
         q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype, g_)
         do = randn((b, sq, hq, dh), dtype, g_)
@@ -1471,6 +1943,35 @@ def run(torch, stop_after) -> int:
               f"flash_attention_bwd {label}: rel errs {errs}")
         check(all(identical(a, a2) for a, a2 in zip(got, again)),
               f"flash_attention_bwd {label}: a second call gave other bits")
+    # head_dim 128: the forward's cases, from their own generator again
+    d128_gen.manual_seed(3)
+    for label, (b, sq, skv, hq, hkv, dh), dt, causal, window in \
+            FLASH_D128_CASES:
+        dtype = dtypes[dt]
+        q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype, d128_gen)
+        do = randn((b, sq, hq, dh), dtype, d128_gen)
+        o, lse = fa_mod.flash_attention_fwd(q, k, v, causal=causal,
+                                            sliding_window=window,
+                                            with_lse=True)
+        got = fa_mod.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                         sliding_window=window)
+        again = fa_mod.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal,
+                                           sliding_window=window)
+        want = ref.flash_attention_bwd(q, k, v, do, causal=causal,
+                                       sliding_window=window)
+        torch.cuda.synchronize()
+        # d_scale of the loop above reads this iteration's inputs
+        errs = {name: float((a.float() - w_.float()).abs().max())
+                / d_scale(i, w_) for i, (name, a, w_) in enumerate(zip(
+                    ("dq", "dk", "dv"), got, want))}
+        flash_bwd_err[label] = errs
+        flash_bwd_paths[label] = fa_mod.PATHS[dtype]
+        check(max(errs.values()) <= bwd_tol(dtype),
+              f"flash_attention_bwd {label}: rel errs {errs}")
+        check(all(identical(a, a2) for a, a2 in zip(got, again)),
+              f"flash_attention_bwd {label}: a second call gave other bits")
+        del q, k, v, do, o, lse, got, again, want
     q, k, v = qkv(B, s, s, 32, 8, 64, torch.bfloat16)
     do = randn((B, s, 32, 64), torch.bfloat16)
     o, lse = fa_mod.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
@@ -1502,6 +2003,34 @@ def run(torch, stop_after) -> int:
     flash_bwd_row["bound_ms"], flash_bwd_row["bound_by"] = bound_ms(
         n_bytes, 10 * 64 * pairs, "bf16")
     del qt, kt, vt, ot
+    # the same at head_dim 128, mixtral's training shape
+    q8, k8, v8 = qkv(B, s, s, 32, 8, 128, torch.bfloat16, d128_gen)
+    do8 = randn((B, s, 32, 128), torch.bfloat16, d128_gen)
+    o8, lse8 = fa_mod.flash_attention_fwd(q8, k8, v8, causal=True,
+                                          with_lse=True)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q8, k8, v8))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot_ = do8.transpose(1, 2)
+    flash_bwd_row.update({
+        "max_abs_err_dh128": max(
+            float((a.float() - w_.float()).abs().max()) for a, w_ in zip(
+                fa_mod.flash_attention_bwd(q8, k8, v8, o8, lse8, do8),
+                ref.flash_attention_bwd(q8, k8, v8, do8))),
+        "ms_dh128": timed_ms(lambda: fa_mod.flash_attention_bwd(
+            q8, k8, v8, o8, lse8, do8)),
+        "plain_ms_dh128": timed_ms(lambda: ref.flash_attention_bwd(
+            q8, k8, v8, do8), iters=10),
+        "library_ms_dh128": timed_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot_, retain_graph=True)),
+    })
+    n_bytes = (sum(t.numel() * t.element_size()
+                   for t in (q8, k8, v8, o8, do8, q8, k8, v8))
+               + lse8.numel() * 4)
+    flash_bwd_row["bound_ms_dh128"], flash_bwd_row["bound_by_dh128"] = \
+        bound_ms(n_bytes, 10 * 128 * pairs, "bf16")
+    del qt, kt, vt, ot, q8, k8, v8, do8, o8, lse8
 
     # What D = rowsum(dO * O) from the bf16 O (the kernel's choice, as in
     # FlashAttention-2) adds to the kernel's distance from f32: the
@@ -1550,8 +2079,14 @@ def run(torch, stop_after) -> int:
           f"the FlashAttention-2 formula with the f32 O is autograd's: "
           f"{d_question}")
     del kernel_g, grads_a, grads_b, grads_c
+    flash_bwd_regs = {}
+    for part in ("dq", "dkv"):
+        for path in ("mma", "fma"):
+            flash_bwd_regs.update(ptxas_by_kernel(
+                f"flash_bwd_{part}_{path}_kernel"))
     emit(phase="flash_bwd", shape=[B, s, 32, 8, 64], dtype="bf16",
          causal=True, checks=flash_bwd_err, same_bits_twice=True,
+         registers=flash_bwd_regs,
          paths=flash_bwd_paths,
          d_from_bf16_o=d_question,
          tolerance="max |d - plain| <= 2e-2 (bf16) or 1e-4 (f32) of max "
@@ -1709,10 +2244,6 @@ def run(torch, stop_after) -> int:
          "each gradient's scale (d(da): at least max |dt d(dt)|); the same "
          "bits twice and from contiguous inputs", **ssd_bwd_row)
     done("ssd_bwd")
-
-    def clone_cache(cache):
-        return {"slots": common.tree_map(lambda t: t.clone(), cache["slots"]),
-                "pos": cache["pos"].clone()}
 
     def decode_parts(mcfg, params, prompts, seed: int) -> dict:
         """One decode of MAX_NEW steps through the graph after prefill, by
@@ -2523,26 +3054,6 @@ def run(torch, stop_after) -> int:
     # the local update as a captured program (rlhf/update_graph.py), on
     # each model at full width with FIRMConfig's defaults, on the rollout
     # phases' batches: the runner against the eager firm_local_step
-    def flat_out(out):
-        new_state, metrics = out
-        return (update_graph._state_leaves(new_state)
-                + [metrics[k] for k in sorted(metrics)])
-
-    def same_update(got, want) -> bool:
-        g, w = flat_out(got), flat_out(want)
-        return len(g) == len(w) and all(
-            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(g, w))
-
-    def pool_bytes(graph):
-        """Bytes of the segments of the graph's private pool, from the
-        allocator's snapshot; None when the snapshot names no pool."""
-        pool = tuple(graph.pool())
-        segs = torch.cuda.memory_snapshot()
-        if not segs or "segment_pool_id" not in segs[0]:
-            return None
-        return sum(sg["total_size"] for sg in segs
-                   if tuple(sg["segment_pool_id"]) == pool)
-
     def update_graph_case(mcfg, frz, state_a, state_b, batch_, per_update):
         firm_alg = algorithms_lib.get_algorithm("firm")
         batches = [batch_._replace(rewards=batch_.rewards.roll(k, 0))
@@ -3172,16 +3683,28 @@ def run(torch, stop_after) -> int:
     f32_prefill = functools.partial(prefill_fn, cache_dtype=torch.float32)
 
     parity = {}
+    # the tiny mixtral: 4 experts top 2, a window of 8 (which a rollout of
+    # 8 + 12 tokens crosses) and capacity factor 0.5 (8 slots an expert
+    # for the update's 40 choices a row: tokens drop)
+    tiny_mixtral = get_config("mixtral-8x7b").reduced(n_layers=2,
+                                                      d_model=64, vocab=64)
+    tiny_mixtral = dataclasses.replace(
+        tiny_mixtral, sliding_window=8, moe=dataclasses.replace(
+            tiny_mixtral.moe, capacity_factor=0.5))
     for cfg_p in (dataclasses.replace(
             get_config("llama-3.2-1b").reduced(n_layers=2, d_model=64,
                                                vocab=256), n_kv_heads=2),
                   get_config("zamba2-1.2b").reduced(n_layers=2, d_model=64,
-                                                    vocab=64)):
+                                                    vocab=64),
+                  tiny_mixtral):
         zero_counts()
         parity[cfg_p.name] = {"rounds": parity_rounds(cfg_p),
                               "card_launches": read_counts()}
     check(parity["zamba2-1.2b-smoke"]["card_launches"]["ssd_bwd"] > 0,
           "the zamba2 round on the card ran the SSD backward")
+    check(parity["mixtral-8x7b-smoke"]["card_launches"][
+        "flash_attention_bwd"] > 0, "the mixtral round on the card ran the "
+          "flash backward")
     # the other algorithms on the tiny llama: three carried rounds each
     # with identity codecs, and one fedcmoo round with int8 gradients
     tiny_llama = dataclasses.replace(get_config("llama-3.2-1b").reduced(
@@ -4135,7 +4658,11 @@ def run(torch, stop_after) -> int:
          "bytes, programs and launches a round")
     done("audit")
 
-    # -------------------------------------------------------------- 27. codecs
+    # ----------------------------------------------------------------- 27. moe
+    moe_launches = moe_phase()
+    done("moe")
+
+    # -------------------------------------------------------------- 28. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -4238,7 +4765,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # --------------------------------------------------------------- 28. train
+    # --------------------------------------------------------------- 29. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -4269,7 +4796,7 @@ def run(torch, stop_after) -> int:
          zamba2={"seconds": z_train_s, "report": z_report.getvalue()})
     done("train")
 
-    # --------------------------------------------------------------- 29. serve
+    # --------------------------------------------------------------- 30. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(
@@ -4309,9 +4836,17 @@ def run(torch, stop_after) -> int:
     rows += (count_row, mask_row, ssd_row, ssd_bwd_row)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the flash rows also carry head_dim 128 (mixtral's training shape) and
+    # their launches in one round of the moe phase
+    for row in (flash_row, flash_bwd_row):
+        row["launches_moe_round"] = moe_launches[row["name"]]
+    extra = ("launches_moe_round", "max_abs_err_dh128", "ms_dh128",
+             "plain_ms_dh128", "bound_ms_dh128", "bound_by_dh128",
+             "library_ms_dh128")
     done("serve")
     emit(phase="seconds_by_phase", seconds=phase_s)
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+    print(json.dumps({"kernels": [{k: row[k] for k in keys + extra
+                                   if k in keys or k in row}
                                   for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,8 +5,10 @@ so these dataclasses are repeated here, field for field, and a parity
 test holds the two copies equal.  The layer stack is a *periodic
 pattern*: ``pattern`` is the tuple of block kinds inside one period and
 ``n_periods`` repeats it, so ``n_layers == len(pattern) * n_periods``.
-The port runs the ``attn``, ``mamba2`` and ``shared_attn`` block kinds;
-the others are listed so that configs describe them faithfully.
+The port runs the ``attn``, ``swa``, ``moe``, ``moe_swa``, ``mamba2`` and
+``shared_attn`` block kinds; the others (``cross``, ``enc_attn``,
+``mlstm``, ``slstm``) are listed, and counted by ``param_count``, so that
+configs describe them faithfully.
 """
 from __future__ import annotations
 
@@ -117,33 +119,44 @@ class ModelConfig:
             if self.sliding_window else 0,
         )
 
-    def param_count(self) -> int:
-        """Parameters of the block kinds the port runs (``attn``,
-        ``mamba2``, ``shared_attn``), adapters excluded; other kinds raise.
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters of every block kind, adapters excluded: the
+        reference's arithmetic, copied as it is.  ``active_only`` counts
+        the top-k experts of an MoE block in place of all of them (its
+        router still counts every expert).
 
-        The reference's arithmetic, copied as it is: a ``shared_attn``
-        slot counts its parameter set once per pattern slot, although the
-        tree holds one set.  For zamba2-1.2b (3 shared slots) that gives
-        1,150,912,512 where the tree holds 1,017,085,952 parameters
-        (262,144 of them the shared block's f32 LoRA factors).
+        A ``shared_attn`` slot counts its parameter set once per pattern
+        slot, although the tree holds one set: for zamba2-1.2b (3 shared
+        slots) that gives 1,150,912,512 where the tree holds 1,017,085,952
+        parameters (262,144 of them the shared block's f32 LoRA factors).
         """
         d, dff, hd = self.d_model, self.d_ff, self.head_dim
+        per = {}
         q = self.n_heads * hd
         kv = self.n_kv_heads * hd
         attn = d * q + 2 * d * kv + q * d
         mlp = 3 * d * dff
+        if self.moe is not None:
+            n_e = self.moe.top_k if active_only else self.moe.n_experts
+            moe_mlp = 3 * d * dff * n_e + d * self.moe.n_experts
+        else:
+            moe_mlp = mlp
         din = self.ssm_expand * d
         nh_ssm = max(1, din // self.ssm_head_dim) if self.ssm_state else 0
         mamba = (d * (2 * din + 2 * self.ssm_state + nh_ssm)  # in_proj
                  + self.conv_dim * (din + 2 * self.ssm_state)
                  + din * d + nh_ssm * 2)                       # out_proj, A, D
-        per = {"attn": attn + mlp + 2 * d, "mamba2": mamba + d,
-               "shared_attn": attn + mlp + 2 * d}
-        other = sorted(set(self.pattern) - set(per))
-        if other:
-            raise NotImplementedError(
-                f"param_count covers the block kinds {sorted(per)}; "
-                f"{other} come with the model-families slice")
+        per["attn"] = attn + mlp + 2 * d
+        per["enc_attn"] = per["attn"]
+        per["swa"] = per["attn"]
+        per["moe"] = attn + moe_mlp + 2 * d
+        per["moe_swa"] = per["moe"]
+        per["cross"] = attn + (d * q + 2 * d * kv + q * d) + mlp + 3 * d
+        per["mamba2"] = mamba + d
+        per["shared_attn"] = attn + mlp + 2 * d
+        per["mlstm"] = (d * 3 * q + q * d + 2 * d * dff if dff else
+                        d * 3 * q + q * d + 3 * self.n_heads * hd) + d
+        per["slstm"] = 4 * (d * d + d * d + 2 * d) + d
         total = 0
         for kind in self.pattern:
             # one parameter set for every shared_attn slot
@@ -153,6 +166,8 @@ class ModelConfig:
         if not self.tie_embeddings:
             total += self.vocab * d          # lm head
         total += d                           # final norm
+        if self.encoder_layers:
+            total += self.encoder_layers * per["enc_attn"]
         return int(total)
 
 

@@ -4,9 +4,10 @@
 generation (prefill, then decode and sample), banded rewards, and the
 frozen reference model's logprobs (``FederatedTrainer._make_batch`` and the
 first lines of ``one_client`` in the reference's ``_make_round_fn``).
-Everything here runs on every ported pattern: the dense llama pattern and
-the zamba2 hybrid, whose training differentiates the Mamba2 layers through
-the SSD backward kernel.
+Everything here runs on every ported pattern: the dense pattern, the MoE
+and sliding-window patterns (mixtral, moonshot) and the zamba2 hybrid,
+whose training differentiates the Mamba2 layers through the SSD backward
+kernel.
 ``client_local_steps`` runs K local steps of one client, each a rollout
 then the algorithm's ``step`` (FIRM's by default): ``one_client`` and the
 scan ``body`` of ``_make_round_fn`` for a single client.  Every mode of

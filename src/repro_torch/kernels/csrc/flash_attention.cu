@@ -46,7 +46,10 @@
 // 11 us at 989 TFLOP/s).  Both are bound by bytes, but only once their
 // products run on tensor cores: on the FMA pipes (67 TFLOP/s of f32) the
 // same flops take 64 and 163 us, which is why the first design, scalar
-// FMAs on f32 copies of the tiles, ran at 26x and 36x its bound.
+// FMAs on f32 copies of the tiles, ran at 26x and 36x its bound.  At
+// Dh = 128 (mixtral's training shape, the same B, S and heads) the forward
+// moves 83.9 MB (25 us) against 8.6 GFLOP (8.7 us) and the backward about
+// 168 MB (50 us) against 21.6 GFLOP (22 us): bound by bytes too.
 //
 // Which dtype takes which path, and why:
 //
@@ -80,10 +83,26 @@
 //   memory, scalar f32 FMAs).  f32 is the checking path (the card's f32
 //   gates hold it to 1e-4 of the plain f32 version): TF32 products would
 //   not meet them, and tensor cores have no exact f32 mode.
+//
+// Head dims 16, 32, 64 and 128.  Every kernel keeps its tiles in dynamic
+// shared memory (flash_smem), sized by the launch and allowed past the
+// static 48 KB by one cudaFuncSetAttribute for each instantiation on each
+// device (allow_smem): at Dh = 128 a bf16 tile is 17,408 bytes and the
+// forward holds five (87,040), the dq kernel four and the dk/dv kernel six;
+// an f32 tile is 32 KB.  Registers decide the rest of the Dh = 128 design: the
+// FMA kernels give a row 2 (forward) or 4 (backward) threads where they
+// give it 1 or 2 below Dh = 128 (fwd_tpr, bwd_tpr), so that a thread's
+// share of the row (qr and acc, or q, dO and dq, or k, v, dk and dv) stays
+// at 32 floats each; the bf16 dk/dv kernel reads K and V from shared
+// memory for every product instead of holding them as A fragments
+// (kv_in_regs), since with its two 64-float accumulators they would pass
+// 255 registers.  The instances below Dh = 128 run the arithmetic they ran
+// before, in the same order: the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <cmath>
 
 namespace {
@@ -98,37 +117,52 @@ __device__ __forceinline__ bool kept(int qi, int kp, int sq, int skv,
 
 // =========================================================== f32: FMA path
 
-constexpr int kBlockQ = 64;  // query rows per forward block, one a thread
+constexpr int kBlockQ = 64;  // query rows per forward block
 constexpr int kBlockK = 64;  // keys per shared-memory tile
 constexpr int kChunk = 16;   // keys per online-softmax update
+constexpr unsigned kFull = 0xffffffffu;
+
+// threads a query row in the FMA forward; TPR threads of a row own the
+// 4-float chunks {part, part + TPR, ...}
+template <int DH>
+__host__ __device__ constexpr int fwd_tpr() {
+  return DH > 64 ? 2 : 1;
+}
 
 template <int DH>
-__global__ void __launch_bounds__(kBlockQ)
+__global__ void __launch_bounds__(kBlockQ * fwd_tpr<DH>())
     flash_fwd_fma_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int sq, int skv, int hq,
                          int hkv, int causal, int window, float scale) {
-  constexpr int VPR = DH / 4;  // 16-byte accesses per row
-  __shared__ __align__(16) float ks[kBlockK][DH];
-  __shared__ __align__(16) float vs[kBlockK][DH];
+  constexpr int TPR = fwd_tpr<DH>();
+  constexpr int NT = kBlockQ * TPR;  // threads a block
+  constexpr int VPR = DH / 4;        // 16-byte accesses per row
+  constexpr int OWN = DH / TPR;      // floats of a row a thread owns
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  float(*ks)[DH] = reinterpret_cast<float(*)[DH]>(flash_smem);
+  float(*vs)[DH] = ks + kBlockK;
 
   const int bh = blockIdx.x;
   const int b = bh / hq, h = bh % hq;
   const int kvh = h / (hq / hkv);
   const int q0 = blockIdx.y * kBlockQ;
-  const int qi = q0 + threadIdx.x;
+  const int part = threadIdx.x % TPR;
+  const int qi = q0 + threadIdx.x / TPR;
   const bool row_ok = qi < sq;
+  // column of this thread's d-th owned float
+  auto col = [part](int d) { return 4 * (TPR * (d / 4) + part) + d % 4; };
 
-  float qr[DH], acc[DH];
+  float qr[OWN], acc[OWN];
 #pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
+  for (int d = 0; d < OWN; ++d) acc[d] = 0.f;
   if (row_ok) {
     const float* qp = q + (static_cast<size_t>(b) * sq + qi) * hq * DH +
                       static_cast<size_t>(h) * DH;
 #pragma unroll
-    for (int c = 0; c < VPR; ++c) {
-      const float4 e = reinterpret_cast<const float4*>(qp)[c];
+    for (int c = 0; c < OWN / 4; ++c) {
+      const float4 e = reinterpret_cast<const float4*>(qp)[TPR * c + part];
       qr[4 * c] = e.x * scale;
       qr[4 * c + 1] = e.y * scale;
       qr[4 * c + 2] = e.z * scale;
@@ -136,7 +170,7 @@ __global__ void __launch_bounds__(kBlockQ)
     }
   } else {
 #pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = 0.f;
+    for (int d = 0; d < OWN; ++d) qr[d] = 0.f;
   }
   float m = kNegInf, l = 0.f;
 
@@ -148,7 +182,7 @@ __global__ void __launch_bounds__(kBlockQ)
   for (int kbase = k_begin / kBlockK * kBlockK; kbase < k_end;
        kbase += kBlockK) {
     __syncthreads();  // the previous tile is consumed
-    for (int c = threadIdx.x; c < kBlockK * VPR; c += kBlockQ) {
+    for (int c = threadIdx.x; c < kBlockK * VPR; c += NT) {
       const int r = c / VPR, cv = c % VPR;
       const int kp = kbase + r;
       float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
@@ -162,7 +196,9 @@ __global__ void __launch_bounds__(kBlockQ)
       *reinterpret_cast<float4*>(&vs[r][cv * 4]) = vv4;
     }
     __syncthreads();
-    if (!row_ok) continue;
+    // a row's threads meet in shuffles, so with TPR > 1 a row past sq
+    // computes on zeros beside the others
+    if (TPR == 1 && !row_ok) continue;
 
     for (int c0 = 0; c0 < kBlockK && kbase + c0 < k_end; c0 += kChunk) {
       float s[kChunk];
@@ -172,11 +208,13 @@ __global__ void __launch_bounds__(kBlockQ)
         const int kp = kbase + c0 + j;
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < DH; d += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(&ks[c0 + j][d]);
+        for (int d = 0; d < OWN; d += 4) {
+          const float4 kk =
+              *reinterpret_cast<const float4*>(&ks[c0 + j][col(d)]);
           dot += qr[d] * kk.x + qr[d + 1] * kk.y + qr[d + 2] * kk.z +
                  qr[d + 3] * kk.w;
         }
+        if (TPR == 2) dot += __shfl_xor_sync(kFull, dot, 1);
         s[j] = kept(qi, kp, sq, skv, causal, window) ? dot : kNegInf;
         cmax = fmaxf(cmax, s[j]);
       }
@@ -190,12 +228,13 @@ __global__ void __launch_bounds__(kBlockQ)
       }
       l = l * corr + psum;
 #pragma unroll
-      for (int d = 0; d < DH; d += 4) {
+      for (int d = 0; d < OWN; d += 4) {
         float a0 = acc[d] * corr, a1 = acc[d + 1] * corr;
         float a2 = acc[d + 2] * corr, a3 = acc[d + 3] * corr;
 #pragma unroll
         for (int j = 0; j < kChunk; ++j) {
-          const float4 vv = *reinterpret_cast<const float4*>(&vs[c0 + j][d]);
+          const float4 vv =
+              *reinterpret_cast<const float4*>(&vs[c0 + j][col(d)]);
           a0 += s[j] * vv.x;
           a1 += s[j] * vv.y;
           a2 += s[j] * vv.z;
@@ -215,17 +254,23 @@ __global__ void __launch_bounds__(kBlockQ)
     float* op = o + (static_cast<size_t>(b) * sq + qi) * hq * DH +
                 static_cast<size_t>(h) * DH;
 #pragma unroll
-    for (int c = 0; c < VPR; ++c)
-      reinterpret_cast<float4*>(op)[c] =
+    for (int c = 0; c < OWN / 4; ++c)
+      reinterpret_cast<float4*>(op)[TPR * c + part] =
           make_float4(acc[4 * c] / denom, acc[4 * c + 1] / denom,
                       acc[4 * c + 2] / denom, acc[4 * c + 3] / denom);
-    if (lse != nullptr)
+    if (lse != nullptr && part == 0)
       lse[static_cast<size_t>(bh) * sq + qi] = m + logf(l);
   }
 }
 
-constexpr int kRows = 64;               // query (dq) or key (dkv) rows a block
-constexpr int kBwdThreads = 2 * kRows;  // two threads per row
+constexpr int kRows = 64;  // query (dq) or key (dkv) rows a block
+
+// threads a row in the FMA backward; TPR threads of a row own the 4-float
+// chunks {part, part + TPR, ...}
+template <int DH>
+__host__ __device__ constexpr int bwd_tpr() {
+  return DH > 64 ? 4 : 2;
+}
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -244,6 +289,15 @@ __device__ __forceinline__ void fma4(float4& acc, float s, float4 b) {
 
 __device__ __forceinline__ float4 scale4(float4 a, float s) {
   return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+}
+
+// the sum of a value over the TPR threads of a row: the partner's first
+// (as the two-thread design added it), then the other pair's
+template <int TPR>
+__device__ __forceinline__ float row_sum(float x) {
+  float y = x + __shfl_xor_sync(kFull, x, 1);
+  if (TPR == 4) y += __shfl_xor_sync(kFull, y, 2);
+  return y;
 }
 
 // Stage rows [row0, row0 + kRows) of a (B, S, H, DH) tensor at (b, h) in
@@ -266,9 +320,10 @@ __device__ __forceinline__ void stage(float (*dst)[DH], const float* src,
 }
 
 // dQ and D = rowsum(dO * O).  Block: (batch x query head, query tile);
-// thread 2r + half owns the chunks {half, half + 2, ...} of query row r.
+// thread TPR r + part owns the chunks {part, part + TPR, ...} of query
+// row r.
 template <int DH>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kRows * bwd_tpr<DH>())
     flash_bwd_dq_fma_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -278,15 +333,17 @@ __global__ void __launch_bounds__(kBwdThreads)
                             float* __restrict__ dsum, float* __restrict__ dq,
                             int sq, int skv, int hq, int hkv, int causal,
                             int window, float scale) {
-  constexpr int NC = DH / 8;  // chunks a thread owns
-  __shared__ __align__(16) float ks[kRows][DH];
-  __shared__ __align__(16) float vs[kRows][DH];
+  constexpr int TPR = bwd_tpr<DH>();
+  constexpr int NC = DH / (4 * TPR);  // chunks a thread owns
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  float(*ks)[DH] = reinterpret_cast<float(*)[DH]>(flash_smem);
+  float(*vs)[DH] = ks + kRows;
 
   const int bh = blockIdx.x;
   const int b = bh / hq, h = bh % hq;
   const int kvh = h / (hq / hkv);
   const int q0 = blockIdx.y * kRows;
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
   const int qi = q0 + r;
   const bool row_ok = qi < sq;
 
@@ -297,16 +354,16 @@ __global__ void __launch_bounds__(kBwdThreads)
     qv[t] = dov[t] = acc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row_ok) {
       const size_t off = (static_cast<size_t>(b) * sq + qi) * hq * DH +
-                         static_cast<size_t>(h) * DH + 4 * (2 * t + half);
+                         static_cast<size_t>(h) * DH + 4 * (TPR * t + part);
       qv[t] = scale4(load4(q + off), scale);
       dov[t] = load4(dout + off);
       dpart += dot4(dov[t], load4(o + off));
     }
   }
-  const float dl = dpart + __shfl_xor_sync(0xffffffffu, dpart, 1);
+  const float dl = row_sum<TPR>(dpart);
   const size_t row_idx = static_cast<size_t>(bh) * sq + qi;
   const float lse_i = row_ok ? lse[row_idx] : 0.f;
-  if (row_ok && half == 0) dsum[row_idx] = dl;
+  if (row_ok && part == 0) dsum[row_idx] = dl;
 
   // keys that any row of this block may see (as in the forward)
   const int q_last = min(q0 + kRows, sq) - 1;
@@ -323,12 +380,12 @@ __global__ void __launch_bounds__(kBwdThreads)
       float sp = 0.f, dpp = 0.f;
 #pragma unroll
       for (int t = 0; t < NC; ++t) {
-        const int col = 4 * (2 * t + half);
+        const int col = 4 * (TPR * t + part);
         sp += dot4(qv[t], *reinterpret_cast<const float4*>(&ks[j][col]));
         dpp += dot4(dov[t], *reinterpret_cast<const float4*>(&vs[j][col]));
       }
-      const float sc = sp + __shfl_xor_sync(0xffffffffu, sp, 1);
-      const float dp = dpp + __shfl_xor_sync(0xffffffffu, dpp, 1);
+      const float sc = row_sum<TPR>(sp);
+      const float dp = row_sum<TPR>(dpp);
       const int kp = kbase + j;
       const float p =
           kept(qi, kp, sq, skv, causal, window) ? expf(sc - lse_i) : 0.f;
@@ -336,7 +393,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
       for (int t = 0; t < NC; ++t)
         fma4(acc[t], ds,
-             *reinterpret_cast<const float4*>(&ks[j][4 * (2 * t + half)]));
+             *reinterpret_cast<const float4*>(&ks[j][4 * (TPR * t + part)]));
     }
   }
 
@@ -344,17 +401,17 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
     for (int t = 0; t < NC; ++t) {
       const size_t off = (static_cast<size_t>(b) * sq + qi) * hq * DH +
-                         static_cast<size_t>(h) * DH + 4 * (2 * t + half);
+                         static_cast<size_t>(h) * DH + 4 * (TPR * t + part);
       *reinterpret_cast<float4*>(dq + off) = scale4(acc[t], scale);
     }
   }
 }
 
-// dK and dV.  Block: (batch x KV head, key tile); thread 2r + half owns the
-// chunks {half, half + 2, ...} of key row r, and sums over the group's
-// query heads and every query tile the mask keeps.
+// dK and dV.  Block: (batch x KV head, key tile); thread TPR r + part owns
+// the chunks {part, part + TPR, ...} of key row r, and sums over the
+// group's query heads and every query tile the mask keeps.
 template <int DH>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kRows * bwd_tpr<DH>())
     flash_bwd_dkv_fma_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
@@ -364,9 +421,11 @@ __global__ void __launch_bounds__(kBwdThreads)
                              float* __restrict__ dk, float* __restrict__ dv,
                              int sq, int skv, int hq, int hkv, int causal,
                              int window, float scale) {
-  constexpr int NC = DH / 8;
-  __shared__ __align__(16) float qs[kRows][DH];
-  __shared__ __align__(16) float dos[kRows][DH];
+  constexpr int TPR = bwd_tpr<DH>();
+  constexpr int NC = DH / (4 * TPR);
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  float(*qs)[DH] = reinterpret_cast<float(*)[DH]>(flash_smem);
+  float(*dos)[DH] = qs + kRows;
   __shared__ float lse_s[kRows];
   __shared__ float d_s[kRows];
 
@@ -374,7 +433,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   const int b = bkh / hkv, kvh = bkh % hkv;
   const int qpk = hq / hkv;
   const int k0 = blockIdx.y * kRows;
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
   const int kj = k0 + r;
   const bool row_ok = kj < skv;
 
@@ -384,7 +443,7 @@ __global__ void __launch_bounds__(kBwdThreads)
     kv_k[t] = kv_v[t] = dkacc[t] = dvacc[t] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row_ok) {
       const size_t off = (static_cast<size_t>(b) * skv + kj) * hkv * DH +
-                         static_cast<size_t>(kvh) * DH + 4 * (2 * t + half);
+                         static_cast<size_t>(kvh) * DH + 4 * (TPR * t + part);
       kv_k[t] = load4(k + off);
       kv_v[t] = load4(v + off);
     }
@@ -414,20 +473,20 @@ __global__ void __launch_bounds__(kBwdThreads)
         float sp = 0.f, dpp = 0.f;
 #pragma unroll
         for (int t = 0; t < NC; ++t) {
-          const int col = 4 * (2 * t + half);
+          const int col = 4 * (TPR * t + part);
           sp += dot4(kv_k[t], *reinterpret_cast<const float4*>(&qs[i][col]));
           dpp += dot4(kv_v[t],
                       *reinterpret_cast<const float4*>(&dos[i][col]));
         }
-        const float sc = sp + __shfl_xor_sync(0xffffffffu, sp, 1);
-        const float dp = dpp + __shfl_xor_sync(0xffffffffu, dpp, 1);
+        const float sc = row_sum<TPR>(sp);
+        const float dp = row_sum<TPR>(dpp);
         const int qi = qbase + i;
         const float p = kept(qi, kj, sq, skv, causal, window)
                             ? expf(sc - lse_s[i]) : 0.f;
         const float ds = p * (dp - d_s[i]);
 #pragma unroll
         for (int t = 0; t < NC; ++t) {
-          const int col = 4 * (2 * t + half);
+          const int col = 4 * (TPR * t + part);
           fma4(dvacc[t], p, *reinterpret_cast<const float4*>(&dos[i][col]));
           fma4(dkacc[t], ds, *reinterpret_cast<const float4*>(&qs[i][col]));
         }
@@ -439,7 +498,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
     for (int t = 0; t < NC; ++t) {
       const size_t off = (static_cast<size_t>(b) * skv + kj) * hkv * DH +
-                         static_cast<size_t>(kvh) * DH + 4 * (2 * t + half);
+                         static_cast<size_t>(kvh) * DH + 4 * (TPR * t + part);
       *reinterpret_cast<float4*>(dk + off) = dkacc[t];
       *reinterpret_cast<float4*>(dv + off) = dvacc[t];
     }
@@ -518,6 +577,20 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 
 template <int DH>
 using Tile = bf16[kTile][DH + kPad];
+
+// Blocks an SM the tensor-core kernels are compiled for (the second
+// argument of __launch_bounds__).  Below Dh = 128: 4 for the forward and
+// 3 for the backward kernels, which caps them at 128 and 168 registers.
+// With the tiles in dynamic shared memory and no cap, the forward at
+// Dh = 64 took 136 registers, 3 blocks an SM, and lost 12% to the
+// static-tile design's 128 registers and 4 blocks (0.0520 against 0.0466
+// ms on an H100 at the rollout's shape, scripts/flash_same_bits.py); the
+// caps give that back and let the dk/dv kernel run 3 blocks an SM (36
+// bytes of spills), with the same bits.  At Dh = 128, no cap.
+template <int DH>
+__host__ __device__ constexpr int mma_min_blocks(bool forward) {
+  return DH > 64 ? 1 : forward ? 4 : 3;
+}
 
 // Fragment loads from a row-major tile t.  Lane l supplies the address of
 // one row of one of the four 8x8 matrices.
@@ -604,7 +677,7 @@ __device__ __forceinline__ void stage_acc(Tile<DH>& t,
 // query rows; the block walks the 64-key tiles of its KV head that the
 // mask keeps.
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, mma_min_blocks<DH>(true))
     flash_fwd_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -613,9 +686,11 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int KD = DH / 16;     // k-steps over the head dim
   constexpr int ND = DH / 8;      // n-tiles over the head dim
   constexpr int NK = kTile / 8;   // n-tiles over a key tile
-  __shared__ __align__(128) Tile<DH> qs;
-  __shared__ __align__(128) Tile<DH> ks[2];
-  __shared__ __align__(128) Tile<DH> vs[2];
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  Tile<DH>* tiles = reinterpret_cast<Tile<DH>*>(flash_smem);
+  Tile<DH>& qs = tiles[0];
+  Tile<DH>* ks = tiles + 1;  // two buffers each
+  Tile<DH>* vs = tiles + 3;
 
   const int lane = threadIdx.x & 31, w0 = 16 * (threadIdx.x >> 5);
   const int g = lane >> 2, tq = lane & 3;
@@ -770,7 +845,7 @@ __global__ void __launch_bounds__(kThreads)
 // tile), 4 warps of 16 query rows, Q and dO held as A fragments; the block
 // walks the key tiles the mask keeps, 32 keys a step.
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, mma_min_blocks<DH>(false))
     flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v,
@@ -783,8 +858,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int KD = DH / 16;
   constexpr int ND = DH / 8;
   constexpr int NS = kSub / 8;    // n-tiles over a step's keys
-  __shared__ __align__(128) Tile<DH> ks[2];
-  __shared__ __align__(128) Tile<DH> vs[2];
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  Tile<DH>* ks = reinterpret_cast<Tile<DH>*>(flash_smem);  // two buffers
+  Tile<DH>* vs = ks + 2;
   __shared__ float lse_s[kTile], d_s[kTile];
 
   const int lane = threadIdx.x & 31, w0 = 16 * (threadIdx.x >> 5);
@@ -951,11 +1027,31 @@ __device__ __forceinline__ void load_q_step(
   }
 }
 
-// dK and dV.  Block: (batch x KV head, 64-key tile), 4 warps of 16 keys,
-// K and V held as A fragments; the block walks the group's query heads
-// and, for each, the query tiles the mask keeps, 32 queries a step.
+// Whether the dk/dv kernel holds K and V as A fragments (2 Dh / 4
+// registers a thread) beside its two Dh / 2-register accumulators; at
+// Dh = 128 that would pass 255 registers, so it reads them from shared
+// memory for every product instead.
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr bool kv_in_regs() {
+  return DH <= 64;
+}
+
+// bf16 tiles each kernel keeps in dynamic shared memory: Q and two K and
+// two V buffers (forward); two K and two V buffers (dq); two Q and two dO
+// buffers, and K and V where they are not held in registers (dk/dv)
+constexpr int kFwdTiles = 5;
+constexpr int kDqTiles = 4;
+template <int DH>
+constexpr int dkv_tiles() {
+  return kv_in_regs<DH>() ? 4 : 6;
+}
+
+// dK and dV.  Block: (batch x KV head, 64-key tile), 4 warps of 16 keys,
+// K and V held as A fragments (or read from their tiles, kv_in_regs); the
+// block walks the group's query heads and, for each, the query tiles the
+// mask keeps, 32 queries a step.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, mma_min_blocks<DH>(false))
     flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
                              const bf16* __restrict__ v,
@@ -968,8 +1064,14 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int KD = DH / 16;
   constexpr int ND = DH / 8;
   constexpr int NS = kSub / 8;    // n-tiles over a step's queries
-  __shared__ __align__(128) Tile<DH> qs[2];
-  __shared__ __align__(128) Tile<DH> dos[2];
+  constexpr bool KV_REGS = kv_in_regs<DH>();
+  extern __shared__ __align__(128) unsigned char flash_smem[];
+  Tile<DH>* qs = reinterpret_cast<Tile<DH>*>(flash_smem);  // two buffers
+  Tile<DH>* dos = qs + 2;
+  // K and V: through the second buffers into registers, or in tiles of
+  // their own for the whole kernel
+  Tile<DH>& kt = *(qs + (KV_REGS ? 1 : 4));
+  Tile<DH>& vt = *(qs + (KV_REGS ? 3 : 5));
   __shared__ float lse_s[2][kTile], d_s[2][kTile];
 
   const int lane = threadIdx.x & 31, w0 = 16 * (threadIdx.x >> 5);
@@ -980,17 +1082,18 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.y * kTile;
   const int kj0 = k0 + w0 + g, kj1 = kj0 + 8;  // this thread's two keys
 
-  // K and V through the second buffers into registers
-  load_tile<DH>(qs[1], k, b, skv, kvh, hkv, k0);
-  load_tile<DH>(dos[1], v, b, skv, kvh, hkv, k0);
+  load_tile<DH>(kt, k, b, skv, kvh, hkv, k0);
+  load_tile<DH>(vt, v, b, skv, kvh, hkv, k0);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t kf[KD][4], vf[KD][4];
+  uint32_t kf[KV_REGS ? KD : 1][4], vf[KV_REGS ? KD : 1][4];
+  if constexpr (KV_REGS) {
 #pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-    load_a<DH>(kf[kd], qs[1], w0, 16 * kd, lane);
-    load_a<DH>(vf[kd], dos[1], w0, 16 * kd, lane);
+    for (int kd = 0; kd < KD; ++kd) {
+      load_a<DH>(kf[kd], kt, w0, 16 * kd, lane);
+      load_a<DH>(vf[kd], vt, w0, 16 * kd, lane);
+    }
   }
   __syncthreads();
 
@@ -1039,15 +1142,26 @@ __global__ void __launch_bounds__(kThreads)
         for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
+        uint32_t ka[4], va[4];
+        if constexpr (KV_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ka[e] = kf[kd][e];
+            va[e] = vf[kd][e];
+          }
+        } else {
+          load_a<DH>(ka, kt, w0, 16 * kd, lane);
+          load_a<DH>(va, vt, w0, 16 * kd, lane);
+        }
 #pragma unroll
         for (int np = 0; np < NS / 2; ++np) {
           uint32_t bb[4];
           load_b_nk<DH>(bb, qs[buf], sub + 16 * np, 16 * kd, lane);
-          mma(st[2 * np], kf[kd], bb[0], bb[1]);
-          mma(st[2 * np + 1], kf[kd], bb[2], bb[3]);
+          mma(st[2 * np], ka, bb[0], bb[1]);
+          mma(st[2 * np + 1], ka, bb[2], bb[3]);
           load_b_nk<DH>(bb, dos[buf], sub + 16 * np, 16 * kd, lane);
-          mma(dpt[2 * np], vf[kd], bb[0], bb[1]);
-          mma(dpt[2 * np + 1], vf[kd], bb[2], bb[3]);
+          mma(dpt[2 * np], va, bb[0], bb[1]);
+          mma(dpt[2 * np + 1], va, bb[2], bb[3]);
         }
       }
 #pragma unroll
@@ -1111,65 +1225,137 @@ float head_scale() {
   return static_cast<float>(1.0 / std::sqrt(static_cast<double>(DH)));
 }
 
-template <int DH>
-void launch_fwd(const void* q, const void* k, const void* v, void* o,
-                float* lse, int b, int sq, int skv, int hq, int hkv,
-                int causal, int window, int dtype, cudaStream_t stream) {
-  const float scale = head_scale<DH>();
-  const dim3 grid(b * hq, (sq + kTile - 1) / kTile);
-  if (dtype == 0)
-    flash_fwd_fma_kernel<DH><<<grid, kBlockQ, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, sq, skv,
-        hq, hkv, causal, window, scale);
-  else
-    flash_fwd_mma_kernel<DH><<<grid, kThreads, 0, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, skv,
-        hq, hkv, causal, window, scale);
+// Allow kernel `kernel` `bytes` of dynamic shared memory on the current
+// device.  The attribute belongs to the device's context, so it is set on
+// the first launch on each device: `on` holds one flag a device for one
+// instantiation (a function-local static at the call site; a device past
+// the 64th sets it on every launch).  A failure sets no flag and is
+// returned to the wrapper, which raises.
+// cudaFuncSetAttribute is not a stream operation, so a first launch under
+// graph capture may set it too.
+constexpr int kMaxDevices = 64;
+using SmemAllowed = std::atomic<bool>[kMaxDevices];
+
+template <typename... Args>
+cudaError_t allow_smem(SmemAllowed& on, void (*kernel)(Args...), int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool tracked = dev >= 0 && dev < kMaxDevices;
+  if (tracked && on[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && tracked)
+    on[dev].store(true, std::memory_order_release);
+  return err;
 }
 
 template <int DH>
-void launch_bwd(const void* q, const void* k, const void* v, const void* o,
-                const void* dout, const float* lse, float* dsum, void* dq,
-                void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
-                int causal, int window, int dtype, cudaStream_t stream) {
+constexpr int fma_smem() {  // two f32 tiles of kBlockK (= kRows) rows
+  return 2 * kBlockK * DH * static_cast<int>(sizeof(float));
+}
+
+template <int DH>
+constexpr int mma_smem(int tiles) {
+  return tiles * static_cast<int>(sizeof(Tile<DH>));
+}
+
+template <int DH>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int b, int sq, int skv, int hq, int hkv,
+                       int causal, int window, int dtype,
+                       cudaStream_t stream) {
+  const float scale = head_scale<DH>();
+  const dim3 grid(b * hq, (sq + kTile - 1) / kTile);
+  if (dtype == 0) {
+    constexpr int smem = fma_smem<DH>();
+    static SmemAllowed on;
+    const cudaError_t allowed =
+        allow_smem(on, flash_fwd_fma_kernel<DH>, smem);
+    if (allowed != cudaSuccess) return allowed;
+    flash_fwd_fma_kernel<DH><<<grid, kBlockQ * fwd_tpr<DH>(), smem,
+                               stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, sq, skv,
+        hq, hkv, causal, window, scale);
+  } else {
+    constexpr int smem = mma_smem<DH>(kFwdTiles);
+    static SmemAllowed on;
+    const cudaError_t allowed =
+        allow_smem(on, flash_fwd_mma_kernel<DH>, smem);
+    if (allowed != cudaSuccess) return allowed;
+    flash_fwd_mma_kernel<DH><<<grid, kThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, sq, skv,
+        hq, hkv, causal, window, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* dsum, void* dq, void* dk, void* dv, int b,
+                       int sq, int skv, int hq, int hkv, int causal,
+                       int window, int dtype, cudaStream_t stream) {
   const float scale = head_scale<DH>();
   const dim3 grid_q(b * hq, (sq + kTile - 1) / kTile);
   const dim3 grid_kv(b * hkv, (skv + kTile - 1) / kTile);
   if (dtype == 0) {
     using T = float;
-    flash_bwd_dq_fma_kernel<DH><<<grid_q, kBwdThreads, 0, stream>>>(
+    constexpr int smem = fma_smem<DH>();
+    constexpr int threads = kRows * bwd_tpr<DH>();
+    static SmemAllowed on_dq;
+    const cudaError_t allowed_dq =
+        allow_smem(on_dq, flash_bwd_dq_fma_kernel<DH>, smem);
+    if (allowed_dq != cudaSuccess) return allowed_dq;
+    static SmemAllowed on_dkv;
+    const cudaError_t allowed_dkv =
+        allow_smem(on_dkv, flash_bwd_dkv_fma_kernel<DH>, smem);
+    if (allowed_dkv != cudaSuccess) return allowed_dkv;
+    flash_bwd_dq_fma_kernel<DH><<<grid_q, threads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(o),
         static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), sq, skv,
         hq, hkv, causal, window, scale);
-    flash_bwd_dkv_fma_kernel<DH><<<grid_kv, kBwdThreads, 0, stream>>>(
+    flash_bwd_dkv_fma_kernel<DH><<<grid_kv, threads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
         static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, hq, hkv, causal,
         window, scale);
   } else {
     using T = bf16;
-    flash_bwd_dq_mma_kernel<DH><<<grid_q, kThreads, 0, stream>>>(
+    constexpr int smem_dq = mma_smem<DH>(kDqTiles);
+    constexpr int smem_dkv = mma_smem<DH>(dkv_tiles<DH>());
+    static SmemAllowed on_dq;
+    const cudaError_t allowed_dq =
+        allow_smem(on_dq, flash_bwd_dq_mma_kernel<DH>, smem_dq);
+    if (allowed_dq != cudaSuccess) return allowed_dq;
+    static SmemAllowed on_dkv;
+    const cudaError_t allowed_dkv =
+        allow_smem(on_dkv, flash_bwd_dkv_mma_kernel<DH>, smem_dkv);
+    if (allowed_dkv != cudaSuccess) return allowed_dkv;
+    flash_bwd_dq_mma_kernel<DH><<<grid_q, kThreads, smem_dq, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(o),
         static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), sq, skv,
         hq, hkv, causal, window, scale);
-    flash_bwd_dkv_mma_kernel<DH><<<grid_kv, kThreads, 0, stream>>>(
+    flash_bwd_dkv_mma_kernel<DH><<<grid_kv, kThreads, smem_dkv, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
         static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, hq, hkv, causal,
         window, scale);
   }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel); dh
-// in {16, 32, 64}.  Pointers must be 16-byte aligned and the tensors
-// contiguous; lse is null or (b, hq, sq) f32.  Returns cudaGetLastError()
-// after the launch (0 on success).
+// in {16, 32, 64, 128}.  Pointers must be 16-byte aligned and the tensors
+// contiguous; lse is null or (b, hq, sq) f32.  Returns the error of the
+// kernel's shared-memory attribute, or cudaGetLastError() after the
+// launch (0 on success).
 extern "C" int firm_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, void* lse, int b,
                                     int sq, int skv, int hq, int hkv, int dh,
@@ -1182,28 +1368,28 @@ extern "C" int firm_flash_attention(const void* q, const void* k,
   float* l = static_cast<float*>(lse);
   switch (dh) {
     case 16:
-      launch_fwd<16>(q, k, v, o, l, b, sq, skv, hq, hkv, causal, window,
-                     dtype, s);
-      break;
+      return static_cast<int>(launch_fwd<16>(q, k, v, o, l, b, sq, skv, hq,
+                                             hkv, causal, window, dtype, s));
     case 32:
-      launch_fwd<32>(q, k, v, o, l, b, sq, skv, hq, hkv, causal, window,
-                     dtype, s);
-      break;
+      return static_cast<int>(launch_fwd<32>(q, k, v, o, l, b, sq, skv, hq,
+                                             hkv, causal, window, dtype, s));
     case 64:
-      launch_fwd<64>(q, k, v, o, l, b, sq, skv, hq, hkv, causal, window,
-                     dtype, s);
-      break;
+      return static_cast<int>(launch_fwd<64>(q, k, v, o, l, b, sq, skv, hq,
+                                             hkv, causal, window, dtype, s));
+    case 128:
+      return static_cast<int>(launch_fwd<128>(q, k, v, o, l, b, sq, skv, hq,
+                                              hkv, causal, window, dtype, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Gradients of firm_flash_attention: dq, dk, dv (the inputs' shapes and
 // dtype) given q, k, v, the forward's o and lse, and dout (o's shape).
 // dsum is (b, hq, sq) f32 scratch for D = rowsum(dout * o).  Launches the
-// dq kernel, then the dk/dv kernel, on the stream; returns
-// cudaGetLastError() after both (0 on success).
+// dq kernel, then the dk/dv kernel, on the stream; returns the error of
+// their shared-memory attributes, or cudaGetLastError() after both (0 on
+// success).
 extern "C" int firm_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dsum, void* dq, void* dk,
@@ -1217,19 +1403,22 @@ extern "C" int firm_flash_attention_bwd(
   float* ds = static_cast<float*>(dsum);
   switch (dh) {
     case 16:
-      launch_bwd<16>(q, k, v, o, dout, l, ds, dq, dk, dv, b, sq, skv, hq,
-                     hkv, causal, window, dtype, s);
-      break;
+      return static_cast<int>(launch_bwd<16>(q, k, v, o, dout, l, ds, dq, dk,
+                                             dv, b, sq, skv, hq, hkv, causal,
+                                             window, dtype, s));
     case 32:
-      launch_bwd<32>(q, k, v, o, dout, l, ds, dq, dk, dv, b, sq, skv, hq,
-                     hkv, causal, window, dtype, s);
-      break;
+      return static_cast<int>(launch_bwd<32>(q, k, v, o, dout, l, ds, dq, dk,
+                                             dv, b, sq, skv, hq, hkv, causal,
+                                             window, dtype, s));
     case 64:
-      launch_bwd<64>(q, k, v, o, dout, l, ds, dq, dk, dv, b, sq, skv, hq,
-                     hkv, causal, window, dtype, s);
-      break;
+      return static_cast<int>(launch_bwd<64>(q, k, v, o, dout, l, ds, dq, dk,
+                                             dv, b, sq, skv, hq, hkv, causal,
+                                             window, dtype, s));
+    case 128:
+      return static_cast<int>(launch_bwd<128>(q, k, v, o, dout, l, ds, dq,
+                                              dk, dv, b, sq, skv, hq, hkv,
+                                              causal, window, dtype, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,10 @@ its gradients, which the JAX package takes from autodiff of the XLA twin.
 wrappers take CUDA tensors only; ``kernels.ops.flash_attention`` sends CPU
 tensors to the plain version in ``kernels.ref``.  The C entries pick the
 kernel by dtype (``PATHS``): bf16 runs the tensor-core kernels, f32 the
-FMA kernels.
+FMA kernels.  Every head dim of ``HEAD_DIMS`` has its instances of all six
+kernels; their tiles live in dynamic shared memory, which the C entry
+allows once for each instance and whose refusal comes back as the launch
+error that ``flash_attention_fwd``/``flash_attention_bwd`` raise.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from repro_torch.kernels import build, nancheck
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels each dtype's C entry launches (csrc/flash_attention.cu)
 PATHS = {torch.float32: "fma", torch.bfloat16: "tensor-core"}
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 128)
 
 # kernel launches so far (the backward counts one per call of its C entry,
 # which launches its two kernels); chip_smoke.py zeroes them around the

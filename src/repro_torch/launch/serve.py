@@ -1,14 +1,17 @@
 """Serving driver: batched prefill + decode (counterpart of
 ``repro.launch.serve``), with the same flags plus ``--device``.
 
-Serves every ported architecture: ``llama-3.2-1b`` (the default) and the
-``zamba2-1.2b`` hybrid.  Examples, on the card at full width:
+Serves every ported architecture (``configs.get_config``):
+``llama-3.2-1b`` (the default), the ``zamba2-1.2b`` hybrid, the MoE
+``mixtral-8x7b`` and the others.  Examples, on the card at full width:
   PYTHONPATH=src python -m repro_torch.launch.serve --preset full \
       --batch 16 --prompt-len 128 --max-new 128
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
       --preset full --batch 16 --prompt-len 128 --max-new 128
 and on the CPU at the smoke size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --device cpu
 
 Decode runs through ``rlhf.sampling.decode``, the runner ``generate``

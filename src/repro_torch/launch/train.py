@@ -2,9 +2,11 @@
 ``repro.launch.train``), with the same flags plus ``--device``.
 
 Runs the FIRM protocol (generation, synthetic rewards, multi-objective PPO,
-in-client regularized MGDA, FedAvg) on llama-3.2-1b or, with ``--arch
-zamba2-1.2b``, on the zamba2 hybrid.  ``--preset smoke`` runs a reduced
-config; ``--preset full`` the model at its published widths.
+in-client regularized MGDA, FedAvg) on llama-3.2-1b or, with ``--arch``,
+on any other ported config (the zamba2 hybrid, the MoE mixtral-8x7b,
+...).  ``--preset smoke`` runs a reduced config; ``--preset full`` the
+model at its published widths (mixtral-8x7b's 32 layers exceed one
+80 GB card).
 
 Example, on the card at full width:
   PYTHONPATH=src python -m repro_torch.launch.train --preset full \\

@@ -1,17 +1,21 @@
 """The transformer: init, sequence forward, prefill and decode.
 
 Counterpart of ``repro.models.transformer`` for the block kinds ``attn``
-(the dense llama pattern), ``mamba2`` and ``shared_attn`` (the zamba2
-hybrid); any other kind raises ``NotImplementedError``.  Parameters use
-the reference's layout, so ``bridge.to_torch`` carries a JAX tree over
-unchanged:
+(the dense pattern), ``swa`` (sliding-window attention), ``moe`` and
+``moe_swa`` (attention, full or windowed, with the GShard MoE FFN of
+``models.moe``), ``mamba2`` and ``shared_attn`` (the zamba2 hybrid); the
+other kinds (``cross``, ``enc_attn``, ``mlstm``, ``slstm``) raise
+``NotImplementedError``.  Parameters use the reference's layout, so
+``bridge.to_torch`` carries a JAX tree over unchanged:
 
   params['embed']            (V, d) token embedding
   params['slots'][str(i)]    pattern slot i's block params, stacked over
                              n_periods on the leading axis: an attention
-                             block (ln1, attn.{wq,wk,wv,wo}, ln2,
-                             mlp.{w_gate,w_up,w_down}) or a Mamba2 block
-                             (``models.ssm``); no entry for shared_attn
+                             block (ln1, attn.{wq,wk,wv,wo}, ln2, and
+                             mlp.{w_gate,w_up,w_down} or, for the MoE
+                             kinds, moe.{router.w, experts.{w_gate,w_up,
+                             w_down}}) or a Mamba2 block (``models.ssm``);
+                             no entry for shared_attn
   params['shared']           the one attention block that every
                              'shared_attn' slot of every period runs
   params['final_norm'], params['lm_head']
@@ -24,7 +28,11 @@ rematerialised, where the reference checkpoints each period
 (``cfg.remat``).  ``prefill`` and ``decode_step`` run under
 ``torch.no_grad()``, and the decode cache is updated in place: each
 attention slot has its own K/V, each Mamba2 slot its own f32 conv history
-and state, per period, even where the parameters are shared.  The cache's
+and state, per period, even where the parameters are shared.  A
+sliding-window slot's K/V holds min(window, cache_len) positions; where
+that is the window it is a ring (position p at slot p % C), as prefill
+lays it out when the prompt fills it.  ``forward_seq`` sums the MoE
+blocks' router losses into ``aux_loss``.  The cache's
 position ``pos`` is a 0-d int32 tensor on its device, as in the
 reference, and ``decode_step`` advances it in place and reads it only
 there: one decode step syncs nothing with the host, so
@@ -39,10 +47,12 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, ssm
+from repro_torch.models import common, moe as moe_lib, ssm
 from repro_torch.models.attention import chunked_attention, decode_attention
 
-PORTED_KINDS = ("attn", "mamba2", "shared_attn")
+PORTED_KINDS = ("attn", "swa", "moe", "moe_swa", "mamba2", "shared_attn")
+WINDOW_KINDS = ("swa", "moe_swa")
+MOE_KINDS = ("moe", "moe_swa")
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
@@ -75,7 +85,7 @@ def _init_block(kind: str, cfg: ModelConfig, lead: tuple, **kw):
     rank = cfg.lora.rank if cfg.lora else 0
     dq, dkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     dev, dtype = kw["device"], kw["dtype"]
-    return {
+    p = {
         "ln1": common.init_norm(d, device=dev, dtype=dtype, lead=lead),
         "attn": {
             "wq": common.init_linear(d, dq, lora_rank=rank, lead=lead, **kw),
@@ -86,17 +96,21 @@ def _init_block(kind: str, cfg: ModelConfig, lead: tuple, **kw):
             "wo": common.init_linear(dq, d, lora_rank=rank, lead=lead, **kw),
         },
         "ln2": common.init_norm(d, device=dev, dtype=dtype, lead=lead),
-        "mlp": common.init_swiglu(d, cfg.d_ff, lead=lead, **kw),
     }
+    if kind in MOE_KINDS:
+        p["moe"] = moe_lib.init_moe(cfg, lead=lead, **kw)
+    else:
+        p["mlp"] = common.init_swiglu(d, cfg.d_ff, lead=lead, **kw)
+    return p
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda", dtype=torch.bfloat16):
     """Random parameters drawn from ``generator`` on ``device``.
 
-    Base weights are ``dtype``; LoRA factors (attention blocks only, as in
-    the reference) are f32 with ``lora_B = 0``.  The generator must live
-    on ``device``.
+    Base weights are ``dtype`` (an MoE router f32, as in the reference);
+    LoRA factors (attention projections only, as in the reference) are
+    f32 with ``lora_B = 0``.  The generator must live on ``device``.
     """
     _check_kinds(cfg)
     dev = device_lib.resolve(device)
@@ -116,7 +130,12 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 # ================================================================ seq mode
-def _self_attention(p, cfg: ModelConfig, h, positions, use_kernel: bool):
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.sliding_window if kind in WINDOW_KINDS else 0
+
+
+def _self_attention(p, cfg: ModelConfig, h, positions, kind: str,
+                    use_kernel: bool):
     b, s, _ = h.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = common.linear(p["wq"], h).reshape(b, s, hq, dh)
@@ -124,27 +143,38 @@ def _self_attention(p, cfg: ModelConfig, h, positions, use_kernel: bool):
     v = common.linear(p["wv"], h).reshape(b, s, hkv, dh)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
-    o = chunked_attention(q, k, v, causal=True, use_kernel=use_kernel)
+    o = chunked_attention(q, k, v, causal=True,
+                          sliding_window=_window(cfg, kind),
+                          use_kernel=use_kernel)
     return common.linear(p["wo"], o.reshape(b, s, hq * dh)), (k, v)
+
+
+def _ffn(kind: str, p, cfg: ModelConfig, h2):
+    """The block's FFN: (y, router aux loss or None)."""
+    if kind in MOE_KINDS:
+        return moe_lib.moe_ffn(p["moe"], cfg, h2)
+    return common.swiglu(p["mlp"], h2), None
 
 
 def block_seq(kind: str, p, cfg: ModelConfig, x, positions,
               collect_kv: bool = False, use_kernel: bool = True):
-    """One block in sequence mode.  Returns (x, piece): with
-    ``collect_kv`` an attention block's ``{'k', 'v'}`` or a Mamba2 block's
-    final ``{'conv', 'state'}``, else None."""
+    """One block in sequence mode.  Returns (x, aux, piece): ``aux`` the
+    MoE router loss (None for the other kinds); with ``collect_kv`` an
+    attention block's ``{'k', 'v'}`` or a Mamba2 block's final ``{'conv',
+    'state'}``, else None."""
     if kind == "mamba2":
         if collect_kv:
-            return ssm.mamba2_seq(p, cfg, x, return_state=True,
-                                  use_kernel=use_kernel)
-        return ssm.mamba2_seq(p, cfg, x, use_kernel=use_kernel), None
+            x, state = ssm.mamba2_seq(p, cfg, x, return_state=True,
+                                      use_kernel=use_kernel)
+            return x, None, state
+        return ssm.mamba2_seq(p, cfg, x, use_kernel=use_kernel), None, None
     h = common.rms_norm(p["ln1"], x, cfg.norm_eps, use_kernel=use_kernel)
-    attn_out, (k, v) = _self_attention(p["attn"], cfg, h, positions,
+    attn_out, (k, v) = _self_attention(p["attn"], cfg, h, positions, kind,
                                        use_kernel)
     x = x + attn_out
     h2 = common.rms_norm(p["ln2"], x, cfg.norm_eps, use_kernel=use_kernel)
-    x = x + common.swiglu(p["mlp"], h2)
-    return x, ({"k": k, "v": v} if collect_kv else None)
+    y, aux = _ffn(kind, p, cfg, h2)
+    return x + y, aux, ({"k": k, "v": v} if collect_kv else None)
 
 
 def forward_seq(cfg: ModelConfig, params, tokens: torch.Tensor, *,
@@ -156,26 +186,28 @@ def forward_seq(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     (n_periods, B, S, Hkv, Dh) ``k`` and ``v`` for an attention slot,
     (n_periods, B, conv_dim - 1, din + 2 ds) ``conv`` and (n_periods, B,
     nh, hd, ds) ``state`` for a Mamba2 slot.  last_logit_only: logits for
-    the final position only.  ``aux_loss`` is the f32 zero of these block
-    kinds (the MoE router loss of other families).
+    the final position only.  ``aux_loss`` is the f32 sum of the MoE
+    blocks' router losses (zero without MoE blocks).
     """
     _check_kinds(cfg)
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     pieces = {str(i): [] for i in range(len(cfg.pattern))}
+    aux_loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for period in range(cfg.n_periods):
         for i, kind in enumerate(cfg.pattern):
-            x, piece = block_seq(kind, _slot_params(cfg, params, i, period),
-                                 cfg, x, positions, collect_kv, use_kernel)
+            x, aux, piece = block_seq(
+                kind, _slot_params(cfg, params, i, period), cfg, x,
+                positions, collect_kv, use_kernel)
+            if aux is not None:
+                aux_loss = aux_loss + aux
             if collect_kv:
                 pieces[str(i)].append(piece)
     x = common.rms_norm(params["final_norm"], x, cfg.norm_eps,
                         use_kernel=use_kernel)
     logits = common.linear(params["lm_head"],
                            x[:, -1:] if last_logit_only else x)
-    out = {"logits": logits, "hidden": x,
-           "aux_loss": torch.zeros((), dtype=torch.float32,
-                                   device=tokens.device)}
+    out = {"logits": logits, "hidden": x, "aux_loss": aux_loss}
     if collect_kv:
         out["kv"] = {i: {name: torch.stack([pc[name] for pc in per])
                          for name in per[0]}
@@ -184,12 +216,18 @@ def forward_seq(cfg: ModelConfig, params, tokens: torch.Tensor, *,
 
 
 # ============================================================== decode mode
+def _attn_cache_len(cfg: ModelConfig, kind: str, cache_len: int) -> int:
+    """K/V slots of an attention slot: a window caps them."""
+    window = _window(cfg, kind)
+    return min(window, cache_len) if window else cache_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device,
                dtype=torch.bfloat16):
     """Pre-allocated decode cache, one entry a pattern slot, stacked over
     periods: ``dtype`` (n_periods, B, C, Hkv, Dh) K and V for attention
-    slots; f32 conv history and state for Mamba2 slots; ``pos``, a 0-d
-    int32 tensor on ``device`` (0)."""
+    slots (C = ``_attn_cache_len``); f32 conv history and state for
+    Mamba2 slots; ``pos``, a 0-d int32 tensor on ``device`` (0)."""
     _check_kinds(cfg)
     slots = {}
     for i, kind in enumerate(cfg.pattern):
@@ -197,20 +235,30 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, device,
             slots[str(i)] = ssm.init_mamba2_cache(cfg, batch, device=device,
                                                   lead=(cfg.n_periods,))
             continue
-        shape = (cfg.n_periods, batch, cache_len, cfg.n_kv_heads,
-                 cfg.head_dim)
+        shape = (cfg.n_periods, batch, _attn_cache_len(cfg, kind, cache_len),
+                 cfg.n_kv_heads, cfg.head_dim)
         slots[str(i)] = {"k": torch.zeros(shape, dtype=dtype, device=device),
                          "v": torch.zeros(shape, dtype=dtype, device=device)}
     return {"slots": slots,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _ring_positions(pos: torch.Tensor, c: int) -> torch.Tensor:
+    """The absolute position each of the C ring slots holds AFTER token
+    ``pos`` (0-d int tensor) was written at slot pos % C; -1 where a slot
+    has not been written.  Computed on pos's device."""
+    j = torch.arange(c, device=pos.device)
+    p = pos - ((pos - j) % c)
+    return torch.where(p >= 0, p, -1)
+
+
 def block_decode(kind: str, p, cfg: ModelConfig, x, cache,
                  pos: torch.Tensor):
     """One-token decode through one block at position ``pos`` (0-d int32
     tensor).  ``cache`` is this slot's and period's piece: ``{'k', 'v'}``
-    (B, C, Hkv, Dh), whose slot ``pos % C`` is written in place, or a
-    Mamba2 ``{'conv', 'state'}``, updated in place.  Returns x."""
+    (B, C, Hkv, Dh), whose slot ``pos % C`` is written in place (a ring
+    when a window caps C), or a Mamba2 ``{'conv', 'state'}``, updated in
+    place.  Returns x."""
     if kind == "mamba2":
         return ssm.mamba2_decode(p, cfg, x, cache)[0]
     k_cache, v_cache = cache["k"], cache["v"]
@@ -223,13 +271,17 @@ def block_decode(kind: str, p, cfg: ModelConfig, x, cache,
     posv = pos[None]
     q = common.apply_rope(q, posv, cfg.rope_theta)
     k = common.apply_rope(k, posv, cfg.rope_theta)
-    idx = (pos % k_cache.shape[1]).long()[None]      # computed on the device
+    c = k_cache.shape[1]
+    idx = (pos % c).long()[None]                     # computed on the device
     k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
     v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
-    o = decode_attention(q, k_cache, v_cache, pos)
+    sw = _window(cfg, kind)
+    o = decode_attention(q, k_cache, v_cache, pos, sliding_window=sw,
+                         cache_positions=_ring_positions(pos, c)
+                         if sw and c <= sw else None)
     x = x + common.linear(p["attn"]["wo"], o.reshape(b, 1, hq * dh))
     h2 = common.rms_norm(p["ln2"], x, cfg.norm_eps)
-    return x + common.swiglu(p["mlp"], h2)
+    return x + _ffn(kind, p, cfg, h2)[0]
 
 
 @torch.no_grad()
@@ -262,19 +314,29 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *,
 
     Returns (logits (B, S, V), cache).  cache_len defaults to S.  Mamba2
     slots take the exact final conv history and state of the sequence
-    scan.
+    scan.  An attention slot of C slots takes the last min(S, C)
+    positions: at slots 0.. or, for a window slot with C <= S, in the
+    ring layout (position p at slot p % C).
     """
     b, s = tokens.shape
     cache_len = cache_len or s
     out = forward_seq(cfg, params, tokens, collect_kv=True)
     cache = init_cache(cfg, b, cache_len, device=tokens.device,
                        dtype=cache_dtype)
-    take = min(s, cache_len)
     for i, kind in enumerate(cfg.pattern):
         piece, kv = cache["slots"][str(i)], out["kv"][str(i)]
         if kind == "mamba2":
             for name in ("conv", "state"):
                 piece[name].copy_(kv[name])
+            continue
+        c = piece["k"].shape[2]
+        take = min(s, c)
+        if _window(cfg, kind) and c <= s:
+            # ring layout: position p lives at slot p % c
+            slots = torch.arange(s - take, s, device=tokens.device) % c
+            for name in ("k", "v"):
+                piece[name][:, :, slots] = kv[name][:, :, -take:].to(
+                    cache_dtype)
             continue
         for name in ("k", "v"):
             piece[name][:, :, :take] = kv[name][:, :, -take:].to(cache_dtype)

@@ -49,7 +49,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import counters, ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import attention, common, ssm  # noqa: E402
+from repro_torch.models import attention, common, moe, ssm  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.rlhf import sampling  # noqa: E402
 
@@ -65,6 +65,11 @@ def _cfgs(model: str):
         return tuple(dataclasses.replace(
             get("llama-3.2-1b").reduced(n_layers=2, d_model=64, vocab=256),
             n_kv_heads=2) for get in (jax_get_config, get_config))
+    if model == "mixtral":
+        # a window of 4, which the prompt of P tokens fills: a ring
+        return tuple(dataclasses.replace(
+            get("mixtral-8x7b").reduced(n_layers=2, d_model=64, vocab=64),
+            sliding_window=4) for get in (jax_get_config, get_config))
     return tuple(get("zamba2-1.2b").reduced(n_layers=2, d_model=64, vocab=64)
                  for get in (jax_get_config, get_config))
 
@@ -391,7 +396,9 @@ def _step_functions():
     path, the sampling and the rmsnorm kernel's dispatch and wrapper."""
     return [sampling._step, rng.gumbel_from_uniform, rng.categorical,
             T.decode_step, T.block_decode, T._slot_params, T._layer,
-            T._check_kinds, attention.decode_attention, ssm.mamba2_decode,
+            T._check_kinds, T._window, T._ffn, T._ring_positions,
+            moe.moe_ffn, moe.capacity, moe._round_up, moe._one_hot,
+            attention.decode_attention, ssm.mamba2_decode,
             ssm._split_proj, ssm.dims, common.linear, common.rms_norm,
             common.swiglu, common.apply_rope, common.rope_freqs,
             common.tree_map, ops.rmsnorm, ops._kernel, rn_mod.rmsnorm,
@@ -423,7 +430,7 @@ def test_the_captured_step_has_no_host_sync_in_its_source():
     assert not found, found
 
 
-@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("model", MODELS + ("mixtral",))
 def test_the_captured_step_reads_no_tensor_on_the_host(model, monkeypatch):
     """Run one step with every way of reading a tensor into Python (a
     truth value, ``int``, ``float``, an index, ``item``, ``tolist``)

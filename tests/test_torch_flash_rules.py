@@ -7,7 +7,9 @@ PyTorch's fused attention or ``torch.compile``, the bf16 entry is written
 on tensor cores fed by asynchronous copies, every refusal of the wrapper
 raises on CPU tensors before anything is built or launched, and
 ``ops.flash_attention`` on CPU tensors is the plain version, gradient
-included.
+included (head_dim 128 too), and every kernel keeps its tiles in dynamic
+shared memory, allowed once for each instance, within the H100's 227 KB
+a block at every head dim the wrapper takes.
 """
 import ast
 import re
@@ -75,6 +77,59 @@ def test_bf16_entry_runs_tensor_cores_on_async_copies():
         assert re.search(rf"flash_{part}_fma_kernel\(const float\*", text)
     assert set(fa_mod.PATHS) == set(fa_mod.DTYPES)
     assert fa_mod.PATHS[torch.bfloat16] == "tensor-core"
+
+
+# the kernels' tiles at head dim dh, in bytes (csrc/flash_attention.cu):
+# bf16 tiles of 64 rows of dh + 8 values; two f32 tiles of 64 x dh
+def _bf16_tile(dh):
+    return 64 * (dh + 8) * 2
+
+
+SMEM = {"fwd_mma": lambda dh: 5 * _bf16_tile(dh),
+        "dq_mma": lambda dh: 4 * _bf16_tile(dh),
+        "dkv_mma": lambda dh: (4 if dh <= 64 else 6) * _bf16_tile(dh),
+        "fma": lambda dh: 2 * 64 * dh * 4}
+H100_SMEM_A_BLOCK = 232_448
+
+
+def test_head_dim_128_tiles_in_dynamic_shared_memory():
+    """Every kernel takes its tiles from ``extern __shared__`` (no static
+    tile array, whose limit is 48 KB), the launches pass the size, each
+    instance's attribute is set once a device (a function-local static of
+    one flag a device, since the attribute belongs to a device's context)
+    and its error returned, both C entries take head dim 128, and the
+    largest kernel at 128 fits a block of the H100."""
+    text = FLASH_CU.read_text()
+    assert fa_mod.HEAD_DIMS == (16, 32, 64, 128)
+    assert not re.search(r"__shared__[^;]*Tile<DH>", text)
+    assert not re.search(r"__shared__[^;]*\[k(BlockK|Rows)\]\[DH\]", text)
+    kernels = re.findall(r"__global__ void[^{]*?(flash_\w+_kernel)\(", text)
+    assert sorted(kernels) == sorted(
+        f"flash_{p}_{k}_kernel" for p in ("fwd", "bwd_dq", "bwd_dkv")
+        for k in ("mma", "fma"))
+    bodies = re.split(r"__global__ void", text)[1:]
+    assert all("extern __shared__ __align__(128) unsigned char flash_smem[]"
+               in body for body in bodies)
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in text
+    allowed = re.findall(r"static SmemAllowed (\w+);\s*const cudaError_t "
+                         r"(\w+) =\s*allow_smem\((\w+), (flash_\w+_kernel)"
+                         r"<DH>", text)
+    assert sorted(k for *_, k in allowed) == sorted(kernels)
+    for flags, name, passed, _ in allowed:
+        assert passed == flags
+        assert f"if ({name} != cudaSuccess) return {name};" in text
+    helper = text[text.index("cudaError_t allow_smem("):]
+    helper = helper[:helper.index("\n}\n")]
+    assert "cudaGetDevice(&dev)" in helper
+    assert re.search(r"if \(tracked && on\[dev\]\.load\(", helper)
+    assert re.search(r"if \(err == cudaSuccess && tracked\)\s*"
+                     r"on\[dev\]\.store\(true", helper)
+    for entry in ("launch_fwd", "launch_bwd"):
+        assert re.search(rf"case 128:\s*return static_cast<int>\("
+                         rf"{entry}<128>", text)
+    for dh in fa_mod.HEAD_DIMS:
+        assert max(f(dh) for f in SMEM.values()) <= H100_SMEM_A_BLOCK
+    assert SMEM["fwd_mma"](128) == 87_040 > 48 * 1024
 
 
 def _counts():
@@ -163,7 +218,9 @@ def _qkvdo(seed, b, sq, skv, hq, hkv, dh, dtype):
     ((1, 9, 13, 4, 4, 32), False, 0),
     ((1, 20, 20, 8, 1, 16), True, 5),
     ((2, 1, 1, 2, 1, 64), True, 0),
-], ids=["causal-gqa2", "noncausal-ragged-mha", "window5-gqa8", "s1"])
+    ((1, 10, 10, 6, 2, 128), True, 4),
+], ids=["causal-gqa2", "noncausal-ragged-mha", "window5-gqa8", "s1",
+        "dh128-window4-gqa3"])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_ops_flash_on_cpu_is_the_plain_version_and_its_gradient(

@@ -270,6 +270,6 @@ def test_decode_matches_teacher_forced_forward():
 
 def test_other_block_kinds_are_not_ported_yet():
     _, tcfg = _cfgs()
-    moe = dataclasses.replace(tcfg, pattern=("moe",))
+    mlstm = dataclasses.replace(tcfg, pattern=("mlstm",))
     with pytest.raises(NotImplementedError, match="model-families slice"):
-        T.init_params(moe, generator=torch.Generator(), device="cpu")
+        T.init_params(mlstm, generator=torch.Generator(), device="cpu")

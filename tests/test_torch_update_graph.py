@@ -53,7 +53,7 @@ from repro_torch.fed.engine import EngineConfig, FederatedTrainer  # noqa
 from repro_torch.kernels import counters, ops, ref  # noqa: E402
 from repro_torch.kernels import gram as gram_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
-from repro_torch.models import common, transformer  # noqa: E402
+from repro_torch.models import attention, common, moe, transformer  # noqa
 from repro_torch.rlhf import critic, kl, local, ppo  # noqa: E402
 from repro_torch.rlhf import sampling, update_graph  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
@@ -75,6 +75,11 @@ def _cfgs(model: str):
         return tuple(dataclasses.replace(
             get("llama-3.2-1b").reduced(n_layers=2, d_model=64, vocab=256),
             n_kv_heads=2) for get in (jax_get_config, get_config))
+    if model == "mixtral":
+        # a window of 8 that the batches' S crosses
+        return tuple(dataclasses.replace(
+            get("mixtral-8x7b").reduced(n_layers=2, d_model=64, vocab=64),
+            sliding_window=8) for get in (jax_get_config, get_config))
     pattern = ZAMBA2_JAX_PATTERN if model == "zamba2, 3 slots" else None
     return tuple(dataclasses.replace(
         get("zamba2-1.2b").reduced(n_layers=2, d_model=64, vocab=64),
@@ -571,11 +576,12 @@ class _NoHostReads(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("alg_name", ["firm", "linear"])
-@pytest.mark.parametrize("model", MODELS)
+@pytest.mark.parametrize("model", MODELS + ("mixtral",))
 def test_the_update_reads_no_tensor_on_the_host(model, alg_name):
     """One firm_local_step and one linear_local_step make no host read of
     a tensor (before the repairs: 100 in the pgd projection, one a
-    Frank-Wolfe iteration, 2 in the shaped rewards' one_hot)."""
+    Frank-Wolfe iteration, 2 in the shaped rewards' one_hot), the reduced
+    mixtral's MoE routing and window included."""
     tcfg, tfc, frozen, a, b, batches = _client(model)
     for solver in ("pgd", "frank_wolfe"):
         cfc = dataclasses.replace(tfc, solver=solver)
@@ -600,7 +606,9 @@ def _update_functions():
         optim.clip_by_global_norm, critic.features, critic.values,
         critic.project, critic.td_update, kl.adaptive_kl_update,
         transformer.forward_seq, transformer.block_seq,
-        algorithms._firm_step, algorithms._linear_step,
+        transformer._self_attention, transformer._window, transformer._ffn,
+        attention.chunked_attention, moe.moe_ffn, moe.capacity,
+        moe._round_up, moe._one_hot, algorithms._firm_step, algorithms._linear_step,
         algorithms.FIRMAlgorithm.step, algorithms.LinearAlgorithm.step,
         update_graph.UpdateGraphs.run, update_graph.UpdateGraphs._unflatten,
         update_graph._state_leaves, update_graph._state_like,
