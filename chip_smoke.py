@@ -22,12 +22,17 @@ line, for a first check of new kernels):
             and 8, a window of 16), then head_dim 128 (mixtral's training
             shape B=16, S=256, 32 query and 8 KV heads; GQA groups of 1, 3,
             12 and 16; Sq = 1; windows of 16 and 4096 at B = 1, S = 4608;
-            f32 within 1e-4), the same bits from a second call, the
+            f32 within 1e-4), then the encoder-decoder and VLM shapes
+            (``FLASH_ENCDEC_CASES``: whisper's non-causal encoder at
+            S = 1500, cross-attention at Sq = 128 and 256 against 1500
+            frames and 1601 vision tokens), the same bits from a second
+            call, the
             path (tensor-core or FMA) that served each case, the HMMA
             instructions of each flash kernel (``cuobjdump -sass``) and the
             forward kernels' registers and spills; then timed beside
-            ``F.scaled_dot_product_attention`` at the rollout's shape and
-            at head_dim 128.
+            ``F.scaled_dot_product_attention`` at the rollout's shape, at
+            head_dim 128, at whisper's encoder shape and at the VLM's
+            cross shape (Sq = 256).
 5. gram:    the CUDA Gram kernel against its plain version at the local
             step's shape (2, 3,407,872) f32 and off it (M = 3 and 8, ragged
             d, bf16, a misaligned row; FedCMOO's server solve on a sketch,
@@ -69,8 +74,13 @@ line, for a first check of new kernels):
             shapes and off them (the forwards' extra cases, the flash
             kernels' new edges included), the same bits twice, then timed
             beside the backward of ``F.rms_norm`` and of SDPA (flash_bwd
-            also at head_dim 128, whose cases it runs too, with the
-            backward kernels' registers and spills).  flash_bwd
+            also at head_dim 128 and at the encoder-decoder and VLM shapes,
+            whose cases it runs too, with the backward kernels' registers
+            and spills).  rmsnorm_bwd also computes dg (a model without
+            adapters trains its norms) at xlstm's shape and off it, against
+            the plain formula (``ref.rmsnorm_dg``) and autograd, dx the
+            same bits as without it, timed with and without and beside
+            autograd of ``F.rms_norm`` for dx and dg together.  flash_bwd
             also sets the kernel's dq, dk, dv beside autograd of the plain
             f32 forward and beside FlashAttention-2's formula with D from
             the bf16 O, to measure what D from the bf16 O adds to the
@@ -314,7 +324,38 @@ line, for a first check of new kernels):
             ring (position p at slot p % 4096), and 64 decode steps that
             wrap it through the captured step against the eager loop, bit
             for bit.
-28. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
+28. xlstm:  xlstm-125m at full width (d 768, 4 heads of 192, 12 layers of
+            (mLSTM, mLSTM, sLSTM) x 4, chunk 128, vocab 50304, no
+            adapters: 115,087,104 parameters, all trained), nothing cut
+            but C, K and R: (a) one decode of B = 16 prompts of 128
+            tokens, 128 new, through the captured step against the eager
+            loop, bit for bit, launches exact; (b) one client's K = 2
+            full-parameter local steps through an update graph against
+            the same rollouts and eager updates, bit for bit, launches
+            exact (every norm's backward with dg), the graph's pool;
+            (c) R = 2 ``wan`` rounds (C = 2, K = 1) through
+            ``plan(RunSpec(...)).build()``: launches a round exact, each
+            round's bytes the plan's, the frozen reference's bits
+            unchanged, seconds by part, peak memory, a third round
+            profiled for the idle share; (d) Gram and the int8 codec
+            kernels at this d (2 x 115,087,104) against their plain
+            versions, the codec bit for bit, and timed.
+29. encdec: whisper-large-v3 at full width (32 encoder and 32 decoder
+            layers, d 1280, 20 heads of 64, 2,036,149,760 parameters) on
+            frames (16, 1500, 1280) drawn from the seed, and
+            llama-3.2-vision-90b at full width, depth cut to one period
+            (4 ``attn`` and 1 ``cross`` of its 100 layers, 6,535,544,832
+            parameters; all 100 hold ~181 GB) on 1601 vision tokens:
+            (a) prefill and 128 decode steps of B = 16 prompts of 128
+            tokens with the stub, through the captured step against the
+            eager loop, bit for bit, launches exact; (b) local steps with
+            the stub through an update graph against the eager updates,
+            bit for bit (whisper K = 2 at B = 8, the largest of 16, 8 and
+            4 whose reckoned update fits in 60 GB; vision one step at
+            B = 16), launches exact; (c) each model's bf16 logits through
+            the kernels no further from the plain f32 forward than the
+            plain bf16 path's.
+30. codecs: the ``powersgd`` uplink (lowrank:4+ef) and the ``delta+int8``
             downlink at the round's width, on the card and again through
             the port's CPU path with the same inputs and injected draws:
             delta bit for bit; low-rank on the script's usual draw and five
@@ -323,9 +364,9 @@ line, for a first check of new kernels):
             max |flat + state|, cond(P) of the card's range sample in
             float64; the low-rank payload's bytes equal ``nbytes_static``
             (59,392).
-29. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
+31. train:  the ``launch.train`` CLI at full width, 2 clients, 1 round,
             for llama-3.2-1b and for zamba2-1.2b.
-30. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
+32. serve:  the ``launch.serve`` CLI at full width, a few tokens, for
             llama-3.2-1b and zamba2-1.2b, and zamba2's smoke preset.
 
 Every number is printed as JSON on a line of its own; the second-to-last
@@ -427,7 +468,8 @@ PHASES = ("device", "build", "rmsnorm", "flash", "gram", "quantize",
           "rollout", "rollout_hybrid", "decode_graph", "local_step",
           "local_step_hybrid", "update_graph",
           "round", "round_hybrid", "round_parity", "algorithms", "executors",
-          "fused", "sched", "audit", "moe", "codecs", "train", "serve")
+          "fused", "sched", "audit", "moe", "xlstm", "encdec", "codecs",
+          "train", "serve")
 # flash-attention cases: (label, (b, sq, skv, hq, hkv, dh), dtype, causal,
 # window).  The forward runs FLASH_CASES, FLASH_EDGE_CASES and
 # FLASH_D128_CASES, the backward FLASH_BWD_CASES, FLASH_EDGE_CASES and
@@ -506,6 +548,23 @@ FLASH_D128_CASES = [
     ("dh=128 f32 Sq=1 Skv=77 non-causal", (2, 1, 77, 32, 8, 128), "f32",
      False, 0),
     ("dh=128 f32 GQA group 3 S=64", (2, 64, 64, 24, 8, 128), "f32", True, 0),
+]
+# the encoder-decoder and VLM shapes (non-causal): whisper's encoder over
+# the 1500 frames of its 30 s window, its cross-attention from 128 and 256
+# decoder positions to them, and the VLM's from 128 and 256 positions to
+# its 1601 vision tokens; forward and backward, from a generator of their
+# own
+FLASH_ENCDEC_CASES = [
+    ("whisper encoder S=1500", (B, 1500, 1500, 20, 20, 64), "bf16", False,
+     0),
+    ("whisper cross Sq=128 Skv=1500", (B, 128, 1500, 20, 20, 64), "bf16",
+     False, 0),
+    ("whisper cross Sq=256 Skv=1500", (B, 256, 1500, 20, 20, 64), "bf16",
+     False, 0),
+    ("vision cross Sq=128 Skv=1601", (B, 128, 1601, 64, 8, 128), "bf16",
+     False, 0),
+    ("vision cross Sq=256 Skv=1601", (B, 256, 1601, 64, 8, 128), "bf16",
+     False, 0),
 ]
 TOPK_PASSES = 32               # bisection passes of one top-k selection
 # the host's calls that put work on a stream, as torch.profiler names them
@@ -819,11 +878,87 @@ def run(torch, stop_after) -> int:
         return sum(sg["total_size"] for sg in segs
                    if tuple(sg["segment_pool_id"]) == pool)
 
+    def wan_trainer(cfg_, fc_, params_):
+        """A trainer of C = 2 clients, K = 1, R = 2 ``wan`` rounds at B =
+        16, P = 128, 128 new, through ``plan(RunSpec(...)).build()``, on
+        ``params_``: (trainer, plan)."""
+        from repro_torch.fed import api as api_m
+        fc_r = dataclasses.replace(fc_, n_clients=N_CLIENTS, local_steps=1,
+                                   rounds=ROUNDS)
+        up, down = CODEC_PRESETS["wan"]
+        plan_ = api_m.plan(api_m.RunSpec(cfg_, fc_r, EngineConfig(
+            prompt_len=P, max_new=MAX_NEW, uplink_codec=up,
+            downlink_codec=down)))
+        return plan_.build(device=dev, params=params_), plan_
+
+    def wan_rounds(label, tr, plan_, per_round):
+        """R rounds of ``tr``: each round's launches exactly
+        ``per_round`` and its bytes the plan's; seconds by part, peak
+        memory, a third round profiled for the idle share.  Returns (the
+        record, round 1's launches)."""
+        part_s = {}
+        names_r = {"_broadcast": "downlink", "_local_phase": "local_phase",
+                   "_delta_flat": "delta", "_uplink": "uplink_codec",
+                   "_aggregate_flat": "aggregate", "_record": "summary"}
+
+        def timed(name, fn):
+            def run_part(*a, **kw):
+                out, sec = wall(lambda: fn(*a, **kw))
+                part_s.setdefault(names_r[name], []).append(sec)
+                return out
+            return run_part
+        for name in names_r:
+            setattr(tr, name, timed(name, getattr(tr, name)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        summaries, round_s, launches_r = [], [], []
+        for r in range(ROUNDS):
+            zero_counts()
+            s_r, sec = wall(tr.run_round)
+            launches_r.append(read_counts())
+            summaries.append(s_r)
+            round_s.append(sec)
+            check(launches_r[-1] == per_round,
+                  f"{label} round {r + 1} launches {launches_r[-1]}, "
+                  f"expected {per_round}")
+            check(s_r["comm_bytes"] == (r + 1) * (
+                plan_.up_bytes_per_round + plan_.down_bytes_per_round)
+                and sum(s_r["up_nbytes"]) == plan_.up_bytes_per_round
+                and N_CLIENTS * s_r["down_nbytes"]
+                == plan_.down_bytes_per_round
+                and s_r["participants"] == list(range(N_CLIENTS)),
+                f"{label} round {r + 1} bytes {s_r['comm_bytes']} against "
+                f"the plan's {plan_.up_bytes_per_round} up, "
+                f"{plan_.down_bytes_per_round} down")
+            lam_pc = s_r["per_client_lam"]
+            check((lam_pc >= 0).all() and abs(lam_pc.sum(-1) - 1).max() < 1e-5
+                  and math.isfinite(s_r["kl"]),
+                  f"{label} round {r + 1}: lambda on the simplex, finite KL")
+        check(summaries[0]["param_drift"] > 0,
+              f"{label}: clients drifted apart")
+        round_peak = torch.cuda.max_memory_allocated()
+        prof = device_profile(lambda: tr.run_round(), 1, cpu_ops=False)
+        return {
+            "preset": "wan", "clients": N_CLIENTS, "local_steps": 1,
+            "rounds": ROUNDS, "d_trainable": tr.d_trainable,
+            "plan": {"up_bytes_per_round": plan_.up_bytes_per_round,
+                     "down_bytes_per_round": plan_.down_bytes_per_round,
+                     "executor": plan_.executor},
+            "comm_bytes": summaries[-1]["comm_bytes"],
+            "seconds_per_round": round_s,
+            "breakdown_s": {k: v[:ROUNDS] for k, v in part_s.items()},
+            "peak_memory_bytes": round_peak,
+            "launches_per_round": launches_r[0],
+            "device_idle_share": None if prof is None
+            else prof["device_idle_share"], "profile": prof,
+            "param_drift": [s_["param_drift"] for s_ in summaries],
+            "lam_mean": [s_["lam_mean"].tolist() for s_ in summaries],
+            "kl": [s_["kl"] for s_ in summaries]}, launches_r[0]
+
     def moe_phase() -> dict:
         """The ``moe`` phase (the module docstring's 27): mixtral-8x7b at
         full width and 4 of its 32 layers.  Emits its record and returns
         each flash kernel's launches in one round of (c)."""
-        from repro_torch.fed import api as api_m
         mcfg = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=4,
                                    n_periods=4)
         check(mcfg.head_dim == 128 and mcfg.sliding_window == 4096
@@ -844,8 +979,6 @@ def run(torch, stop_after) -> int:
         m_policy = common.merge_trainable(m_train, m_frozen)
         m_prompts = make_client_datasets(1, mcfg.vocab, P, generator=g_m,
                                          device=dev)[0].next_batch(B)
-        bands = rewards.variant_bands(mcfg.vocab)
-        tol_len = max(4, MAX_NEW // 2)
         fwd_norms, n_l = 2 * mcfg.n_layers + 1, mcfg.n_layers
         none = {name: 0 for name in counters}
         record = {"model": mcfg.name, "layers": mcfg.n_layers,
@@ -856,175 +989,42 @@ def run(torch, stop_after) -> int:
 
         # (a) one rollout's decode through the captured step against the
         # eager loop: B = 16 prompts of 128 tokens, 128 new
-        def decode_with(graph, seed=5):
-            cache = transformer.prefill(mcfg, m_policy, m_prompts,
-                                        cache_len=P + MAX_NEW)[1]
-            fn = sampling._decode if graph else sampling._decode_eager
-            kw = {"graph": sampling._StepGraph(dev)} if graph else {}
-            return fn(mcfg, m_policy, cache, m_prompts[:, -1:],
-                      max_new=MAX_NEW, temperature=1.0,
-                      generator=torch.Generator(device=dev).manual_seed(seed),
-                      **kw)
-        decode_with(True)                     # warm-up: cuBLAS, allocator
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        (tok_g, lp_g), graph_s = wall(lambda: decode_with(True))
-        dec_launches = read_counts()
-        check(dec_launches == dict(none, rmsnorm=fwd_norms * (MAX_NEW + 1),
-                                   flash_attention=n_l),
-              f"moe decode launches {dec_launches}")
-        (tok_e, lp_e), eager_s = wall(lambda: decode_with(False))
-        check(identical(tok_g, tok_e) and identical(lp_g, lp_e),
-              "moe: the captured decode's tokens and logprobs are not the "
-              "eager loop's bit for bit")
-        check(bool(((tok_g >= 0) & (tok_g < mcfg.vocab)).all()
-                   & lp_g.isfinite().all() & (lp_g <= 0).all()),
-              "moe decode: token ids in range, finite logprobs <= 0")
-        g_last = sampling._LAST_GRAPHS[torch.cuda.current_device()]
-        record["decode"] = {
-            "batch": B, "prompt_len": P, "max_new": MAX_NEW,
-            "graph_s": graph_s, "eager_s": eager_s,
-            "capture_s": g_last.capture_s,
-            "instantiate_s": g_last.instantiate_s,
-            "seconds_per_step_graph": graph_s / MAX_NEW,
-            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-            "launches": dec_launches}
-        del tok_e, lp_e
+        record["decode"] = decode_vs_eager(mcfg, m_policy, m_prompts, None, 5)
+        check(record["decode"]["launches"] == dict(
+            none, rmsnorm=fwd_norms * (MAX_NEW + 1), flash_attention=n_l),
+              f"moe decode launches {record['decode']['launches']}")
 
         # (b) one client, K = 2 steps (rollout, then the FIRM update)
-        # through an update graph (warm, then capture and replay) against
-        # the same rollouts and eager updates
+        # through an update graph against the same rollouts and eager
+        # updates
         k_m = 2
         state0 = local.init_client_state(m_train, fc_m.n_objectives,
                                          mcfg.d_model,
                                          kl_coef=fc_m.kl_coef_init,
                                          device=dev)
         prompts_k = torch.stack([m_prompts.roll(k, 0) for k in range(k_m)])
-
-        def gens():
-            return [torch.Generator(device=dev).manual_seed(40 + k)
-                    for k in range(k_m)]
-        runner = update_graph.UpdateGraphs()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mem0 = torch.cuda.memory_allocated()
-        zero_counts()
-        (st_g, met_g), k_graph_s = wall(lambda: client_local_steps(
-            mcfg, fc_m, state0, m_frozen, m_ref, *bands, k_steps=k_m,
-            max_new=MAX_NEW, length_tol=tol_len, prompts=prompts_k,
-            generators=gens(), graphs=runner))
-        k_launches = read_counts()
-        k_peak = torch.cuda.max_memory_allocated() - mem0
+        record["local_steps"] = steps_vs_eager(
+            mcfg, fc_m, state0, m_frozen, m_ref, prompts_k, None, 40)
         per_client_step = dict(
             none, rmsnorm=fwd_norms * (MAX_NEW + 3),
             flash_attention=3 * n_l, rmsnorm_bwd=N_OBJ * 2 * n_l,
             flash_attention_bwd=N_OBJ * n_l, gram=1)
-        check(k_launches == {k: k_m * v for k, v in per_client_step.items()},
-              f"moe local steps' launches {k_launches}")
-        st_e, batches, eager_upd_s = state0, [], []
-        for k, g_k in enumerate(gens()):
-            batch_k = rollout_batch(
-                mcfg, common.merge_trainable(st_e.trainable, m_frozen),
-                m_ref, prompts_k[k], *bands, n_objectives=N_OBJ,
-                max_new=MAX_NEW, length_tol=tol_len, generator=g_k)
-            batches.append(batch_k)
-            (st_e, met_e), sec = wall(lambda: local.firm_local_step(
-                mcfg, fc_m, st_e, m_frozen, batch_k))
-            eager_upd_s.append(sec)
-        check(all(identical(a, b_) for a, b_ in zip(
-            update_graph._state_leaves(st_g),
-            update_graph._state_leaves(st_e))) and identical(
-                met_g["lam"][-1], met_e["lam"]),
-              "moe: K = 2 steps through the update graph are not the eager "
-              "updates bit for bit")
-        g_upd = runner.graph("firm", mcfg, fc_m, state0, m_frozen,
-                             batches[0], (firm.config_tensor(fc_m.beta,
-                                                             dev),))
-        check(runner.captures == 1 and g_upd is not None,
-              f"moe: {runner.captures} update captures for one key")
-        firm_alg = algorithms_lib.get_algorithm("firm")
-        _, replay_s = wall(lambda: firm_alg.step(
-            mcfg, fc_m, st_e, m_frozen, batches[1], None, None, runner))
-        record["local_steps"] = {
-            "k_steps": k_m, "seconds": k_graph_s, "launches": k_launches,
-            "update_eager_s": eager_upd_s, "update_replay_s": replay_s,
-            "graph_pool_bytes": pool_bytes(g_upd.graph),
-            "peak_memory_bytes": k_peak,
-            "lam": met_g["lam"].tolist(), "kl": met_g["kl"].tolist()}
-        del runner, g_upd, st_g, st_e, batches
+        check(record["local_steps"]["launches"] == {
+            k: k_m * v for k, v in per_client_step.items()},
+              f"moe local steps' launches {record['local_steps']['launches']}")
+        del state0
         release_m()
 
         # (c) R = 2 wan rounds, C = 2, K = 1, through the front door
-        fc_r = dataclasses.replace(fc_m, n_clients=N_CLIENTS, local_steps=1,
-                                   rounds=ROUNDS)
-        up, down = CODEC_PRESETS["wan"]
-        plan_m = api_m.plan(api_m.RunSpec(mcfg, fc_r, EngineConfig(
-            prompt_len=P, max_new=MAX_NEW, uplink_codec=up,
-            downlink_codec=down)))
-        tr = plan_m.build(device=dev, params=m_ref)
-        check(tr.d_trainable == plan_m.d_trainable == 1_703_936,
-              f"moe d_trainable {tr.d_trainable}")
-        part_s = {}
-        names_m = {"_broadcast": "downlink", "_local_phase": "local_phase",
-                   "_delta_flat": "delta", "_uplink": "uplink_codec",
-                   "_aggregate_flat": "aggregate", "_record": "summary"}
-
-        def timed(name, fn):
-            def run_part(*a, **kw):
-                out, sec = wall(lambda: fn(*a, **kw))
-                part_s.setdefault(names_m[name], []).append(sec)
-                return out
-            return run_part
-        for name in names_m:
-            setattr(tr, name, timed(name, getattr(tr, name)))
+        tr, plan_m = wan_trainer(mcfg, fc_m, m_ref)
+        check(tr.d_trainable == plan_m.d_trainable == 1_703_936
+              and plan_m.up_bytes_per_round == 3_421_184
+              and plan_m.down_bytes_per_round == 13_631_488,
+              f"moe d_trainable {tr.d_trainable}, plan {plan_m.summary()}")
         per_round = {k: N_CLIENTS * v for k, v in per_client_step.items()}
         per_round.update(quantize=1, dequantize=1)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        summaries, round_s, launches_r = [], [], []
-        for r in range(ROUNDS):
-            zero_counts()
-            s_r, sec = wall(tr.run_round)
-            launches_r.append(read_counts())
-            summaries.append(s_r)
-            round_s.append(sec)
-            check(launches_r[-1] == per_round,
-                  f"moe round {r + 1} launches {launches_r[-1]}, expected "
-                  f"{per_round}")
-            check(s_r["comm_bytes"] == (r + 1) * (
-                plan_m.up_bytes_per_round + plan_m.down_bytes_per_round)
-                and sum(s_r["up_nbytes"]) == plan_m.up_bytes_per_round
-                == 3_421_184
-                and N_CLIENTS * s_r["down_nbytes"]
-                == plan_m.down_bytes_per_round == 13_631_488
-                and s_r["participants"] == list(range(N_CLIENTS)),
-                f"moe round {r + 1} bytes {s_r['comm_bytes']} against the "
-                f"plan's {plan_m.up_bytes_per_round} up, "
-                f"{plan_m.down_bytes_per_round} down")
-            lam_pc = s_r["per_client_lam"]
-            check((lam_pc >= 0).all() and abs(lam_pc.sum(-1) - 1).max() < 1e-5
-                  and math.isfinite(s_r["kl"]),
-                  f"moe round {r + 1}: lambda on the simplex, finite KL")
-        check(summaries[0]["param_drift"] > 0, "moe: clients drifted apart")
-        round_peak = torch.cuda.max_memory_allocated()
-        prof = device_profile(lambda: tr.run_round(), 1, cpu_ops=False)
-        record["rounds"] = {
-            "preset": "wan", "clients": N_CLIENTS, "local_steps": 1,
-            "rounds": ROUNDS, "d_trainable": tr.d_trainable,
-            "plan": {"up_bytes_per_round": plan_m.up_bytes_per_round,
-                     "down_bytes_per_round": plan_m.down_bytes_per_round,
-                     "executor": plan_m.executor},
-            "comm_bytes": summaries[-1]["comm_bytes"],
-            "seconds_per_round": round_s,
-            "breakdown_s": {k: v[:ROUNDS] for k, v in part_s.items()},
-            "peak_memory_bytes": round_peak,
-            "launches_per_round": launches_r[0],
-            "device_idle_share": None if prof is None
-            else prof["device_idle_share"], "profile": prof,
-            "param_drift": [s_["param_drift"] for s_ in summaries],
-            "lam_mean": [s_["lam_mean"].tolist() for s_ in summaries],
-            "kl": [s_["kl"] for s_ in summaries]}
+        record["rounds"], launches_r = wan_rounds(mcfg.name, tr, plan_m,
+                                                  per_round)
         del tr
         release_m()
 
@@ -1132,8 +1132,390 @@ def run(torch, stop_after) -> int:
              "from the plain f32 forward than the plain bf16 path's (1.25x "
              "on the mean), the f32 kernels within 1e-3 of the scale of the "
              "plain f32 forward on 99.9% of a 1/97 sample")
-        return {name: launches_r[0][name]
+        return {name: launches_r[name]
                 for name in ("flash_attention", "flash_attention_bwd")}
+
+    def decode_vs_eager(cfg_, params_, prompts_, aux_, seed):
+        """One rollout's decode (prefill with the stub ``aux_``, then
+        MAX_NEW steps) through the captured step and through the eager
+        loop, which must agree bit for bit.  Returns the record: seconds
+        of each, the graph's capture and instantiation, its launches (the
+        prefill's and the replays') and peak memory."""
+        def decode_with(graph):
+            cache = transformer.prefill(cfg_, params_, prompts_, aux_,
+                                        cache_len=P + MAX_NEW)[1]
+            fn = sampling._decode if graph else sampling._decode_eager
+            kw = {"graph": sampling._StepGraph(dev)} if graph else {}
+            return fn(cfg_, params_, cache, prompts_[:, -1:],
+                      max_new=MAX_NEW, temperature=1.0,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          seed), **kw)
+        decode_with(True)                     # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        (tok_g, lp_g), graph_s = wall(lambda: decode_with(True))
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        g_last = sampling._LAST_GRAPHS[torch.cuda.current_device()]
+        (tok_e, lp_e), eager_s = wall(lambda: decode_with(False))
+        check(identical(tok_g, tok_e) and identical(lp_g, lp_e),
+              f"{cfg_.name}: the captured decode's tokens and logprobs are "
+              "not the eager loop's bit for bit")
+        check(bool(((tok_g >= 0) & (tok_g < cfg_.vocab)).all()
+                   & lp_g.isfinite().all() & (lp_g <= 0).all()),
+              f"{cfg_.name} decode: token ids in range, finite logprobs")
+        return {"batch": prompts_.shape[0], "prompt_len": P,
+                "max_new": MAX_NEW, "graph_s": graph_s, "eager_s": eager_s,
+                "capture_s": g_last.capture_s,
+                "instantiate_s": g_last.instantiate_s,
+                "seconds_per_step_graph": graph_s / MAX_NEW,
+                "peak_memory_bytes": peak, "launches": launches}
+
+    def steps_vs_eager(cfg_, fc_, state0, frozen_, ref_, prompts_k, aux_,
+                       seed):
+        """len(prompts_k) local steps of one client (rollout, then the
+        FIRM update, with the stub ``aux_``) through an update graph (warm,
+        then capture and replay; one step more on the first step's batch
+        when K = 1, so that the graph is captured), then, with the graph
+        freed, the same rollouts and eager updates: bit for bit.  Returns
+        the record (seconds, launches, the pool's bytes, peak memory)."""
+        bands_ = rewards.variant_bands(cfg_.vocab)
+        tol_len = max(4, MAX_NEW // 2)
+        k_ = prompts_k.shape[0]
+        firm_alg = algorithms_lib.get_algorithm("firm")
+
+        def gens():
+            return [torch.Generator(device=dev).manual_seed(seed + k)
+                    for k in range(k_)]
+
+        def rollout(state, k, g_k):
+            return rollout_batch(
+                cfg_, common.merge_trainable(state.trainable, frozen_), ref_,
+                prompts_k[k], *bands_, n_objectives=N_OBJ, max_new=MAX_NEW,
+                length_tol=tol_len, generator=g_k, aux=aux_)
+        runner = update_graph.UpdateGraphs()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        zero_counts()
+        (st_g, met_g), k_graph_s = wall(lambda: client_local_steps(
+            cfg_, fc_, state0, frozen_, ref_, *bands_, k_steps=k_,
+            max_new=MAX_NEW, length_tol=tol_len, prompts=prompts_k,
+            generators=gens(), graphs=runner, aux=aux_))
+        launches = read_counts()
+        batch0 = rollout(state0, 0, gens()[0])
+        # K = 1: the graph's capture and replay; else a replay, timed
+        out_c, replay_s = wall(lambda: firm_alg.step(
+            cfg_, fc_, state0, frozen_, batch0, None, None, runner,
+            aux=aux_))
+        peak = torch.cuda.max_memory_allocated() - mem0
+        g_upd = runner.graph("firm", cfg_, fc_, state0, frozen_, batch0,
+                             (firm.config_tensor(fc_.beta, dev),), aux=aux_)
+        check(runner.captures == 1 and g_upd is not None,
+              f"{cfg_.name}: {runner.captures} update captures for one key")
+        pool = pool_bytes(g_upd.graph)
+        del runner, g_upd
+        release_m()
+        st_e, eager_upd_s = state0, []
+        for k, g_k in enumerate(gens()):
+            batch_k = rollout(st_e, k, g_k)
+            if k == 0:
+                check(all(identical(a, b_) for a, b_ in zip(batch_k,
+                                                            batch0)),
+                      f"{cfg_.name}: a rollout gave other bits")
+            out_e, sec = wall(lambda: local.firm_local_step(
+                cfg_, fc_, st_e, frozen_, batch_k, aux_))
+            if k == 0:
+                check(same_update(out_c, out_e),
+                      f"{cfg_.name}: the captured update is not the eager "
+                      "one bit for bit")
+            st_e, met_e = out_e
+            eager_upd_s.append(sec)
+        check(all(identical(a, b_) for a, b_ in zip(
+            update_graph._state_leaves(st_g),
+            update_graph._state_leaves(st_e))) and identical(
+                met_g["lam"][-1], met_e["lam"]),
+              f"{cfg_.name}: {k_} steps through the update graph are not "
+              "the eager updates bit for bit")
+        return {"k_steps": k_, "batch": prompts_k.shape[1],
+                "seconds": k_graph_s, "launches": launches,
+                "update_eager_s": eager_upd_s, "update_graph_s": replay_s,
+                "graph_pool_bytes": pool, "peak_memory_bytes": peak,
+                "lam": met_g["lam"].tolist(), "kl": met_g["kl"].tolist()}
+
+    def logits_vs_f32(cfg_, params_, tokens_, aux_):
+        """The bf16 logits through the kernels and through the plain
+        versions against the plain forward of an f32 copy of the model:
+        the f32 rule (the kernels' no further from f32 than the plain
+        bf16 path's, 1.25x on the mean)."""
+        with torch.no_grad():
+            kern = transformer.forward_seq(cfg_, params_, tokens_,
+                                           aux_)["logits"].float()
+            plain = transformer.forward_seq(cfg_, params_, tokens_, aux_,
+                                            use_kernel=False)["logits"]
+            plain = plain.float()
+            p32 = common.tree_map(lambda t: t.float(), params_)
+            a32 = {k: v.float() for k, v in aux_.items()}
+            want = transformer.forward_seq(cfg_, p32, tokens_, a32,
+                                           use_kernel=False)["logits"]
+            want = want.float()
+            del p32
+        d_k, d_p = (kern - want).abs(), (plain - want).abs()
+        rec = {"logits_scale": float(want.abs().max()),
+               "kernels_vs_f32": {"max_abs": float(d_k.max()),
+                                  "mean_abs": float(d_k.mean())},
+               "plain_vs_f32": {"max_abs": float(d_p.max()),
+                                "mean_abs": float(d_p.mean())}}
+        check(bool(kern.isfinite().all()) and rec["kernels_vs_f32"][
+            "mean_abs"] <= 1.25 * rec["plain_vs_f32"]["mean_abs"],
+              f"{cfg_.name} logits by the f32 rule: {rec}")
+        return rec
+
+    def xlstm_phase() -> dict:
+        """The ``xlstm`` phase (the module docstring's 28): xlstm-125m at
+        full width, every parameter trained.  Emits its record and returns
+        each kernel's launches in one round of (c)."""
+        xcfg = get_config("xlstm-125m")
+        check(xcfg.lora is None and xcfg.d_model == 768
+              and xcfg.pattern == ("mlstm", "mlstm", "slstm")
+              and xcfg.n_periods == 4 and xcfg.mlstm_chunk == 128,
+              f"xlstm-125m's config changed: {xcfg}")
+        fc_x = FIRMConfig()
+        g_x = torch.Generator(device=dev).manual_seed(29)
+        torch.cuda.synchronize()
+        held_before = torch.cuda.memory_allocated()
+        x_ref, init_s = wall(lambda: transformer.init_params(
+            xcfg, generator=g_x, device=dev))
+        leaves = common.tree_leaves(x_ref)
+        n_params = sum(t.numel() for t in leaves)
+        n_f32 = sum(t.numel() for t in leaves if t.dtype == torch.float32)
+        check(n_params == 115_087_104 and n_f32 == 11_857_920,
+              f"xlstm parameters {n_params}, f32 {n_f32}")
+        x_train0, x_frozen = common.split_trainable(x_ref)
+        check(x_train0 is x_ref and not common.tree_leaves(x_frozen),
+              "xlstm: every parameter trainable")
+        # a policy one training step away from the reference, each leaf
+        # in its own dtype
+        x_policy = common.tree_map(lambda t: (t.float() + 1e-3 * torch.randn(
+            t.shape, generator=g_x, device=dev)).to(t.dtype), x_ref)
+        x_prompts = make_client_datasets(1, xcfg.vocab, P, generator=g_x,
+                                         device=dev)[0].next_batch(B)
+        n_norms = 3 * xcfg.n_periods + 1
+        none = {name: 0 for name in counters}
+        record = {"model": xcfg.name, "layers": xcfg.n_layers,
+                  "params": n_params, "f32_params": n_f32,
+                  "weight_bytes": sum(t.numel() * t.element_size()
+                                      for t in leaves),
+                  "init_s": init_s, "memory_held_before_bytes": held_before}
+
+        # (a) one rollout's decode: B = 16 prompts of 128 tokens, 128 new
+        record["decode"] = decode_vs_eager(xcfg, x_policy, x_prompts, None, 5)
+        check(record["decode"]["launches"] == dict(
+            none, rmsnorm=n_norms * (MAX_NEW + 1)),
+              f"xlstm decode launches {record['decode']['launches']}")
+
+        # (b) one client, K = 2 full-parameter steps
+        k_x = 2
+        state0 = local.init_client_state(x_policy, fc_x.n_objectives,
+                                         xcfg.d_model,
+                                         kl_coef=fc_x.kl_coef_init,
+                                         device=dev)
+        prompts_k = torch.stack([x_prompts.roll(k, 0) for k in range(k_x)])
+        record["local_steps"] = steps_vs_eager(
+            xcfg, fc_x, state0, x_frozen, x_ref, prompts_k, None, 40)
+        per_client_step = dict(
+            none, rmsnorm=n_norms * (MAX_NEW + 3),
+            rmsnorm_bwd=N_OBJ * n_norms, gram=1)
+        check(record["local_steps"]["launches"] == {
+            k: k_x * v for k, v in per_client_step.items()},
+              f"xlstm local steps' launches "
+              f"{record['local_steps']['launches']}")
+        del state0, x_policy
+        release_m()
+
+        # (c) R = 2 wan rounds, C = 2, K = 1, through the front door, the
+        # frozen reference unchanged
+        tr, plan_x = wan_trainer(xcfg, fc_x, x_ref)
+        check(tr.d_trainable == plan_x.d_trainable == n_params,
+              f"xlstm d_trainable {tr.d_trainable}")
+        ref_before = [t.clone() for t in common.tree_leaves(tr.ref_params)]
+        per_round = {k: N_CLIENTS * v for k, v in per_client_step.items()}
+        per_round.update(quantize=1, dequantize=1)
+        record["rounds"], launches_r = wan_rounds(xcfg.name, tr, plan_x,
+                                                  per_round)
+        check(all(identical(a, b_) for a, b_ in zip(
+            common.tree_leaves(tr.ref_params), ref_before)),
+              "xlstm: the frozen reference moved in the rounds")
+        record["rounds"].update(
+            reference_unchanged=True, adam_moment_bytes=2 * 4 * n_params,
+            update_graph_pool_bytes=[pool_bytes(e.graph.graph) for e in
+                                     tr.update_graphs._entries.values()])
+        del tr, ref_before
+        release_m()
+
+        # (d) Gram and the int8 codec kernels at this d (M = C = 2 rows of
+        # 115,087,104), against their plain versions.  Over 115 M terms the
+        # f32 sums of the two drift apart (by 5.0e-5 of the scale on an
+        # H100), so each is held to an f64 Gram: the kernel no further
+        # from it than the plain version, or 1e-5 of its scale
+        xs = randn((N_OBJ, n_params), torch.float32, g_x)
+        got, want = gram_mod.gram(xs), ref.gram(xs)
+        x64 = xs.double()
+        exact = (x64 @ x64.T).float()
+        del x64
+        gram_rec = {"shape": [N_OBJ, n_params],
+                    "max_rel": max_rel(got, want),
+                    "kernel_vs_f64": max_rel(got, exact),
+                    "plain_vs_f64": max_rel(want, exact),
+                    "same_bits_twice": identical(got, gram_mod.gram(xs)),
+                    "ms": timed_ms(lambda: gram_mod.gram(xs), iters=10),
+                    "plain_ms": timed_ms(lambda: ref.gram(xs), iters=10)}
+        gram_rec["bound_ms"], gram_rec["bound_by"] = bound_ms(
+            xs.numel() * 4 + N_OBJ * N_OBJ * 4,
+            2 * N_OBJ * N_OBJ * n_params, "f32")
+        check(gram_rec["kernel_vs_f64"] <= max(1e-5, gram_rec["plain_vs_f64"])
+              and gram_rec["same_bits_twice"], f"xlstm gram: {gram_rec}")
+        rows = -(-n_params // 1024)
+        x2 = torch.zeros((N_OBJ * rows * 1024,), device=dev)
+        x2[:N_OBJ * n_params] = 1e-3 * xs.reshape(-1)
+        x2 = x2.view(N_OBJ * rows, 1024)
+        del xs, got, want, exact
+        bits = torch.randint(-2 ** 31, 2 ** 31 - 1, x2.shape,
+                             generator=g_x, device=dev, dtype=torch.int32)
+        codes, scales = q_mod.quantize(x2, bits)
+        codes_p, scales_p = ref.quantize(x2, bits)
+        dec, res = q_mod.dequantize(codes, scales, x2)
+        dec_p = ref.dequantize(codes_p, scales_p)
+        res_p = ref.dequantize_residual(codes_p, scales_p, x2)
+        codec_rec = {"rows": N_OBJ * rows,
+                     "bit_for_bit": identical(codes, codes_p)
+                     and identical(scales, scales_p)
+                     and identical(dec, dec_p) and identical(res, res_p),
+                     "quantize_ms": timed_ms(lambda: q_mod.quantize(
+                         x2, bits), iters=10),
+                     "dequantize_ms": timed_ms(lambda: q_mod.dequantize(
+                         codes, scales, x2), iters=10)}
+        # quantize reads x and the bits and writes the codes and scales,
+        # 9 flops an element; dequantize with the residual reads the codes,
+        # scales and x and writes the decoded values and the residual, 3
+        n_el = x2.numel()
+        codec_rec["quantize_bound_ms"], codec_rec["quantize_bound_by"] = \
+            bound_ms(9 * n_el + 4 * N_OBJ * rows, 9 * n_el, "f32")
+        codec_rec["dequantize_bound_ms"], \
+            codec_rec["dequantize_bound_by"] = bound_ms(
+                13 * n_el + 4 * N_OBJ * rows, 3 * n_el, "f32")
+        check(codec_rec["bit_for_bit"], "xlstm codec kernels against the "
+              "plain versions, bit for bit")
+        del x2, bits, codes, scales, codes_p, scales_p, dec, res, dec_p, res_p
+        record["gram"], record["codec"] = gram_rec, codec_rec
+        del x_ref, x_train0, x_frozen, leaves
+        release_m()
+        emit(phase="xlstm", **record,
+             tolerance="graphs bit for bit their eager paths; launches and "
+             "bytes exact; the frozen reference bit for bit; Gram no "
+             "further from an f64 Gram than the plain version, or 1e-5 of "
+             "its scale; the codec kernels bit for bit")
+        return {name: launches_r[name] for name in
+                ("rmsnorm", "rmsnorm_bwd", "gram", "quantize", "dequantize")}
+
+    def encdec_phase() -> dict:
+        """The ``encdec`` phase (the module docstring's 29):
+        whisper-large-v3 and one period of llama-3.2-vision-90b at full
+        width with their modality stubs.  Emits its record and returns the
+        launches of one whisper and one vision client-step."""
+        record = {}
+        none = {name: 0 for name in counters}
+        fc_e = FIRMConfig()
+        out = {}
+        for name, cfg_, k_e, b_upd in (
+                ("whisper", get_config("whisper-large-v3"), 2, 8),
+                ("vision", dataclasses.replace(
+                    get_config("llama-3.2-vision-90b"), n_layers=5,
+                    n_periods=1), 1, B)):
+            g_e = torch.Generator(device=dev).manual_seed(
+                30 if name == "whisper" else 31)
+            torch.cuda.synchronize()
+            held_before = torch.cuda.memory_allocated()
+            e_ref, init_s = wall(lambda: transformer.init_params(
+                cfg_, generator=g_e, device=dev))
+            n_params = common.tree_size(e_ref)
+            check(n_params == {"whisper": 2_036_149_760,
+                               "vision": 6_535_544_832}[name],
+                  f"{name} parameters {n_params}")
+            e_train0, e_frozen = common.split_trainable(e_ref)
+            # a policy one training step away from the reference
+            e_train = common.tree_map(lambda t: t + 1e-3 * torch.randn(
+                t.shape, generator=g_e, device=dev), e_train0)
+            e_policy = common.merge_trainable(e_train, e_frozen)
+            # the stub: whisper's frames of a 30 s window (1500 frames,
+            # arXiv:2212.04356), or the VLM's 1601 vision tokens
+            key = transformer.stub_key(cfg_)
+            n_aux = 1500 if key == "frames" else cfg_.n_vision_tokens
+            aux_e = {key: randn((B, n_aux, cfg_.d_model), torch.bfloat16,
+                                g_e)}
+            prompts_e = make_client_datasets(
+                1, cfg_.vocab, P, generator=g_e, device=dev)[0].next_batch(B)
+            n_cross = cfg_.pattern.count("cross") * cfg_.n_periods
+            dec_norms = (2 * cfg_.n_layers + n_cross + 1)
+            fwd_norms = dec_norms + (2 * cfg_.encoder_layers + 1
+                                     if cfg_.encoder_layers else 0)
+            fwd_flash = cfg_.n_layers + n_cross + cfg_.encoder_layers
+            rec = {"model": cfg_.name, "layers": cfg_.n_layers,
+                   "encoder_layers": cfg_.encoder_layers, "params": n_params,
+                   "weight_bytes": sum(t.numel() * t.element_size() for t in
+                                       common.tree_leaves(e_ref)),
+                   "aux": {key: list(aux_e[key].shape)},
+                   "init_s": init_s, "memory_held_before_bytes": held_before}
+
+            # (a) prefill and 128 decode steps, graph against eager
+            rec["decode"] = decode_vs_eager(cfg_, e_policy, prompts_e, aux_e,
+                                            7)
+            check(rec["decode"]["launches"] == dict(
+                none, rmsnorm=fwd_norms + dec_norms * MAX_NEW,
+                flash_attention=fwd_flash),
+                  f"{name} decode launches {rec['decode']['launches']}")
+
+            # (b) local steps with the stub through the update graph
+            state0 = local.init_client_state(e_train, fc_e.n_objectives,
+                                             cfg_.d_model,
+                                             kl_coef=fc_e.kl_coef_init,
+                                             device=dev)
+            aux_u = {key: aux_e[key][:b_upd]}
+            prompts_k = torch.stack([prompts_e[:b_upd].roll(k, 0)
+                                     for k in range(k_e)])
+            rec["local_steps"] = steps_vs_eager(
+                cfg_, fc_e, state0, e_frozen, e_ref, prompts_k, aux_u, 50)
+            # the first norm (of the encoder, else of the decoder) reads no
+            # tensor that needs a gradient: no backward there
+            per_step = dict(
+                none, rmsnorm=fwd_norms * 3 + dec_norms * MAX_NEW,
+                flash_attention=3 * fwd_flash,
+                rmsnorm_bwd=N_OBJ * (fwd_norms - 1 - (
+                    1 if cfg_.encoder_layers else 0)),
+                flash_attention_bwd=N_OBJ * fwd_flash, gram=1)
+            check(rec["local_steps"]["launches"] == {
+                k: k_e * v for k, v in per_step.items()},
+                  f"{name} local steps' launches "
+                  f"{rec['local_steps']['launches']}, per step {per_step}")
+            out[name] = per_step
+            del state0
+            release_m()
+
+            # (c) the bf16 logits by the f32 rule, two prompts
+            rec["logits"] = logits_vs_f32(cfg_, e_policy, prompts_e[:2],
+                                          {key: aux_e[key][:2]})
+            record[name] = rec
+            del e_ref, e_train0, e_frozen, e_train, e_policy, aux_e, aux_u
+            release_m()
+        emit(phase="encdec", **record,
+             cuts={"whisper_update_batch": 8,
+                   "vision_layers": "5 of 100 (one period)"},
+             tolerance="graphs bit for bit their eager paths; launches "
+             "exact; bf16 logits through the kernels no further from the "
+             "plain f32 forward than the plain bf16 path's (1.25x on the "
+             "mean)")
+        return out
 
     def release_m():
         gc.collect()
@@ -1293,6 +1675,23 @@ def run(torch, stop_after) -> int:
         check(identical(got, again) and identical(lse, lse2),
               f"flash attention {label}: a second call gave other bits")
         del q, k, v, got, again, want
+    # the encoder-decoder and VLM shapes, from a generator of their own
+    encdec_gen = torch.Generator(device=dev).manual_seed(4)
+    for label, (b, sq, skv, hq, hkv, dh), dt, causal, window in \
+            FLASH_ENCDEC_CASES:
+        dtype = dtypes[dt]
+        q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype, encdec_gen)
+        got, lse = fa_mod.flash_attention_fwd(q, k, v, causal=causal,
+                                              with_lse=True)
+        again, lse2 = fa_mod.flash_attention_fwd(q, k, v, causal=causal,
+                                                  with_lse=True)
+        want = ref.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        flash_paths[label] = fa_mod.PATHS[dtype]
+        check_flash_fwd(label, q, k, causal, window, got, lse, want, 2e-2)
+        check(identical(got, again) and identical(lse, lse2),
+              f"flash attention {label}: a second call gave other bits")
+        del q, k, v, got, again, want, lse, lse2
 
     def sass_hmma(lib) -> dict:
         """HMMA (tensor-core) instructions in each flash and SSD kernel of
@@ -1357,6 +1756,31 @@ def run(torch, stop_after) -> int:
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     flash_row["bound_ms_dh128"], flash_row["bound_by_dh128"] = bound_ms(
         n_bytes, 4 * 128 * pairs, "bf16")
+
+    def flash_at(tag, b, sq, skv, hq, hkv, dh):
+        """The kernel, the plain version and SDPA timed at one
+        non-causal shape of ``FLASH_ENCDEC_CASES``, with its bound: every
+        (query, key) pair kept."""
+        q_, k_, v_ = qkv(b, sq, skv, hq, hkv, dh, torch.bfloat16, encdec_gen)
+        t_ = [t.transpose(1, 2) for t in (q_, k_, v_)]
+        flash_row.update({
+            f"max_abs_err_{tag}": flash_err[next(
+                c[0] for c in FLASH_ENCDEC_CASES
+                if c[1] == (b, sq, skv, hq, hkv, dh))],
+            f"ms_{tag}": timed_ms(lambda: fa_mod.flash_attention(
+                q_, k_, v_, causal=False), iters=20),
+            f"plain_ms_{tag}": timed_ms(lambda: ref.flash_attention(
+                q_, k_, v_, causal=False), iters=3, warmup=1),
+            f"library_ms_{tag}": timed_ms(
+                lambda: F.scaled_dot_product_attention(*t_, enable_gqa=True),
+                iters=20)})
+        nb = sum(t.numel() * t.element_size() for t in (q_, k_, v_, q_))
+        flash_row[f"bound_ms_{tag}"], flash_row[f"bound_by_{tag}"] = \
+            bound_ms(nb, 4 * dh * b * hq * sq * skv, "bf16")
+    # whisper's encoder (S = 1500, MHA of 20 heads of 64) and the VLM's
+    # cross-attention (256 positions to 1601 vision tokens, Dh 128)
+    flash_at("whisper_enc", B, 1500, 1500, 20, 20, 64)
+    flash_at("vision_cross", B, 256, 1601, 64, 8, 128)
     flash_regs = ptxas_by_kernel("flash_fwd_mma_kernel")
     flash_regs.update(ptxas_by_kernel("flash_fwd_fma_kernel"))
     emit(phase="flash", shape=[B, s, 32, 8, 64], dtype="bf16", causal=True,
@@ -1896,9 +2320,69 @@ def run(torch, stop_after) -> int:
     rms_bwd_row["bound_ms"], rms_bwd_row["bound_by"] = bound_ms(
         3 * x.numel() * x.element_size() + d * 2, 10 * x.numel(), "f32")
     del xl, yl
+    # dg (g trained: a model without adapters), from a generator of its
+    # own: xlstm's update shape (B x 256 rows of 768) and off it (d 2048,
+    # a last row group shorter than the others at 4099 rows, d 16384 whose
+    # partials take more than 48 KB of shared memory, the scalar path at d
+    # 1001 and off a 16-byte boundary); against the
+    # plain formula and autograd of the plain forward, dx the same bits as
+    # the call without dg, the same bits twice.  bf16 dg is one rounding
+    # of an f32 sum over the rows taken in another order: 1e-2 of its
+    # scale (an ulp is 2**-8); f32 1e-4
+    dg_gen = torch.Generator(device=dev).manual_seed(6)
+    rms_dg_err = {}
+    for shape, dtype, offset in [((B * 256, 768), torch.bfloat16, 0),
+                                 ((B * 256, 768), torch.float32, 0),
+                                 ((4096, d), torch.bfloat16, 0),
+                                 ((4099, 768), torch.bfloat16, 0),
+                                 ((9, 16384), torch.float32, 0),
+                                 ((3, 1001), torch.bfloat16, 0),
+                                 ((7, 768), torch.bfloat16, 1)]:
+        n = shape[0] * shape[1]
+        x = randn((n + offset,), dtype, dg_gen)[offset:].view(shape)
+        g, dy = randn(shape[-1:], dtype, dg_gen), randn(shape, dtype, dg_gen)
+        dx, dg = rn_mod.rmsnorm_bwd(x, g, dy, want_dg=True)
+        dx2, dg2 = rn_mod.rmsnorm_bwd(x, g, dy, want_dg=True)
+        ga = g.detach().requires_grad_()
+        (want_auto,) = torch.autograd.grad(ref.rmsnorm(x, ga), ga, dy)
+        want = ref.rmsnorm_dg(x, g, dy)
+        torch.cuda.synchronize()
+        label = (f"{shape} {str(dtype)[6:]}"
+                 f"{' misaligned' if offset else ''}")
+        rms_dg_err[label] = {"vs_formula": max_rel(dg, want),
+                             "vs_autograd": max_rel(dg, want_auto)}
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        check(max(rms_dg_err[label].values()) <= tol
+              and identical(dx, rn_mod.rmsnorm_bwd(x, g, dy))
+              and identical(dx, dx2) and identical(dg, dg2),
+              f"rmsnorm_bwd dg {label}: rel errs {rms_dg_err[label]}")
+    x, g, dy = (randn((B * 256, 768), torch.bfloat16, dg_gen),
+                randn((768,), torch.bfloat16, dg_gen),
+                randn((B * 256, 768), torch.bfloat16, dg_gen))
+    rms_bwd_row["ms_xlstm"] = timed_ms(lambda: rn_mod.rmsnorm_bwd(x, g, dy))
+    rms_bwd_row["ms_with_dg_xlstm"] = timed_ms(
+        lambda: rn_mod.rmsnorm_bwd(x, g, dy, want_dg=True))
+    rms_bwd_row["plain_ms_with_dg_xlstm"] = timed_ms(
+        lambda: (ref.rmsnorm_bwd(x, g, dy), ref.rmsnorm_dg(x, g, dy)))
+    # one call computes dx and dg together: autograd of F.rms_norm with g
+    # requiring a gradient
+    xl, gl = x.detach().requires_grad_(), g.detach().requires_grad_()
+    yl = F.rms_norm(xl, (768,), gl, 1e-5)
+    rms_bwd_row["library_ms_with_dg_xlstm"] = timed_ms(
+        lambda: torch.autograd.grad(yl, (xl, gl), dy, retain_graph=True))
+    del xl, gl, yl
+    # what the function needs: x and dy read and dx written once, g read
+    # and dg written (the kernel's partials scratch is its own cost); 12
+    # flops an element more than dx alone
+    xb = x.numel() * x.element_size()
+    rms_bwd_row["bound_ms_with_dg_xlstm"], \
+        rms_bwd_row["bound_by_with_dg_xlstm"] = bound_ms(
+            3 * xb + 2 * 768 * 2, 22 * x.numel(), "f32")
     emit(phase="rmsnorm_bwd", shape=[4096, d], dtype="bf16",
-         checks=rms_bwd_err, tolerance="max |dx - plain| <= 2e-2 (bf16) or "
-         "1e-4 (f32) of max |plain|", **rms_bwd_row)
+         checks=rms_bwd_err, dg_checks=rms_dg_err,
+         tolerance="max |dx - plain| <= 2e-2 (bf16) or 1e-4 (f32) of max "
+         "|plain|; dg 1e-2 (bf16) or 1e-4 (f32) of max |plain|",
+         **rms_bwd_row)
     done("rmsnorm_bwd")
 
     # ----------------------------------------------------------- 11. flash_bwd
@@ -1972,6 +2456,30 @@ def run(torch, stop_after) -> int:
         check(all(identical(a, a2) for a, a2 in zip(got, again)),
               f"flash_attention_bwd {label}: a second call gave other bits")
         del q, k, v, do, o, lse, got, again, want
+    # the encoder-decoder and VLM shapes, from their own generator again
+    encdec_gen.manual_seed(5)
+    for label, (b, sq, skv, hq, hkv, dh), dt, causal, window in \
+            FLASH_ENCDEC_CASES:
+        dtype = dtypes[dt]
+        q, k, v = qkv(b, sq, skv, hq, hkv, dh, dtype, encdec_gen)
+        do = randn((b, sq, hq, dh), dtype, encdec_gen)
+        o, lse = fa_mod.flash_attention_fwd(q, k, v, causal=causal,
+                                            with_lse=True)
+        got = fa_mod.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = fa_mod.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal)
+        want = ref.flash_attention_bwd(q, k, v, do, causal=causal)
+        torch.cuda.synchronize()
+        errs = {name: float((a.float() - w_.float()).abs().max())
+                / d_scale(i, w_) for i, (name, a, w_) in enumerate(zip(
+                    ("dq", "dk", "dv"), got, want))}
+        flash_bwd_err[label] = errs
+        flash_bwd_paths[label] = fa_mod.PATHS[dtype]
+        check(max(errs.values()) <= bwd_tol(dtype),
+              f"flash_attention_bwd {label}: rel errs {errs}")
+        check(all(identical(a, a2) for a, a2 in zip(got, again)),
+              f"flash_attention_bwd {label}: a second call gave other bits")
+        del q, k, v, do, o, lse, got, again, want
     q, k, v = qkv(B, s, s, 32, 8, 64, torch.bfloat16)
     do = randn((B, s, 32, 64), torch.bfloat16)
     o, lse = fa_mod.flash_attention_fwd(q, k, v, causal=True, with_lse=True)
@@ -2031,6 +2539,33 @@ def run(torch, stop_after) -> int:
     flash_bwd_row["bound_ms_dh128"], flash_bwd_row["bound_by_dh128"] = \
         bound_ms(n_bytes, 10 * 128 * pairs, "bf16")
     del qt, kt, vt, ot, q8, k8, v8, do8, o8, lse8
+
+    def flash_bwd_at(tag, b, sq, skv, hq, hkv, dh):
+        """The backward kernel, the plain version and SDPA's backward at
+        one non-causal shape of ``FLASH_ENCDEC_CASES``, with its bound."""
+        q_, k_, v_ = qkv(b, sq, skv, hq, hkv, dh, torch.bfloat16, encdec_gen)
+        do_ = randn((b, sq, hq, dh), torch.bfloat16, encdec_gen)
+        o_, lse_ = fa_mod.flash_attention_fwd(q_, k_, v_, causal=False,
+                                              with_lse=True)
+        t_ = [t.transpose(1, 2).detach().requires_grad_()
+              for t in (q_, k_, v_)]
+        ot_ = F.scaled_dot_product_attention(*t_, enable_gqa=True)
+        flash_bwd_row.update({
+            f"ms_{tag}": timed_ms(lambda: fa_mod.flash_attention_bwd(
+                q_, k_, v_, o_, lse_, do_, causal=False), iters=20),
+            f"plain_ms_{tag}": timed_ms(lambda: ref.flash_attention_bwd(
+                q_, k_, v_, do_, causal=False), iters=3, warmup=1),
+            f"library_ms_{tag}": timed_ms(lambda: torch.autograd.grad(
+                ot_, t_, do_.transpose(1, 2), retain_graph=True),
+                iters=20)})
+        nb = (sum(t.numel() * t.element_size()
+                  for t in (q_, k_, v_, o_, do_, q_, k_, v_))
+              + lse_.numel() * 4)
+        flash_bwd_row[f"bound_ms_{tag}"], \
+            flash_bwd_row[f"bound_by_{tag}"] = bound_ms(
+                nb, 10 * dh * b * hq * sq * skv, "bf16")
+    flash_bwd_at("whisper_enc", B, 1500, 1500, 20, 20, 64)
+    flash_bwd_at("vision_cross", B, 256, 1601, 64, 8, 128)
 
     # What D = rowsum(dO * O) from the bf16 O (the kernel's choice, as in
     # FlashAttention-2) adds to the kernel's distance from f32: the
@@ -4662,7 +5197,15 @@ def run(torch, stop_after) -> int:
     moe_launches = moe_phase()
     done("moe")
 
-    # -------------------------------------------------------------- 28. codecs
+    # --------------------------------------------------------------- 28. xlstm
+    xlstm_launches = xlstm_phase()
+    done("xlstm")
+
+    # -------------------------------------------------------------- 29. encdec
+    encdec_launches = encdec_phase()
+    done("encdec")
+
+    # -------------------------------------------------------------- 30. codecs
     # the powersgd uplink (lowrank:4+ef) and the delta downlink
     # (delta+int8) at the round's width, on the card, then through the
     # port's CPU path with the same inputs and injected draws (omega, the
@@ -4765,7 +5308,7 @@ def run(torch, stop_after) -> int:
                "tolerance": "bit-identical"})
     done("codecs")
 
-    # --------------------------------------------------------------- 29. train
+    # --------------------------------------------------------------- 31. train
     with tempfile.TemporaryDirectory() as tmp:
         report = io.StringIO()
         with contextlib.redirect_stdout(report):
@@ -4796,7 +5339,7 @@ def run(torch, stop_after) -> int:
          zamba2={"seconds": z_train_s, "report": z_report.getvalue()})
     done("train")
 
-    # --------------------------------------------------------------- 30. serve
+    # --------------------------------------------------------------- 32. serve
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         out, serve_s = wall(lambda: serve.main(
@@ -4840,9 +5383,23 @@ def run(torch, stop_after) -> int:
     # their launches in one round of the moe phase
     for row in (flash_row, flash_bwd_row):
         row["launches_moe_round"] = moe_launches[row["name"]]
+    # the launches of one xlstm round (full-parameter) and of one whisper
+    # and one vision client-step of the encdec phase
+    for row in (rms_row, rms_bwd_row, gram_row, quant_row, dequant_row):
+        row["launches_xlstm_round"] = xlstm_launches[row["name"]]
+    for row in (rms_row, rms_bwd_row, flash_row, flash_bwd_row, gram_row):
+        row["launches_whisper_step"] = encdec_launches["whisper"][row["name"]]
+        row["launches_vision_step"] = encdec_launches["vision"][row["name"]]
     extra = ("launches_moe_round", "max_abs_err_dh128", "ms_dh128",
              "plain_ms_dh128", "bound_ms_dh128", "bound_by_dh128",
-             "library_ms_dh128")
+             "library_ms_dh128", "launches_xlstm_round",
+             "launches_whisper_step", "launches_vision_step") + tuple(
+        f"{key}_{tag}" for tag in ("whisper_enc", "vision_cross")
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")) + (
+        "ms_xlstm", "ms_with_dg_xlstm", "plain_ms_with_dg_xlstm",
+        "library_ms_with_dg_xlstm", "bound_ms_with_dg_xlstm",
+        "bound_by_with_dg_xlstm")
     done("serve")
     emit(phase="seconds_by_phase", seconds=phase_s)
     print(json.dumps({"kernels": [{k: row[k] for k in keys + extra

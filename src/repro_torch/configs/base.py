@@ -5,10 +5,11 @@ so these dataclasses are repeated here, field for field, and a parity
 test holds the two copies equal.  The layer stack is a *periodic
 pattern*: ``pattern`` is the tuple of block kinds inside one period and
 ``n_periods`` repeats it, so ``n_layers == len(pattern) * n_periods``.
-The port runs the ``attn``, ``swa``, ``moe``, ``moe_swa``, ``mamba2`` and
-``shared_attn`` block kinds; the others (``cross``, ``enc_attn``,
-``mlstm``, ``slstm``) are listed, and counted by ``param_count``, so that
-configs describe them faithfully.
+The port runs every block kind of the reference: ``attn``, ``swa``,
+``moe``, ``moe_swa``, ``mamba2``, ``shared_attn``, ``mlstm``, ``slstm``,
+``cross`` (self-attention, then cross-attention to the vision stub or
+the encoder's output) and ``enc_attn`` (the whisper encoder's
+bidirectional blocks).
 """
 from __future__ import annotations
 
@@ -169,6 +170,22 @@ class ModelConfig:
         if self.encoder_layers:
             total += self.encoder_layers * per["enc_attn"]
         return int(total)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

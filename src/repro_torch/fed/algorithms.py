@@ -122,14 +122,15 @@ class Algorithm:
 
     # ---- local-step machinery ----------------------------------------
     def step(self, cfg, cfc: FIRMConfig, state, frozen, batch, pref, extra,
-             graphs=None):
+             graphs=None, aux=None):
         """One client's local update: (new state, metrics with at least
         ``lam``, ``rewards`` and ``kl``).  The counterpart of the
         reference's ``traced_step``; ``pref`` is the client's (M,)
         preference or None, ``extra`` what ``traced_extra`` gives.
         ``graphs``, an ``update_graph.UpdateGraphs`` (given for CUDA
         tensors), runs the update as a captured program; None runs it
-        eagerly."""
+        eagerly.  ``aux`` is the modality stub of a config with cross
+        blocks (an operand of the captured update)."""
         raise NotImplementedError(self.name)
 
     def traced_extra(self, cfc: FIRMConfig, ec, device=None):
@@ -190,19 +191,19 @@ def _step_major(trainer, participants: List[int]):
                 yield k, ci, c
 
 
-def _firm_step(cfg, cfc, state, frozen, batch, operands):
+def _firm_step(cfg, cfc, state, frozen, batch, operands, aux=None):
     # looked up at each call, so that a wrapper put on the module's
     # firm_local_step (a test's spy) is the one captured
     beta, *pref = operands
-    return local_lib.firm_local_step(cfg, cfc, state, frozen, batch,
+    return local_lib.firm_local_step(cfg, cfc, state, frozen, batch, aux,
                                      preference=pref[0] if pref else None,
                                      beta=beta)
 
 
-def _linear_step(cfg, cfc, state, frozen, batch, operands):
+def _linear_step(cfg, cfc, state, frozen, batch, operands, aux=None):
     (weights,) = operands
     return local_lib.linear_local_step(cfg, cfc, state, frozen, batch,
-                                       weights)
+                                       weights, aux)
 
 
 class FIRMAlgorithm(Algorithm):
@@ -214,10 +215,10 @@ class FIRMAlgorithm(Algorithm):
     loop_dispatches_per_client_step = 3     # generate, ref logprobs, step
 
     def step(self, cfg, cfc, state, frozen, batch, pref, extra,
-             graphs=None):
+             graphs=None, aux=None):
         if graphs is None:
             return local_lib.firm_local_step(cfg, cfc, state, frozen, batch,
-                                             preference=pref)
+                                             aux, preference=pref)
         dev = state.lam.device
         if pref is None and cfc.preference is not None:
             # the config's preference rides the graph's static operands
@@ -226,7 +227,8 @@ class FIRMAlgorithm(Algorithm):
         # staleness-scaled ones), each update its own beta's bits
         beta = firm.config_tensor(cfc.beta, dev)
         return graphs.run(self.kernel, _firm_step, cfg, cfc, state, frozen,
-                          batch, (beta,) if pref is None else (beta, pref))
+                          batch, (beta,) if pref is None else (beta, pref),
+                          aux=aux)
 
 
 class FIRMUnregAlgorithm(FIRMAlgorithm):
@@ -249,12 +251,12 @@ class LinearAlgorithm(Algorithm):
     loop_dispatches_per_client_step = 2     # generate, ref logprobs
 
     def step(self, cfg, cfc, state, frozen, batch, pref, extra,
-             graphs=None):
+             graphs=None, aux=None):
         if graphs is None:
             return local_lib.linear_local_step(cfg, cfc, state, frozen,
-                                               batch, extra)
+                                               batch, extra, aux)
         return graphs.run(self.kernel, _linear_step, cfg, cfc, state, frozen,
-                          batch, (extra,))
+                          batch, (extra,), aux=aux)
 
     def traced_extra(self, cfc, ec, device=None):
         # built once a value and device: a copy from the host every round

@@ -4,10 +4,15 @@
 generation (prefill, then decode and sample), banded rewards, and the
 frozen reference model's logprobs (``FederatedTrainer._make_batch`` and the
 first lines of ``one_client`` in the reference's ``_make_round_fn``).
-Everything here runs on every ported pattern: the dense pattern, the MoE
-and sliding-window patterns (mixtral, moonshot) and the zamba2 hybrid,
-whose training differentiates the Mamba2 layers through the SSD backward
-kernel.
+Everything here runs on every pattern: the dense pattern, the MoE and
+sliding-window patterns (mixtral, moonshot), the zamba2 hybrid, whose
+training differentiates the Mamba2 layers through the SSD backward
+kernel, and xlstm, which has no adapters, so that FIRM trains (and the
+uplink carries) every parameter, bf16 leaves and f32 gate weights alike.
+``rollout_batch`` and ``client_local_steps`` also take a modality stub
+``aux`` (whisper's frames, the VLM's vision tokens); the round does not,
+as the reference's does not, so ``FederatedTrainer`` refuses those
+families.
 ``client_local_steps`` runs K local steps of one client, each a rollout
 then the algorithm's ``step`` (FIRM's by default): ``one_client`` and the
 scan ``body`` of ``_make_round_fn`` for a single client.  Every mode of
@@ -107,9 +112,10 @@ from repro_torch.rlhf import update_graph
 from repro_torch.rlhf.sampling import generate
 
 
-def _ref_logprobs(cfg: ModelConfig, ref_params, tokens: torch.Tensor):
+def _ref_logprobs(cfg: ModelConfig, ref_params, tokens: torch.Tensor,
+                  aux=None):
     """The frozen reference's logprobs of ``tokens``."""
-    ref_out = transformer.forward_seq(cfg, ref_params, tokens)
+    ref_out = transformer.forward_seq(cfg, ref_params, tokens, aux)
     return ppo.token_logprobs(ref_out["logits"], tokens)
 
 
@@ -121,19 +127,23 @@ def rollout_batch(cfg: ModelConfig, params, ref_params, prompts: torch.Tensor,
                   band_h, band_x, *, n_objectives: int, max_new: int,
                   length_tol: int,
                   generator: Optional[torch.Generator] = None,
-                  gumbel: Optional[torch.Tensor] = None) -> ppo.PPOBatch:
+                  gumbel: Optional[torch.Tensor] = None,
+                  aux=None) -> ppo.PPOBatch:
     """(B, P) prompts -> ``PPOBatch`` of (B, P + max_new) rows.
 
     ``params`` is the client's policy (adapters merged), ``ref_params`` the
     frozen reference.  ``band_h``/``band_x`` are the (lo, hi) helpful and
     harmful bands of ``rewards.variant_bands``.  The sampling noise comes
     from ``generator`` or is injected as ``gumbel`` (max_new, B, V).
+    ``aux`` is the modality stub, read by generation and the reference's
+    forward alike.
     """
     tokens, old_lp, mask = generate(cfg, params, prompts, max_new=max_new,
-                                    generator=generator, gumbel=gumbel)
+                                    generator=generator, gumbel=gumbel,
+                                    aux=aux)
     r = rewards_lib.score_batch_banded(band_h, band_x, tokens, mask,
                                        n_objectives, length_tol)
-    ref_lp = _ref_logprobs(cfg, ref_params, tokens)
+    ref_lp = _ref_logprobs(cfg, ref_params, tokens, aux)
     return ppo.PPOBatch(tokens, mask, old_lp, ref_lp, r)
 
 
@@ -148,7 +158,8 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
                        preference: Optional[torch.Tensor] = None,
                        algorithm: Optional[algorithms_lib.Algorithm] = None,
                        extra=None,
-                       graphs: Optional[update_graph.UpdateGraphs] = None):
+                       graphs: Optional[update_graph.UpdateGraphs] = None,
+                       aux=None):
     """K local steps of one client.  Returns (final state, metrics).
 
     Each step merges the client's adapters into ``frozen``, rolls out
@@ -162,7 +173,9 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
     sampling noise comes from ``generators[k]`` (the reference's one key a
     step) or is injected as ``gumbel`` (K, max_new, B, V).
     ``preference`` is the client's (M,) preference, overriding
-    ``fc.preference``.  The metrics are the reference's per-step keep:
+    ``fc.preference``.  ``aux`` is the modality stub of a config with
+    cross blocks, read by every rollout and update (an operand of the
+    captured update).  The metrics are the reference's per-step keep:
     ``lam`` (K, M), ``rewards`` (K, M) and ``kl`` (K,).
     """
     if (dataset is None) == (prompts is None):
@@ -185,9 +198,9 @@ def client_local_steps(cfg: ModelConfig, fc: FIRMConfig,
             n_objectives=fc.n_objectives, max_new=max_new,
             length_tol=length_tol,
             generator=None if generators is None else generators[k],
-            gumbel=None if gumbel is None else gumbel[k])
+            gumbel=None if gumbel is None else gumbel[k], aux=aux)
         state, metrics = step(cfg, fc, state, frozen, batch, preference,
-                              extra, graphs)
+                              extra, graphs, aux=aux)
         for key, vals in kept.items():
             vals.append(metrics[key])
     return state, {key: torch.stack(vals) for key, vals in kept.items()}
@@ -209,8 +222,13 @@ STATS = ("rewards", "lam_mean", "lam_disagreement", "param_drift", "kl",
 
 def _delta_flat(stacked, anchor) -> torch.Tensor:
     """All P client deltas against the anchor -> (P, d) f32 rows in
-    sorted-key leaf order."""
-    return torch.cat([(a - b).float().reshape(a.shape[0], -1)
+    sorted-key leaf order.
+
+    The difference of two bf16 leaves is taken in f32: the reference
+    writes ``(a - b).astype(f32)``, but its jitted round (XLA keeps the
+    excess precision of the bf16 subtraction it widens) computes the f32
+    difference, which is what it sends."""
+    return torch.cat([(a.float() - b.float()).reshape(a.shape[0], -1)
                       for a, b in zip(trees.tree_leaves(stacked),
                                       trees.tree_leaves(anchor))], dim=1)
 
@@ -267,7 +285,13 @@ class FederatedTrainer:
     Runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``).
     ``params`` is an optional initial model tree (e.g. a JAX model carried
     over by ``bridge.to_torch``); without it the weights are drawn from
-    ``ec.seed``.  ``plan`` is the ``fed.api.ExecutionPlan`` the trainer
+    ``ec.seed``.  A config whose forward reads a modality stub (a VLM's
+    vision tokens, an encoder-decoder's frames) is refused: the round
+    passes none, as the reference's does not (its first rollout raises
+    ``KeyError``).  Without adapters (xlstm) every parameter is
+    trainable, and the frozen reference is a copy of the initial
+    parameters (``ref_params``), so that nothing the round writes can
+    move it.  ``plan`` is the ``fed.api.ExecutionPlan`` the trainer
     runs (``ExecutionPlan.build`` passes it); without it the trainer plans
     its own spec, and keeps the plan as ``self.plan`` either way.
 
@@ -297,6 +321,14 @@ class FederatedTrainer:
                  ec: Optional[EngineConfig] = None, *, params=None,
                  device=None, plan: Optional[api_lib.ExecutionPlan] = None):
         ec = EngineConfig() if ec is None else ec
+        stub = transformer.stub_key(cfg)
+        if stub is not None:
+            raise ValueError(
+                f"{cfg.name}'s forward reads the modality stub "
+                f"aux['{stub}'], which the federated round does not pass "
+                "(the reference's round fails at its first rollout with "
+                f"KeyError: '{stub}'); run its generation and local steps "
+                "with aux= (rollout_batch, client_local_steps)")
         # the algorithm owns the local step and the capabilities every
         # path decision reads; (fc, ec) is checked before any work
         self.algorithm = algorithms_lib.get_algorithm(ec.algorithm)
@@ -309,7 +341,10 @@ class FederatedTrainer:
                                                device=self.device))
         trainable, frozen = split_trainable(self.params)
         self.frozen = frozen
-        self.ref_params = self.params                 # frozen reference
+        # the frozen reference; where every parameter is trainable (no
+        # adapters: nothing is frozen) it is a copy of its own
+        self.ref_params = (self.params if trees.tree_leaves(frozen)
+                           else trees.tree_map(torch.clone, self.params))
         self.global_trainable = trainable
         self.client_states = [
             local_lib.init_client_state(trainable, fc.n_objectives,

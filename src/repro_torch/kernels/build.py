@@ -29,8 +29,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, g, y, rows, d, eps, dtype, stream
     "firm_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
-    # x, g, dy, dx, rows, d, eps, dtype, stream
-    "firm_rmsnorm_bwd": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # x, g, dy, dx, dg (or null), dg's partials scratch (or null), rows, d,
+    # eps, dtype, stream
+    "firm_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # rows, int* row groups of the dg pass (out)
+    "firm_rmsnorm_dg_groups": (_I, _P),
     # q, k, v, o, lse, b, sq, skv, hq, hkv, dh, causal, window, dtype, stream
     "firm_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P),

@@ -61,9 +61,20 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * g
 
 
+def rmsnorm_dg(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """dg of ``rmsnorm(x, g, eps)`` given dy: the product ``dy * n``
+    rounded to ``x.dtype`` (``n`` the forward's rounded normalised x), as
+    autograd's is, summed over the rows in f32 and rounded once."""
+    xf = x.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    n = (xf * r).to(x.dtype)
+    return (dy * n).float().reshape(-1, x.shape[-1]).sum(0).to(g.dtype)
+
+
 def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
-    """dx of ``rmsnorm(x, g, eps)`` given dy; no dg (g is frozen).
+    """dx of ``rmsnorm(x, g, eps)`` given dy (dg: ``rmsnorm_dg``).
 
     ``dy * g`` is rounded to ``x.dtype``, as autograd's product is, and the
     rest runs in f32: ``r * (dn - n * mean(dn * n))`` with ``n = x * r``.

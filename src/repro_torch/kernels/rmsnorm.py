@@ -2,12 +2,15 @@
 
 ``rmsnorm_fwd`` replaces the Pallas TPU kernel
 ``repro/kernels/rmsnorm.py:rmsnorm``; ``rmsnorm_bwd`` computes its input
-gradient, which the JAX package takes from autodiff of the XLA twin.
-``rmsnorm`` joins the two in an ``autograd.Function``.  The wrappers take
+gradient, and with ``want_dg`` the gradient of ``g`` too (a model without
+adapters trains its norms), which the JAX package takes from autodiff of
+the XLA twin.  ``rmsnorm`` joins the two in an ``autograd.Function``.  The wrappers take
 CUDA tensors only; ``kernels.ops.rmsnorm`` sends CPU tensors to the plain
 version in ``kernels.ref``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -63,28 +66,43 @@ def rmsnorm_fwd(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
 
 
 def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
-                eps: float = 1e-5) -> torch.Tensor:
-    """dx of ``rmsnorm_fwd(x, g, eps)`` given dy (x's shape and dtype)."""
+                eps: float = 1e-5, *, want_dg: bool = False):
+    """dx of ``rmsnorm_fwd(x, g, eps)`` given dy (x's shape and dtype);
+    with ``want_dg``, (dx, dg), dg of g's shape and dtype, from the same
+    call."""
     global bwd_launches
     rows = _check(x, g, dy)
     dx = torch.empty_like(x)
+    dg = torch.zeros_like(g) if want_dg else None
     if rows == 0:
-        return dx
-    err = build.load().firm_rmsnorm_bwd(
-        x.data_ptr(), g.data_ptr(), dy.data_ptr(), dx.data_ptr(), rows,
-        x.shape[-1], float(eps), DTYPES[x.dtype],
+        return (dx, dg) if want_dg else dx
+    lib = build.load()
+    part = None
+    if want_dg:  # the dg pass's partial sums, a row of d a row group
+        groups = ctypes.c_int(0)
+        lib.firm_rmsnorm_dg_groups(rows, ctypes.byref(groups))
+        part = torch.empty((groups.value, x.shape[-1]), dtype=torch.float32,
+                           device=x.device)
+    err = lib.firm_rmsnorm_bwd(
+        x.data_ptr(), g.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        dg.data_ptr() if want_dg else None,
+        part.data_ptr() if want_dg else None, rows, x.shape[-1],
+        float(eps), DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(
             f"rmsnorm backward kernel launch failed: CUDA error {err}")
     bwd_launches += 1
     nancheck.check_output("rmsnorm_bwd", dx)
+    if want_dg:
+        nancheck.check_output("rmsnorm_bwd", dg)
+        return dx, dg
     return dx
 
 
 class RMSNorm(torch.autograd.Function):
-    """Forward and ``dx`` through the kernels.  ``g`` is frozen on the LoRA
-    path; a backward that asks for ``dg`` raises."""
+    """Forward and ``dx`` through the kernels; ``dg`` too where ``g`` is
+    trained (frozen on the LoRA path, it is not computed there)."""
 
     @staticmethod
     def forward(ctx, x, g, eps):
@@ -94,11 +112,10 @@ class RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        if ctx.needs_input_grad[1]:
-            raise NotImplementedError(
-                "the rmsnorm kernel computes no gradient for g, which is "
-                "frozen on the LoRA path")
         x, g = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            dx, dg = rmsnorm_bwd(x, g, dy.contiguous(), ctx.eps, want_dg=True)
+            return dx, dg, None
         return rmsnorm_bwd(x, g, dy.contiguous(), ctx.eps), None, None
 
 

@@ -1,9 +1,13 @@
 """Serving driver: batched prefill + decode (counterpart of
 ``repro.launch.serve``), with the same flags plus ``--device``.
 
-Serves every ported architecture (``configs.get_config``):
-``llama-3.2-1b`` (the default), the ``zamba2-1.2b`` hybrid, the MoE
-``mixtral-8x7b`` and the others.  Examples, on the card at full width:
+Serves every architecture (``configs.get_config``): ``llama-3.2-1b``
+(the default), the ``zamba2-1.2b`` hybrid, the MoE ``mixtral-8x7b``,
+``xlstm-125m`` and the others.  A config with cross blocks gets the
+reference's zero modality stub: (B, n_vision_tokens, d) vision tokens for
+``llama-3.2-vision-90b``, (B, 2P, d) frames for ``whisper-large-v3``, in
+bf16, read by the prefill (the cross K/V then sit in the cache for every
+decode step).  Examples, on the card at full width:
   PYTHONPATH=src python -m repro_torch.launch.serve --preset full \
       --batch 16 --prompt-len 128 --max-new 128
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
@@ -37,6 +41,17 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def modality_stub(cfg, batch: int, prompt_len: int, device):
+    """The reference's serving stub for a config with cross blocks (zeros
+    in bf16), else None."""
+    key = transformer.stub_key(cfg)
+    if key is None:
+        return None
+    n = cfg.n_vision_tokens if key == "vision" else 2 * prompt_len
+    return {key: torch.zeros((batch, n, cfg.d_model), dtype=torch.bfloat16,
+                             device=device)}
+
+
 def main(argv=None) -> torch.Tensor:
     """Parse ``argv`` (default: the command line), serve one batch, print
     timings; returns the generated tokens (B, max_new)."""
@@ -59,10 +74,11 @@ def main(argv=None) -> torch.Tensor:
     params = transformer.init_params(cfg, generator=gen, device=dev)
     b, p = args.batch, args.prompt_len
     prompt = torch.randint(0, cfg.vocab, (b, p), generator=gen, device=dev)
+    aux = modality_stub(cfg, b, p, dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = transformer.prefill(cfg, params, prompt,
+    logits, cache = transformer.prefill(cfg, params, prompt, aux,
                                         cache_len=p + args.max_new)
     _sync(dev)
     t_prefill = time.perf_counter() - t0

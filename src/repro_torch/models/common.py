@@ -64,11 +64,18 @@ def linear(p: Param, x: torch.Tensor, *, lora_alpha: float = 32.0
            ) -> torch.Tensor:
     """x @ w (+ LoRA path).  x: (..., din) -> (..., dout).
 
-    The LoRA product runs in f32, is cast to the base output's dtype, and
-    only then scaled by ``lora_alpha / r``; ``lora_alpha`` is 32 whatever
-    ``cfg.lora.alpha`` says, as in the reference.
+    Operands of two dtypes are promoted as JAX promotes them (bf16 @ f32
+    runs in f32 and gives f32: the xLSTM gate projections), where
+    ``torch.matmul`` would refuse them; a same-dtype product is left as it
+    is.  The LoRA product runs in f32, is cast to the base output's dtype,
+    and only then scaled by ``lora_alpha / r``; ``lora_alpha`` is 32
+    whatever ``cfg.lora.alpha`` says, as in the reference.
     """
-    y = x @ p["w"]
+    w = p["w"]
+    if x.dtype != w.dtype:
+        dtype = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dtype), w.to(dtype)
+    y = x @ w
     if "lora_A" in p:
         r = p["lora_A"].shape[-1]
         z = (x.float() @ p["lora_A"]) @ p["lora_B"]

@@ -12,7 +12,7 @@ fixed weights (``linear_local_step``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,7 +26,8 @@ from repro_torch.train import optim
 
 
 class ClientState(NamedTuple):
-    trainable: object            # LoRA adapters (None slots elsewhere)
+    trainable: object            # LoRA adapters (None slots elsewhere),
+                                 # or every parameter (no adapters)
     critic: dict                 # M linear value heads
     opt: optim.AdamState
     lam: torch.Tensor            # smoothed MGDA weights (M,)
@@ -48,10 +49,13 @@ def init_client_state(trainable, m: int, d_model: int,
 
 
 def firm_local_step(cfg: ModelConfig, fc: FIRMConfig, state: ClientState,
-                    frozen, batch: ppo.PPOBatch, gram_fn=None,
+                    frozen, batch: ppo.PPOBatch,
+                    aux: Optional[dict] = None, gram_fn=None,
                     preference=None, beta=None):
     """One local FIRM update.  Returns (new_state, metrics).
 
+    ``aux`` is the modality stub of a config with cross blocks
+    (``{'vision': ...}`` or ``{'frames': ...}``), read by the forward;
     ``gram_fn`` overrides ``resolve``'s Gram matrix (by default the kernel
     on CUDA); ``preference`` is an (M,) tensor overriding
     ``fc.preference``, which is how the round passes each client its own
@@ -59,7 +63,7 @@ def firm_local_step(cfg: ModelConfig, fc: FIRMConfig, state: ClientState,
     is how a captured update reads it.
     """
     grads, losses, extras = fedcmoo_local_grads(cfg, fc, state, frozen,
-                                                batch)
+                                                batch, aux)
     eta = firm.eta_schedule(state.step + 1) if fc.lambda_smoothing else None
     res = firm.resolve(grads, fc, prev_lam=state.lam, eta=eta,
                        gram_fn=gram_fn, preference=preference, beta=beta)
@@ -87,7 +91,8 @@ def _apply(fc: FIRMConfig, state: ClientState, direction, lam, extras):
 
 
 def fedcmoo_local_grads(cfg: ModelConfig, fc: FIRMConfig,
-                        state: ClientState, frozen, batch: ppo.PPOBatch):
+                        state: ClientState, frozen, batch: ppo.PPOBatch,
+                        aux: Optional[dict] = None):
     """FedCMOO client phase 1 (and the first part of every local step):
     the M gradients the client sends up.
 
@@ -98,7 +103,7 @@ def fedcmoo_local_grads(cfg: ModelConfig, fc: FIRMConfig,
     """
     grads, losses, (metrics, feats, r_tok, _, mask) = \
         ppo.per_objective_grads(cfg, fc, state.trainable, frozen,
-                                state.critic, batch, state.kl_coef)
+                                state.critic, batch, state.kl_coef, aux)
     return grads, losses, (metrics, feats, r_tok, mask)
 
 
@@ -110,12 +115,13 @@ def fedcmoo_local_apply(fc: FIRMConfig, state: ClientState, grads,
 
 
 def linear_local_step(cfg: ModelConfig, fc: FIRMConfig, state: ClientState,
-                      frozen, batch: ppo.PPOBatch, weights: torch.Tensor):
+                      frozen, batch: ppo.PPOBatch, weights: torch.Tensor,
+                      aux: Optional[dict] = None):
     """Fixed-weight linear scalarisation step (the implicit RQ1 baseline):
     ``fedcmoo_local_grads`` then ``fedcmoo_local_apply`` with the constant
     lambda ``weights``.  Returns (new_state, metrics)."""
     grads, losses, extras = fedcmoo_local_grads(cfg, fc, state, frozen,
-                                                batch)
+                                                batch, aux)
     new_state, metrics = fedcmoo_local_apply(fc, state, grads, weights,
                                              extras)
     return new_state, dict(metrics, losses=losses,

@@ -80,11 +80,13 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def multi_objective_losses(cfg: ModelConfig, fc: FIRMConfig, trainable,
-                           frozen, critic, batch: PPOBatch, kl_coef, *,
+                           frozen, critic, batch: PPOBatch, kl_coef,
+                           aux: Optional[dict] = None, *,
                            use_kernel: bool = True):
-    """Stacked (M,) PPO losses + auxiliary outputs (single forward)."""
+    """Stacked (M,) PPO losses + auxiliary outputs (single forward);
+    ``aux`` is the modality stub of a config with cross blocks."""
     params = merge_trainable(trainable, frozen)
-    out = transformer.forward_seq(cfg, params, batch.tokens,
+    out = transformer.forward_seq(cfg, params, batch.tokens, aux,
                                   use_kernel=use_kernel)
     lp = token_logprobs(out["logits"], batch.tokens)
     mask = batch.response_mask
@@ -117,7 +119,8 @@ def multi_objective_losses(cfg: ModelConfig, fc: FIRMConfig, trainable,
 
 
 def per_objective_grads(cfg: ModelConfig, fc: FIRMConfig, trainable, frozen,
-                        critic, batch: PPOBatch, kl_coef, *,
+                        critic, batch: PPOBatch, kl_coef,
+                        aux: Optional[dict] = None, *,
                         use_kernel: bool = True):
     """M gradients of the M losses w.r.t. ``trainable``: one forward, then
     M backward pulls through the one graph.
@@ -131,7 +134,7 @@ def per_objective_grads(cfg: ModelConfig, fc: FIRMConfig, trainable, frozen,
     with torch.enable_grad():
         train = tree_map(lambda t: t.detach().requires_grad_(), trainable)
         losses, extras = multi_objective_losses(
-            cfg, fc, train, frozen, critic, batch, kl_coef,
+            cfg, fc, train, frozen, critic, batch, kl_coef, aux,
             use_kernel=use_kernel)
         leaves = tree_leaves(train)
         grads = []

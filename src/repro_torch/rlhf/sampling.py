@@ -92,11 +92,14 @@ def _check_noise(generator, gumbel) -> None:
 def _generate(cfg: ModelConfig, params, prompt: torch.Tensor, *,
               max_new: int = 32, temperature: float = 1.0,
               generator: Optional[torch.Generator] = None,
-              gumbel: Optional[torch.Tensor] = None):
+              gumbel: Optional[torch.Tensor] = None,
+              aux: Optional[dict] = None):
     """prompt: (B, P) -> (tokens (B, P+max_new), logprobs, mask).
 
     logprobs are the sampling logprobs at generated positions, 0 elsewhere;
-    mask is 1.0 on generated positions.  Tokens are int64.
+    mask is 1.0 on generated positions.  Tokens are int64.  ``aux`` is
+    the modality stub of a config with cross blocks, read by the prefill,
+    which leaves the cross K/V in the cache for every decode step.
 
     As in the reference, the prefill logits are not used: the last prompt
     token is fed again as the first decode input, at position P, so it
@@ -106,7 +109,7 @@ def _generate(cfg: ModelConfig, params, prompt: torch.Tensor, *,
     _check_noise(generator, gumbel)
     prompt = prompt.long()
     b, p = prompt.shape
-    _, cache = transformer.prefill(cfg, params, prompt,
+    _, cache = transformer.prefill(cfg, params, prompt, aux,
                                    cache_len=p + max_new)
     new_toks, new_lps = decode(cfg, params, cache, prompt[:, -1:],
                                max_new=max_new, temperature=temperature,

@@ -23,11 +23,13 @@ memory pool of gigabytes, so no cache outlives its owner).  For a key,
    it and replays it once (the capture ran nothing);
 3. on every later call copies the inputs in, replays, and copies out.
 
-The inputs are the client state (every adapter, Adam's moments and count,
-the critic, lambda, the KL coefficient, the step), the five ``PPOBatch``
-tensors and the algorithm's operands (``firm``'s 0-d beta and the
-client's (M,) preference if it has one, or ``linear``'s weights); the
-outputs are the new state and every metric.  A
+The inputs are the client state (every adapter, or every parameter
+where the model has no adapters, Adam's moments and count, the critic,
+lambda, the KL coefficient, the step), the five ``PPOBatch`` tensors,
+the algorithm's operands (``firm``'s 0-d beta and the client's (M,)
+preference if it has one, or ``linear``'s weights) and the modality
+stub ``aux`` of a config with cross blocks, if any; the outputs are the
+new state and every metric.  A
 whole tree moves by one ``torch._foreach_copy_`` a dtype.  What is handed
 back is fresh tensors: the caller's state is never written (the round's
 clients share the broadcast adapters, which anchor the delta), and a
@@ -36,11 +38,11 @@ tensor handed back does not change at the next replay.
 The key: ``cfg``; ``cfc`` with the fields the step never reads from the
 config fixed (``_UNREAD``), so cohorts of different K, clients of
 different preferences and updates of different beta share one graph; the
-algorithm's ``kernel``; the device; the
-inputs' shapes and dtypes; and ``(data_ptr, shape, stride, dtype)`` of every
-leaf of ``frozen``, which the graph reads where it lay at the capture: a
-new frozen tree is a new capture, while an in-place write to a leaf needs
-none.
+algorithm's ``kernel``; the device; the names of ``aux``'s entries; the
+inputs' shapes and dtypes (an aux of another shape is another key); and
+``(data_ptr, shape, stride, dtype)`` of every leaf of ``frozen``, which
+the graph reads where it lay at the capture: a new frozen tree is a new
+capture, while an in-place write to a leaf needs none.
 
 The kernels' launch counters move for the replays as for the decode graph
 (``kernels.counters``).  No Python garbage collection runs during a
@@ -106,9 +108,10 @@ def _copy(dsts, srcs) -> None:
         torch._foreach_copy_(d, s)
 
 
-def _key(kernel: str, cfg: ModelConfig, cfc: FIRMConfig, inputs, frozen):
+def _key(kernel: str, cfg: ModelConfig, cfc: FIRMConfig, inputs, frozen,
+         aux_names=()):
     return (kernel, cfg, dataclasses.replace(cfc, **_UNREAD),
-            inputs[0].device,
+            inputs[0].device, tuple(aux_names),
             tuple((tuple(t.shape), t.dtype) for t in inputs),
             tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
                   for t in tree_leaves(frozen)))
@@ -134,10 +137,13 @@ class UpdateGraphs:
         self._entries: Dict[tuple, _Entry] = {}
         self.captures = 0
 
-    def graph(self, kernel, cfg, cfc, state, frozen, batch, operands=()):
+    def graph(self, kernel, cfg, cfc, state, frozen, batch, operands=(),
+              aux=None):
         """The graph object these arguments' key holds, or None."""
+        aux = aux or {}
         entry = self._entries.get(_key(
-            kernel, cfg, cfc, self._inputs(state, batch, operands), frozen))
+            kernel, cfg, cfc, self._inputs(state, batch, operands, aux),
+            frozen, sorted(aux)))
         return None if entry is None else entry.graph
 
     def uncaptured(self) -> int:
@@ -145,25 +151,32 @@ class UpdateGraphs:
         return sum(entry.outputs is None for entry in self._entries.values())
 
     @staticmethod
-    def _inputs(state, batch, operands) -> list:
-        return _state_leaves(state) + list(batch) + list(operands)
+    def _inputs(state, batch, operands, aux) -> list:
+        return (_state_leaves(state) + list(batch) + list(operands)
+                + [aux[name] for name in sorted(aux)])
 
     def run(self, kernel: str, step, cfg: ModelConfig, cfc: FIRMConfig,
-            state: ClientState, frozen, batch: PPOBatch, operands=()):
-        """``step(cfg, cfc, state, frozen, batch, operands)`` -> (new
-        state, metrics), through the key's graph.  ``kernel`` names the
-        step program (``Algorithm.kernel``); ``operands`` is the tuple of
-        its tensor operands."""
-        inputs = self._inputs(state, batch, operands)
-        key = _key(kernel, cfg, cfc, inputs, frozen)
+            state: ClientState, frozen, batch: PPOBatch, operands=(),
+            aux=None):
+        """``step(cfg, cfc, state, frozen, batch, operands[, aux=aux])``
+        -> (new state, metrics), through the key's graph.  ``kernel`` names
+        the step program (``Algorithm.kernel``); ``operands`` is the tuple
+        of its tensor operands; ``aux`` the modality stub, a dict of
+        tensors, or None."""
+        aux_names = sorted(aux or {})
+        inputs = self._inputs(state, batch, operands, aux or {})
+        key = _key(kernel, cfg, cfc, inputs, frozen, aux_names)
         entry = self._entries.get(key)
-        n_state = len(inputs) - len(batch) - len(operands)
+        n_state = len(inputs) - len(batch) - len(operands) - len(aux_names)
+        n_ops = n_state + len(batch) + len(operands)
 
         def flat_step(args):
             st = _state_like(state, args[:n_state])
             b = PPOBatch(*args[n_state:n_state + len(batch)])
-            ops = tuple(args[n_state + len(batch):])
-            new_state, metrics = step(cfg, cfc, st, frozen, b, ops)
+            ops = tuple(args[n_state + len(batch):n_ops])
+            kw = ({"aux": dict(zip(aux_names, args[n_ops:]))} if aux_names
+                  else {})
+            new_state, metrics = step(cfg, cfc, st, frozen, b, ops, **kw)
             names = sorted(metrics)
             return (_state_leaves(new_state)
                     + [metrics[k] for k in names]), names

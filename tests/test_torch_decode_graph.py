@@ -49,7 +49,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import counters, ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import attention, common, moe, ssm  # noqa: E402
+from repro_torch.models import attention, common, moe, ssm, xlstm  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.rlhf import sampling  # noqa: E402
 
@@ -396,9 +396,12 @@ def _step_functions():
     path, the sampling and the rmsnorm kernel's dispatch and wrapper."""
     return [sampling._step, rng.gumbel_from_uniform, rng.categorical,
             T.decode_step, T.block_decode, T._slot_params, T._layer,
-            T._check_kinds, T._window, T._ffn, T._ring_positions,
+            T._window, T._ffn, T._ring_positions,
             moe.moe_ffn, moe.capacity, moe._round_up, moe._one_hot,
             attention.decode_attention, ssm.mamba2_decode,
+            xlstm.mlstm_decode, xlstm._mlstm_qkvg, xlstm._mlstm_step,
+            xlstm.slstm_decode, xlstm._slstm_in, xlstm._slstm_step,
+            xlstm._recur,
             ssm._split_proj, ssm.dims, common.linear, common.rms_norm,
             common.swiglu, common.apply_rope, common.rope_freqs,
             common.tree_map, ops.rmsnorm, ops._kernel, rn_mod.rmsnorm,

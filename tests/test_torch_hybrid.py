@@ -43,7 +43,8 @@ from repro.rlhf import ppo as jppo, rewards as jrewards  # noqa: E402
 from repro.rlhf.sampling import generate as jgenerate  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import FIRMConfig, get_config  # noqa: E402
-from repro_torch.fed.engine import FederatedTrainer, rollout_batch  # noqa
+from repro_torch.fed.engine import (EngineConfig, FederatedTrainer,  # noqa
+                                    rollout_batch)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.models import common, ssm, transformer as T  # noqa: E402
@@ -122,13 +123,20 @@ def test_config_reduced_and_param_count_match_reference():
         assert t.param_count() == j.param_count()
     # the reference counts the shared block once per pattern slot
     assert tfull.param_count() == 1_150_912_512
-    # a kind the port does not run yet is counted as the reference counts
-    # it, and refused where the model is built
-    jmlstm, mlstm = (dataclasses.replace(c, pattern=("mamba2", "mlstm"))
-                     for c in (jcfg, tcfg))
+    # a Mamba2 + mLSTM hybrid is counted as the reference counts it, and
+    # built and run as the reference runs it (f32)
+    jmlstm, mlstm = (dataclasses.replace(c, pattern=("mamba2", "mlstm"),
+                                         n_layers=2) for c in (jcfg, tcfg))
     assert mlstm.param_count() == jmlstm.param_count()
-    with pytest.raises(NotImplementedError, match="model-families slice"):
-        T.init_params(mlstm, generator=torch.Generator(), device="cpu")
+    T.init_params(mlstm, generator=torch.Generator(), device="cpu")
+    jtree = jax.tree_util.tree_map(np.asarray, jT.init_params(
+        jmlstm, jax.random.PRNGKey(2), dtype=jnp.float32))
+    tok = _tokens(15, (B, S))
+    want = jT.forward_seq(jmlstm, jax.tree_util.tree_map(jnp.asarray, jtree),
+                          jnp.asarray(tok))["logits"]
+    got = T.forward_seq(mlstm, bridge.to_torch(jtree, device="cpu"),
+                        torch.from_numpy(tok).long())["logits"]
+    np.testing.assert_allclose(_np(got), np.asarray(want), **F32)
 
 
 def test_init_params_layout_matches_reference():
@@ -507,9 +515,12 @@ def test_serve_cli_runs_zamba2_on_the_cpu(capsys):
 
 
 def test_federated_trainer_refuses_a_hybrid_config():
-    """The trainer takes the zamba2 hybrid (training it is held to the JAX
-    package in ``test_torch_hybrid_training.py``) and still refuses a
-    hybrid with a block kind that is not ported (Mamba2 beside mLSTM)."""
+    """(The name is from when the trainer refused a hybrid; it is kept so
+    the test's id stays the same.  What it checks now: the trainer takes
+    hybrids.)  The trainer takes the zamba2 hybrid (training it is held to
+    the JAX package in ``test_torch_hybrid_training.py``) and, every kind
+    being ported, a Mamba2 + mLSTM hybrid too: without adapters every
+    parameter is trainable, and a round runs."""
     _, tcfg = _cfgs()
     tr = FederatedTrainer(tcfg, FIRMConfig(n_clients=2), device="cpu")
     assert tr.d_trainable == sum(
@@ -518,5 +529,11 @@ def test_federated_trainer_refuses_a_hybrid_config():
         tr.global_trainable["slots"]))
     mlstm = dataclasses.replace(tcfg, pattern=("mamba2", "mlstm"),
                                 n_layers=2)
-    with pytest.raises(NotImplementedError, match="model-families slice"):
-        FederatedTrainer(mlstm, FIRMConfig(n_clients=2), device="cpu")
+    tr = FederatedTrainer(mlstm, FIRMConfig(n_clients=2, local_steps=1,
+                                            batch_size=2),
+                          EngineConfig(prompt_len=4, max_new=4),
+                          device="cpu")
+    assert tr.d_trainable == sum(t.numel() for t in
+                                 common.tree_leaves(tr.params))
+    summary = tr.run_round()
+    assert summary["param_drift"] > 0 and np.isfinite(summary["kl"])

@@ -52,7 +52,7 @@ from repro.rlhf import local as jlocal  # noqa: E402
 from repro.rlhf import ppo as jppo, rewards as jrewards  # noqa: E402
 from repro.rlhf.sampling import generate as jgenerate  # noqa: E402
 from repro_torch import bridge, trees  # noqa: E402
-from repro_torch.configs import (FIRMConfig, _CONFIGS,  # noqa: E402
+from repro_torch.configs import (FIRMConfig, list_archs,  # noqa: E402
                                  get_config)
 from repro_torch.fed import api  # noqa: E402
 from repro_torch.fed.engine import EngineConfig, FederatedTrainer  # noqa
@@ -227,7 +227,7 @@ def test_moe_ffn_bf16_by_the_f32_rule():
 
 
 # -------------------------------------------------------------- configs
-@pytest.mark.parametrize("arch", sorted(_CONFIGS))
+@pytest.mark.parametrize("arch", sorted(list_archs()))
 def test_config_and_param_count_match_reference(arch):
     jfull, tfull = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(jfull) == dataclasses.asdict(tfull)

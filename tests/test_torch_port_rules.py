@@ -302,12 +302,31 @@ def test_client_state_round_trips_bit_for_bit():
 
 
 def test_rmsnorm_function_refuses_a_gradient_for_g():
-    """g is frozen on the LoRA path: asked for dg, the backward raises
-    before it launches anything."""
+    """(The name is from when g had no gradient; it is kept so the test's
+    id stays the same.  What it checks now: the backward passes a dg
+    request on to the kernel.)  g is frozen on the LoRA path but trained
+    where a model has no adapters: asked for dg, the backward hands it to
+    the kernel's call (``want_dg``), which takes CUDA tensors only and
+    refuses CPU ones before it launches anything; the plain version's dg is
+    held to JAX's in ``test_torch_xlstm.py``."""
     import types
     from repro_torch.kernels import rmsnorm as rn_mod
-    ctx = types.SimpleNamespace(needs_input_grad=(True, True, False))
-    before = rn_mod.bwd_launches
-    with pytest.raises(NotImplementedError, match="frozen"):
-        rn_mod.RMSNorm.backward(ctx, torch.ones(2, 8))
-    assert rn_mod.bwd_launches == before
+    seen = []
+
+    def spy(x, g, dy, eps=1e-5, *, want_dg=False):
+        seen.append(want_dg)
+        return real(x, g, dy, eps, want_dg=want_dg)
+    real = rn_mod.rmsnorm_bwd
+    rn_mod.rmsnorm_bwd = spy
+    try:
+        for needs_dg in (True, False):
+            ctx = types.SimpleNamespace(
+                needs_input_grad=(True, needs_dg, False), eps=1e-5,
+                saved_tensors=(torch.ones(2, 8), torch.ones(8)))
+            before = rn_mod.bwd_launches
+            with pytest.raises(ValueError, match="CUDA"):
+                rn_mod.RMSNorm.backward(ctx, torch.ones(2, 8))
+            assert rn_mod.bwd_launches == before
+    finally:
+        rn_mod.rmsnorm_bwd = real
+    assert seen == [True, False]
