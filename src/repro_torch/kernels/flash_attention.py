@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, nancheck
+from repro_torch.kernels import build, costs, nancheck
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels each dtype's C entry launches (csrc/flash_attention.cu)
@@ -106,6 +106,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise RuntimeError(
                 f"flash_attention kernel launch failed: CUDA error {err}")
         launches += 1
+        costs.charge("flash_attention", q, k, v, causal=causal,
+                     sliding_window=sliding_window)
         nancheck.check_output("flash_attention", o, lse)
     return (o, lse) if with_lse else o
 
@@ -144,6 +146,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             f"flash_attention backward kernel launch failed: CUDA error {err}")
     bwd_launches += 1
+    costs.charge("flash_attention_bwd", q, k, v, causal=causal,
+                 sliding_window=sliding_window)
     nancheck.check_output("flash_attention_bwd", dq, dk, dv)
     return dq, dk, dv
 

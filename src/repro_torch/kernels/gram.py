@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, nancheck
+from repro_torch.kernels import build, costs, nancheck
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 M_MAX = 8             # the Pallas kernel's M_PAD
@@ -45,5 +45,6 @@ def gram(x: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"gram kernel launch failed: CUDA error {err}")
     launches += 1
+    costs.charge("gram", x)
     nancheck.check_output("gram", g)
     return g

@@ -9,12 +9,21 @@ on a CUDA tensor and raises on anything else.  On CUDA ``rmsnorm``,
 backward runs the backward kernels.  ``use_kernel=False`` forces the
 plain version and exists for the tests and for ``chip_smoke.py``'s
 comparisons; the model's main path never passes it.
+
+A ``meta`` tensor (or a DTensor of meta shards) takes the plain version
+too: it has shapes and no data, as in ``launch.specs``.  Under a
+``launch.hlo_cost`` counter a plain version is one kernel call, charged
+with the card kernel's costs (``kernels.costs``) and its own operations
+left out; the differentiable ones then run as ``_Plain*`` functions whose
+backward is the kernel's plain backward (``ref.*_bwd``), charged the same
+way.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import trees
+from repro_torch.kernels import costs
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import quantize as _q
@@ -24,14 +33,118 @@ from repro_torch.kernels import ssd as _ssd
 
 
 def _kernel(x: torch.Tensor, use_kernel: bool) -> bool:
-    return use_kernel and x.device.type != "cpu"
+    return use_kernel and x.device.type not in ("cpu", "meta")
+
+
+def _flash_layout(q, k, v):
+    """DTensor q, k, v laid out as one flash call a device runs on its
+    shards: batch and heads sharded as q's are, nothing else sharded, and
+    k, v expanded to q's heads where q's head shards would split a GQA
+    group (the plain version's ``repeat_interleave``, done before the
+    split).  Differentiable DTensor operations."""
+    from torch.distributed.tensor import Replicate
+    mesh = q.device_mesh
+    pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+          for p in q.placements]
+    shards = 1
+    for i, p in enumerate(pl):
+        if p.is_shard(2):
+            shards *= mesh.size(i)
+    if k.shape[2] % shards:
+        g = q.shape[2] // k.shape[2]
+        k, v = (t.repeat_interleave(g, dim=2) for t in (k, v))
+    return tuple(t.redistribute(mesh, pl) for t in (q, k, v))
+
+
+def _local(t):
+    """(local tensor, rewrap) of a DTensor; (t, identity) of a tensor."""
+    if not hasattr(t, "to_local"):
+        return t, lambda x: x
+    from torch.distributed.tensor import DTensor
+
+    def wrap(x):
+        return DTensor.from_local(x.contiguous(), t.device_mesh, t.placements,
+                                  run_check=False, shape=t.shape,
+                                  stride=_contiguous_strides(t.shape))
+    return t.to_local(), wrap
+
+
+def _contiguous_strides(shape) -> tuple:
+    out, n = [], 1
+    for size in reversed(shape):
+        out.append(n)
+        n *= size
+    return tuple(reversed(out))
+
+
+class _PlainFlash(torch.autograd.Function):
+    """The plain attention as one counted kernel call, and its gradient as
+    one counted backward call, each on the shards a device holds (a
+    DTensor's local tensors, laid out by ``_flash_layout``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sliding_window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, sliding_window=sliding_window)
+        (ql, wrap), (kl, _), (vl, _) = _local(q), _local(k), _local(v)
+        with costs.call("flash_attention", ql, kl, vl, **ctx.mask) as c:
+            return wrap(c.made(ref.flash_attention(ql, kl, vl, **ctx.mask)))
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        if hasattr(q, "to_local"):
+            do = do.redistribute(q.device_mesh, q.placements)
+        (ql, wq), (kl, wk), (vl, wv) = _local(q), _local(k), _local(v)
+        with costs.call("flash_attention_bwd", ql, kl, vl, **ctx.mask) as c:
+            dq, dk, dv = c.made(ref.flash_attention_bwd(
+                ql, kl, vl, _local(do)[0], **ctx.mask))
+        return wq(dq), wk(dk), wv(dv), None, None
+
+
+class _PlainRMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, eps):
+        ctx.save_for_backward(x, g)
+        ctx.eps = eps
+        with costs.call("rmsnorm", x, g) as c:
+            return c.made(ref.rmsnorm(x, g, eps))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        want_dg = ctx.needs_input_grad[1]
+        with costs.call("rmsnorm_bwd", x, g, want_dg=want_dg) as c:
+            dx = ref.rmsnorm_bwd(x, g, dy, ctx.eps)
+            dg = ref.rmsnorm_dg(x, g, dy, ctx.eps) if want_dg else None
+            c.made(dx if dg is None else (dx, dg))
+        return dx, dg, None
+
+
+class _PlainSSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bmat, cmat, dt, da, chunk):
+        ctx.save_for_backward(x, bmat, cmat, dt, da)
+        ctx.chunk = chunk
+        with costs.call("ssd", x, bmat, cmat, dt, da, chunk=chunk,
+                        return_state=True) as c:
+            return c.made(ref.ssd_chunked(x, bmat, cmat, dt, da, chunk=chunk))
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        saved = ctx.saved_tensors
+        with costs.call("ssd_bwd", *saved, chunk=ctx.chunk) as c:
+            grads = c.made(ref.ssd_chunked_bwd(*saved, dy, dstate,
+                                               chunk=ctx.chunk))
+        return (*grads, None)
 
 
 def gram(x, *, use_kernel: bool = True):
     """(M, d) stacked flat gradients -> (M, M) f32 Gram matrix."""
     if _kernel(x, use_kernel):
         return _gram.gram(x)
-    return ref.gram(x)
+    with costs.call("gram", x) as c:
+        return c.made(ref.gram(x))
 
 
 def gram_from_pytrees(grads, *, use_kernel: bool = True):
@@ -51,6 +164,10 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
     if _kernel(q, use_kernel):
         return _fa.flash_attention(q, k, v, causal=causal,
                                    sliding_window=sliding_window)
+    if costs.counting():
+        if hasattr(q, "to_local"):
+            q, k, v = _flash_layout(q, k, v)
+        return _PlainFlash.apply(q, k, v, causal, sliding_window)
     return ref.flash_attention(q, k, v, causal=causal,
                                sliding_window=sliding_window)
 
@@ -58,6 +175,8 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
 def rmsnorm(x, g, eps: float = 1e-5, *, use_kernel: bool = True):
     if _kernel(x, use_kernel):
         return _rn.rmsnorm(x, g, eps)
+    if costs.counting():
+        return _PlainRMSNorm.apply(x, g, eps)
     return ref.rmsnorm(x, g, eps)
 
 
@@ -66,14 +185,16 @@ def quantize(x2, bits, qmax: int = 127, *, use_kernel: bool = True):
     scales)."""
     if _kernel(x2, use_kernel):
         return _q.quantize(x2, bits, qmax)
-    return ref.quantize(x2, bits, qmax)
+    with costs.call("quantize", x2, bits) as c:
+        return c.made(ref.quantize(x2, bits, qmax))
 
 
 def dequantize(codes, scales, *, use_kernel: bool = True):
     """(R, 1024) int8 codes, (R, 1) scales -> (R, 1024) f32."""
     if _kernel(codes, use_kernel):
         return _q.dequantize(codes, scales)[0]
-    return ref.dequantize(codes, scales)
+    with costs.call("dequantize", codes, scales) as c:
+        return c.made(ref.dequantize(codes, scales))
 
 
 def dequantize_with_residual(codes, scales, adj, *, use_kernel: bool = True):
@@ -81,8 +202,9 @@ def dequantize_with_residual(codes, scales, adj, *, use_kernel: bool = True):
     scale`` rounded once, in one launch on CUDA: (decoded, residual)."""
     if _kernel(codes, use_kernel):
         return _q.dequantize(codes, scales, adj)
-    return (ref.dequantize(codes, scales),
-            ref.dequantize_residual(codes, scales, adj))
+    with costs.call("dequantize", codes, scales, adj) as c:
+        return c.made((ref.dequantize(codes, scales),
+                       ref.dequantize_residual(codes, scales, adj)))
 
 
 def _thresh(x2, thresh) -> torch.Tensor:
@@ -97,14 +219,16 @@ def abs_threshold_count(x2, thresh, *, use_kernel: bool = True):
     threshold -> 0-d, or (C, R, 1024) with (C,) thresholds -> (C,)."""
     if _kernel(x2, use_kernel):
         return _q.abs_threshold_count(x2, _thresh(x2, thresh))
-    return ref.abs_threshold_count(x2, thresh)
+    with costs.call("abs_threshold_count", x2, _thresh(x2, thresh)) as c:
+        return c.made(ref.abs_threshold_count(x2, thresh))
 
 
 def abs_threshold_mask(x2, thresh, *, use_kernel: bool = True):
     """``x`` where ``|x| >= thresh``, else +0.0; shapes as the count's."""
     if _kernel(x2, use_kernel):
         return _q.abs_threshold_mask(x2, _thresh(x2, thresh))
-    return ref.abs_threshold_mask(x2, thresh)
+    with costs.call("abs_threshold_mask", x2, _thresh(x2, thresh)) as c:
+        return c.made(ref.abs_threshold_mask(x2, thresh))
 
 
 def topk_threshold(x2, k: int, iters: int = 32, *, use_kernel: bool = True):
@@ -143,5 +267,8 @@ def ssd_scan(x, bmat, cmat, dt, da, *, chunk: int = 128,
     if _kernel(x, use_kernel):
         return _ssd.ssd_scan_trainable(x, bmat, cmat, dt, da, chunk=chunk,
                                        return_state=return_state)
-    y, state = ref.ssd_chunked(x, bmat, cmat, dt, da, chunk=chunk)
+    if costs.counting():
+        y, state = _PlainSSD.apply(x, bmat, cmat, dt, da, chunk)
+    else:
+        y, state = ref.ssd_chunked(x, bmat, cmat, dt, da, chunk=chunk)
     return (y, state) if return_state else y

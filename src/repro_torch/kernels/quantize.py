@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, nancheck
+from repro_torch.kernels import build, costs, nancheck
 
 BLOCK = 1024          # elements per row: one scale each
 
@@ -62,6 +62,7 @@ def quantize(x: torch.Tensor, bits: torch.Tensor, qmax: int = 127):
     if err:
         raise RuntimeError(f"quantize kernel launch failed: CUDA error {err}")
     quantize_launches += 1
+    costs.charge("quantize", x, bits)
     nancheck.check_output("quantize", scales)
     return codes, scales
 
@@ -100,6 +101,7 @@ def dequantize(codes: torch.Tensor, scales: torch.Tensor,
         raise RuntimeError(f"dequantize kernel launch failed: CUDA error "
                            f"{err}")
     dequantize_launches += 1
+    costs.charge("dequantize", codes, scales, adj)
     nancheck.check_output("dequantize", out, residual)
     return out, residual
 
@@ -144,6 +146,7 @@ def abs_threshold_count(x: torch.Tensor, thresh: torch.Tensor):
         raise RuntimeError(f"threshold count kernel launch failed: CUDA "
                            f"error {err}")
     threshold_count_launches += 1
+    costs.charge("abs_threshold_count", x, thresh)
     return out
 
 
@@ -160,4 +163,5 @@ def abs_threshold_mask(x: torch.Tensor, thresh: torch.Tensor):
         raise RuntimeError(f"threshold mask kernel launch failed: CUDA "
                            f"error {err}")
     threshold_mask_launches += 1
+    costs.charge("abs_threshold_mask", x, thresh)
     return out

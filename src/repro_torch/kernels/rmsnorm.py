@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, nancheck
+from repro_torch.kernels import build, costs, nancheck
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,6 +61,7 @@ def rmsnorm_fwd(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-5
     if err:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
     launches += 1
+    costs.charge("rmsnorm", x, g)
     nancheck.check_output("rmsnorm", y)
     return y
 
@@ -93,6 +94,7 @@ def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor,
         raise RuntimeError(
             f"rmsnorm backward kernel launch failed: CUDA error {err}")
     bwd_launches += 1
+    costs.charge("rmsnorm_bwd", x, g, want_dg=want_dg)
     nancheck.check_output("rmsnorm_bwd", dx)
     if want_dg:
         nancheck.check_output("rmsnorm_bwd", dg)

@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, nancheck
+from repro_torch.kernels import build, costs, nancheck
 
 CHUNK = 128          # cfg.ssm_chunk of every config
 HEAD_DIM = 64        # cfg.ssm_head_dim of every config
@@ -104,6 +104,8 @@ def ssd_scan(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     if err:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     launches += 1
+    costs.charge("ssd", x, bmat, cmat, dt, da, chunk=chunk,
+                 return_state=return_state)
     nancheck.check_output("ssd", y, state if return_state else None)
     return (y, state) if return_state else y
 
@@ -156,6 +158,7 @@ def ssd_scan_bwd(x: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
         raise RuntimeError(
             f"ssd backward kernels' launch failed: CUDA error {err}")
     bwd_launches += 1
+    costs.charge("ssd_bwd", x, bmat, cmat, dt, da, chunk=chunk)
     nancheck.check_output("ssd_bwd", dx, dbm, dcm, ddt, dda)
     return dx, dbm, dcm, ddt, dda
 

@@ -426,7 +426,8 @@ def decode_step(cfg: ModelConfig, params, cache, token: torch.Tensor):
 # ================================================================== prefill
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, aux=None, *,
-            cache_len: Optional[int] = None, cache_dtype=torch.bfloat16):
+            cache_len: Optional[int] = None, cache_dtype=torch.bfloat16,
+            lay_out=None):
     """Run the sequence forward AND build a decode cache.
 
     Returns (logits (B, S, V), cache).  cache_len defaults to S.  ``aux``
@@ -434,7 +435,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, aux=None, *,
     the exact final states of the sequence scan; a cross slot its cross
     K/V whole.  An attention slot of C slots takes the last min(S, C)
     positions: at slots 0.. or, for a window slot with C <= S, in the
-    ring layout (position p at slot p % C).
+    ring layout (position p at slot p % C).  ``lay_out``, when given, maps
+    the fresh cache to the one that is filled (the caller's layout of it).
     """
     b, s = tokens.shape
     cache_len = cache_len or s
@@ -443,6 +445,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, aux=None, *,
     cache = init_cache(cfg, b, cache_len, device=tokens.device,
                        dtype=cache_dtype,
                        n_cross=0 if cross is None else cross.shape[1])
+    if lay_out is not None:
+        cache = lay_out(cache)
     for i, kind in enumerate(cfg.pattern):
         piece, kv = cache["slots"][str(i)], out["kv"][str(i)]
         if kind in RECURRENT_KINDS:
