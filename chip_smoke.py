@@ -18,18 +18,24 @@ line, for a first check of new kernels):
             bit); the dry-run's steps at full width with the batch cut
             (each cut reckoned first): ``train_4k``'s step at 2 x 4096,
             ``prefill_32k``'s at 2 x 32768, ``decode_32k``'s serve step at
-            B = 32 against a full cache at position 32767, and the
-            two-pod round (K = 2, 1 x 4096 a pod) whose trainables equal
-            bit for bit across pods and the mean of each pod's solo steps,
-            under the cost counter, which sees FedAvg's all-reduces
-            (13,631,488 bytes) and nothing else over 'pod'; the kernels'
+            B = 32 against a full cache at position 32767, again on the
+            same cache as DTensors laid out as a 16x16 mesh lays it out
+            (slots on 'model', one shard a dim: the shard-local write and
+            the softmax's all-reduces; logits and writes bit for bit the
+            plain step's), the two-pod round (K = 2, 1 x 4096 a pod) whose
+            trainables equal bit for bit across pods and the mean of each
+            pod's solo steps, under the cost counter, which sees FedAvg's
+            all-reduces (``fedavg_collective``, 13,631,488 bytes) and
+            nothing else over 'pod', ``generate_stacked`` (2 clients x 16
+            x 128, each client bit for bit its own ``generate``); the kernels'
             step against the plain versions' at 2 layers and B = 3 (the
             batch's logprobs the model's own; losses, the Gram, the
             trainables' change, lambda over the curvature); the flash kernel at S = 32768 on its last 256
             rows against the plain version, timed beside SDPA; each step's
             seconds (first and second call) and peak memory. The
             llama-3.2-1b dry-run runs beside the later phases in a
-            subprocess and is read before the result lines.
+            subprocess and is read before the result lines: every pair
+            ``ok`` but ``long_500k`` (``skipped``), on any torch.
 3. rmsnorm: the CUDA kernel against its plain PyTorch version at the
             rollout's shapes, then timed beside ``F.rms_norm``.
 4. flash:   the CUDA flash-attention kernel against its plain version
@@ -486,30 +492,6 @@ PHASES = ("device", "build", "launch", "rmsnorm", "flash", "gram", "quantize",
 # gradient's sign, so a scaled gradient shows in the Gram, not the change).
 GRAM_REL, UPDATE_COS, UPDATE_REL = 1e-2, 0.9, 0.5
 
-# The llama-3.2-1b dry-run pairs that DTensor is known to refuse, by torch
-# version: (shape, mesh) -> the text its record's error or trace holds
-# (the operation, or DTensor's function that failed).  A version reads
-# the table of the newest version at or below it; an error outside that
-# table, or at a version older than all, fails the script.
-DRYRUN_KNOWN_ERRORS = {
-    (2, 11): {
-        # F.pad of the sharded token_logprobs: an IndexError in DTensor's
-        # greedy redistribution planner
-        ("train_4k", "16x16"): "generate_greedy_transform_infos",
-        ("train_4k", "2x16x16"): "generate_greedy_transform_infos",
-        # the embedding lookup with tokens on ('pod', 'data')
-        ("prefill_32k", "2x16x16"): "aten.index.Tensor",
-        ("decode_32k", "16x16"): "aten.index_copy_",
-        ("decode_32k", "2x16x16"): "aten.index_copy_",
-    },
-    (2, 13): {
-        # the decode step's slot write on cache_shardings' sequence-sharded
-        # K/V (launch.steps refuses it: DTensor relabels the cache)
-        ("decode_32k", "16x16"): "aten.index_copy_",
-        ("decode_32k", "2x16x16"): "aten.index_copy_",
-    },
-}
-
 # flash-attention cases: (label, (b, sq, skv, hq, hkv, dh), dtype, causal,
 # window).  The forward runs FLASH_CASES, FLASH_EDGE_CASES and
 # FLASH_D128_CASES, the backward FLASH_BWD_CASES, FLASH_EDGE_CASES and
@@ -688,6 +670,7 @@ def run(torch, stop_after, children: list) -> int:
 
     import numpy as np
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
 
     dev = torch.device("cuda")
     F = torch.nn.functional
@@ -1755,13 +1738,33 @@ def run(torch, stop_after, children: list) -> int:
     emit(phase="launch", step="prefill", **launch_rec["prefill"])
     del prefill_tokens
     release_m()
-    # decode_32k: one step against a full cache drawn from the generator
+    # decode_32k: one step against a full cache drawn from the generator;
+    # then the same step on the same cache laid out as the production
+    # mesh lays it out (cache_shardings of a 16x16 mesh: batch on 'data',
+    # slots on 'model') on the (1, 1) host mesh, as DTensors over the same
+    # storage (a second 34 GB cache does not fit beside the first): its
+    # slot write goes through launch.rules' shard-local write and its
+    # softmax through the all-reduces of the max and the sum, one shard a
+    # dim.  Both steps start from the same cache (the slot they write is
+    # put back between them): the logits, the written slot and each
+    # layer's K and V summed in f64 bit for bit.
     dcache = transformer.init_cache(lcfg, decode_b, s_long, device=dev)
     common.tree_map(lambda t: t.normal_(generator=launch_gen),
                     dcache["slots"])
     dcache["pos"].fill_(s_long - 1)
     dtoken = torch.randint(0, lcfg.vocab, (decode_b, 1), generator=launch_gen,
                            device=dev, dtype=torch.int32)
+    dslot = {n: dcache["slots"]["0"][n][:, :, s_long - 1].clone()
+             for n in ("k", "v")}
+
+    def written():
+        """The slot the step wrote, and each K and V summed in f64."""
+        return ({n: dcache["slots"]["0"][n][:, :, s_long - 1].clone()
+                 for n in ("k", "v")},
+                torch.stack([torch.stack([t.sum(dtype=torch.float64)
+                                          for t in dcache["slots"]["0"][n]])
+                             for n in ("k", "v")]))
+
     (dlogits, dcache), decode_s, decode_peak = peak_run(
         lambda: launch_steps.make_serve_step(lcfg)(lparams, dcache, dtoken))
     check(tuple(dlogits.shape) == (decode_b, lcfg.vocab)
@@ -1769,15 +1772,50 @@ def run(torch, stop_after, children: list) -> int:
           and int(dcache["pos"]) == s_long,
           "launch serve step: logits not finite or the position did not "
           "advance")
-    del dlogits
+    plain_slot, plain_sums = written()
     dcache["pos"].fill_(s_long - 1)
     launch_rec["decode"] = {"batch": decode_b, "seconds_first_call": decode_s,
                             "seconds": warm_s(lambda: launch_steps
                                               .make_serve_step(lcfg)(
                                                   lparams, dcache, dtoken)),
                             "peak_memory_bytes": decode_peak}
-    emit(phase="launch", step="decode", **launch_rec["decode"])
-    del dcache, dtoken
+    for n in ("k", "v"):
+        dcache["slots"]["0"][n][:, :, s_long - 1] = dslot[n]
+    dcache["pos"].fill_(s_long - 1)
+    prod = launch_mesh.AbstractMesh(*launch_mesh.SINGLE_POD)
+    d_sh = launch_sh.tree_map(
+        lambda s_: launch_sh.Sharding(lmesh, s_.spec),
+        launch_sh.cache_shardings(lcfg, dcache, prod, decode_b))
+    dt_cache = launch_sh.tree_map(
+        lambda t, s_: DTensor.from_local(t, lmesh, s_.placements,
+                                         run_check=False), dcache, d_sh)
+    k_pl = dt_cache["slots"]["0"]["k"].placements
+    check(k_pl == (Shard(1), Shard(2)), f"launch: the DTensor cache's K is "
+          f"laid out as {k_pl}, not batch on 'data' and slots on 'model'")
+    (dt_logits, dt_cache), dt_s, dt_peak = peak_run(
+        lambda: launch_steps.make_serve_step(lcfg)(lparams, dt_cache,
+                                                   dtoken))
+    dt_slot, dt_sums = written()
+    same = {"logits": torch.equal(dt_logits.to_local(), dlogits),
+            "written_slot": all(torch.equal(dt_slot[n], plain_slot[n])
+                                for n in ("k", "v")),
+            "cache_sums": torch.equal(dt_sums, plain_sums),
+            "position": int(dt_cache["pos"].to_local()) == s_long}
+    check(all(same.values()) and dt_cache["slots"]["0"]["k"].placements
+          == k_pl, f"launch serve step on the DTensor cache against the "
+          f"plain one: {same}")
+    dt_cache["pos"].to_local().fill_(s_long - 1)
+    launch_rec["decode_dtensor_cache"] = {
+        "placements_k": [str(p_) for p_ in k_pl],
+        "seconds_first_call": dt_s,
+        "seconds": warm_s(lambda: launch_steps.make_serve_step(lcfg)(
+            lparams, dt_cache, dtoken)),
+        "seconds_plain": launch_rec["decode"]["seconds"],
+        "peak_memory_bytes": dt_peak, "bit_for_bit": same}
+    emit(phase="launch", step="decode", **launch_rec["decode"],
+         dtensor_cache=launch_rec["decode_dtensor_cache"])
+    del dlogits, dt_logits, dt_cache, dcache, dtoken, dslot, plain_slot
+    del dt_slot
     release_m()
     # the two-pod round: K = 2 steps a pod, FedAvg over the pod group (the
     # world-1 group: both pods are on this card), under the cost counter
@@ -1836,6 +1874,46 @@ def run(torch, stop_after, children: list) -> int:
         "gram")), f"launch: a kernel of the path did not launch: "
         f"{path_launches}")
     launch_rec["launches"] = path_launches
+
+    # generate_stacked: 2 clients (the second's adapters moved) x 16
+    # prompts of 128 tokens, 128 new tokens, one generator each; each
+    # client's rows equal its own generate given a generator of the same
+    # seed: tokens, logprobs and mask bit for bit
+    gs_clients, gs_b, gs_p, gs_new = 2, 16, 128, 128
+    moved = common.tree_map(lambda t: t + 0.01 * torch.randn(
+        t.shape, generator=launch_gen, device=dev, dtype=t.dtype), ltrain)
+    gs_params = [lparams, common.merge_trainable(moved, lfrozen)]
+    gs_stacked = launch_sh.tree_map(lambda *ts: torch.stack(ts), *gs_params)
+    gs_prompts = torch.randint(0, lcfg.vocab, (gs_clients, gs_b, gs_p),
+                               generator=launch_gen, device=dev)
+
+    def gs_gens():
+        return [torch.Generator(device=dev).manual_seed(300 + c)
+                for c in range(gs_clients)]
+    zero_counts()
+    gs_out, gs_s = wall(lambda: sampling.generate_stacked(
+        lcfg, gs_stacked, gs_prompts, max_new=gs_new, generators=gs_gens()))
+    gs_launches = read_counts()
+    gs_same = []
+    for c, g_ in enumerate(gs_gens()):
+        one = generate(lcfg, gs_params[c], gs_prompts[c], max_new=gs_new,
+                       generator=g_)
+        gs_same.append(all(torch.equal(a, b_[c]) for a, b_ in
+                           zip(one, gs_out)))
+    check(tuple(gs_out[0].shape) == (gs_clients, gs_b, gs_p + gs_new)
+          and all(gs_same) and gs_launches["flash_attention"] > 0
+          and gs_launches["rmsnorm"] > 0,
+          f"launch generate_stacked: shape {tuple(gs_out[0].shape)}, each "
+          f"client's generate bit for bit {gs_same}, launches "
+          f"{gs_launches}")
+    launch_rec["generate_stacked"] = {
+        "clients": gs_clients, "batch": gs_b, "prompt_len": gs_p,
+        "max_new": gs_new, "seconds": gs_s, "launches": gs_launches,
+        "clients_bit_for_bit_generate": gs_same}
+    emit(phase="launch", step="generate_stacked",
+         **launch_rec["generate_stacked"])
+    del moved, gs_params, gs_stacked, gs_prompts, gs_out, one
+    release_m()
 
     # the kernels' step against the plain versions' on the same inputs,
     # at 2 of the 16 layers and B = 3 (the plain attention holds 32 x
@@ -5788,35 +5866,21 @@ def run(torch, stop_after, children: list) -> int:
     records = (json.loads(dryrun_file.read_text())
                if dryrun_file.exists() else [])
     # every pair recorded: long_500k skipped (llama is full attention),
-    # the others ok, or an error that this torch version's table of known
-    # refusals lists with the text its record holds
+    # the others ok, whatever the torch version
     statuses = {(r["shape"], r["mesh"]): r["status"] for r in records}
-    version = tuple(int(v) for v in re.findall(
-        r"\d+", torch.__version__)[:2])
-    table_at = max((v for v in DRYRUN_KNOWN_ERRORS if v <= version),
-                   default=None)
-    known = DRYRUN_KNOWN_ERRORS.get(table_at, {})
-    unknown = {(r["shape"], r["mesh"]): r.get("error", "")[:300]
-               for r in records if r["status"] == "error"
-               and known.get((r["shape"], r["mesh"]), "\0") not in
-               r.get("error", "") + r.get("trace", "")}
-    check(sorted(statuses) == sorted(
-        (shape, mesh) for shape in INPUT_SHAPES
-        for mesh in ("16x16", "2x16x16"))
-        and all(statuses[("long_500k", m)] == "skipped"
-                for m in ("16x16", "2x16x16"))
-        and not unknown
-        and dryrun_proc.returncode == (0 if all(
-            st != "error" for st in statuses.values()) else 1),
-        f"launch dry-run (torch {torch.__version__}, known refusals of "
-        f"{table_at}): exit {dryrun_proc.returncode}, {statuses}, errors "
-        f"outside the table {unknown}; its output ends "
-        f"{dryrun_log[-2000:]}")
+    want_statuses = {(shape, mesh): "skipped" if shape == "long_500k"
+                     else "ok" for shape in INPUT_SHAPES
+                     for mesh in ("16x16", "2x16x16")}
+    errors = {(r["shape"], r["mesh"]): r.get("error", "")[:300]
+              for r in records if r["status"] == "error"}
+    check(statuses == want_statuses and dryrun_proc.returncode == 0,
+          f"launch dry-run (torch {torch.__version__}): exit "
+          f"{dryrun_proc.returncode}, {statuses}, errors {errors}; its "
+          f"output ends {dryrun_log[-2000:]}")
     for r in records:
         r.pop("trace", None)
     emit(phase="launch_dryrun", seconds=dryrun_s, torch=torch.__version__,
-         known_errors_table=".".join(map(str, table_at)) if table_at
-         else None, known_errors=[list(k) for k in known], records=records)
+         records=records)
     dryrun_file.unlink()
     os.rmdir(dryrun_dir)
 

@@ -12,8 +12,10 @@ Spec grammar, as the reference's:  [delta+]<name>[:<arg>][+ef]
     delta+...           the delta against the last round's reconstruction
                         (a downlink codec); wraps the rest of the spec
 
-``:det`` rounds to nearest instead of stochastically.  A name the
-reference does not know raises, and so does ``identity+ef``.
+``:det`` rounds to nearest instead of stochastically.  An unknown name
+raises, and so does ``identity+ef``.  ``register(name)`` adds a user
+codec: a decorator of a factory ``(arg: str) -> Codec``, after which the
+name resolves as the built-ins do (``+ef`` and ``delta+`` included).
 """
 from __future__ import annotations
 
@@ -30,6 +32,15 @@ _FACTORIES = {
     "topk": lambda arg: TopKCodec(frac=float(arg or 0.05)),
     "lowrank": lambda arg: LowRankCodec(rank=int(arg or 4)),
 }
+
+
+def register(name: str):
+    """Decorator: ``@register("mycodec")`` over a factory ``(arg: str) ->
+    Codec`` makes ``"mycodec[:arg][+ef]"`` a codec spec."""
+    def deco(factory):
+        _FACTORIES[name] = factory
+        return factory
+    return deco
 
 
 def available() -> tuple:

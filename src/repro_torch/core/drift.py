@@ -1,6 +1,7 @@
-"""Disagreement drift diagnostics of the round summary (counterpart of
-``repro.core.drift``: ``lambda_disagreement``, ``param_drift`` and
-``param_drift_stacked``; the Lemma F.6 checks are not ported yet)."""
+"""Multi-objective disagreement drift diagnostics (counterpart of
+``repro.core.drift``): ``lambda_disagreement``, ``param_drift`` and
+``param_drift_stacked`` of the round summary, and the empirical check of
+the paper's Lemma F.6 (``gradient_bound_R``, ``lemma_f6_check``)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -24,6 +25,35 @@ def lambda_disagreement(lams: torch.Tensor) -> dict:
         "pairwise_max": off.max() if off.numel() else zero,
         "to_mean": torch.sqrt(((lams - lams.mean(0)) ** 2).sum(-1)).mean(),
     }
+
+
+def _tree_norm(tree) -> torch.Tensor:
+    """The L2 norm of a tree's leaves taken together."""
+    return torch.sqrt(sum(torch.sum(t * t) for t in trees.tree_leaves(tree)))
+
+
+def gradient_bound_R(grads: Sequence) -> torch.Tensor:
+    """R = max_j ||g_j||_2 over the objectives' gradient trees (the
+    empirical stand-in of Lemma F.5's bound)."""
+    return torch.max(torch.stack([_tree_norm(g) for g in grads]))
+
+
+def lemma_f6_check(grads_c: Sequence, grads_c2: Sequence,
+                   lam_c: torch.Tensor, lam_c2: torch.Tensor,
+                   beta: float) -> dict:
+    """Empirical check of Lemma F.6,
+    ||lambda*_c - lambda*_c'|| <= (4 R M / beta) max_j ||g_j^c - g_j^c'||,
+    for two clients' M gradient trees and MGDA weights: ``lhs``, ``rhs``,
+    ``R`` and ``max_grad_diff``, as the reference's (raw gradients; the
+    trace normalisation of App. A is not applied)."""
+    m = len(grads_c)
+    r = torch.maximum(gradient_bound_R(grads_c), gradient_bound_R(grads_c2))
+    max_diff = torch.max(torch.stack([
+        _tree_norm(trees.tree_map(lambda a, b: a - b, gc, gc2))
+        for gc, gc2 in zip(grads_c, grads_c2)]))
+    lhs = torch.linalg.vector_norm(lam_c - lam_c2)
+    rhs = (4.0 * r * m / beta) * max_diff
+    return {"lhs": lhs, "rhs": rhs, "R": r, "max_grad_diff": max_diff}
 
 
 def _flat(tree) -> torch.Tensor:

@@ -1,13 +1,57 @@
-"""FedAvg aggregation over a stacked client axis (counterpart of
-``repro.core.fedavg``; ``fedavg_collective`` waits for the multi-card
-slice)."""
+"""FedAvg aggregation (counterpart of ``repro.core.fedavg``): over a list
+of client trees (``fedavg``, ``fedavg_weighted``), over a stacked client
+axis (``fedavg_stacked``, ``fedavg_flat_weighted``), and across ranks
+(``fedavg_collective``: one all-reduce a leaf over a process group, the
+reference's ``pmean`` over the 'pod' axis).
+"""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 
 from repro_torch import trees
+
+
+def fedavg(tree_list: Sequence):
+    """theta <- (1/C) sum_c theta_c over a list of client trees (summed
+    in list order, then divided)."""
+    out = tree_list[0]
+    for t in tree_list[1:]:
+        out = trees.tree_map(lambda a, b: a + b, out, t)
+    return trees.tree_map(lambda a: a / len(tree_list), out)
+
+
+def fedavg_weighted(tree_list: Sequence, weights: Sequence[float]):
+    """sum_c w_c theta_c with the weights normalised to sum to 1 (f32)."""
+    leaf = trees.tree_leaves(tree_list[0])[0]
+    w = torch.as_tensor(weights, dtype=torch.float32, device=leaf.device)
+    w = w / w.sum()
+    out = trees.tree_map(lambda a: a * w[0], tree_list[0])
+    for i, t in enumerate(tree_list[1:], start=1):
+        out = trees.tree_map(lambda a, b: a + b * w[i], out, t)
+    return out
+
+
+def fedavg_collective(tree, group=None, *, mesh=None, dim: str = "pod",
+                      count: Optional[int] = None):
+    """The mean of ``tree`` over the ranks of a process group: one
+    all-reduce (sum) of each leaf, then a division by ``count``.
+
+    The group is ``group`` (the default group when neither it nor
+    ``mesh`` is given) or ``mesh``'s group over its dim ``dim`` (a
+    ``DeviceMesh``).  ``count`` is the number of clients the sum holds,
+    the group's size unless a rank's tree is already the sum of several.
+    Plain tensors only; ``launch.steps`` hands a DTensor's shard.  This
+    is the only cross-pod communication a FIRM round emits.
+    """
+    if group is None:
+        group = mesh.get_group(dim) if mesh is not None else dist.group.WORLD
+    n = dist.get_world_size(group) if count is None else count
+    return trees.tree_map(
+        lambda x: funcol.all_reduce(x, "sum", group) / n, tree)
 
 
 def stack_trees(tree_list: Sequence):

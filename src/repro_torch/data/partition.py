@@ -52,6 +52,14 @@ def dirichlet_topic_mixtures(n_clients: int, alpha: float = 0.3,
     return g / g.sum(-1, keepdim=True)
 
 
+def heterogeneity_stat(mixtures: torch.Tensor) -> torch.Tensor:
+    """Mean total-variation distance of the clients' mixtures (C, T) from
+    the global mixture: an empirical proxy for the paper's zeta
+    (Assumption 4.4)."""
+    g = mixtures.mean(0)
+    return 0.5 * torch.abs(mixtures - g).sum(-1).mean()
+
+
 def make_client_datasets(n_clients: int, vocab: int, prompt_len: int,
                          alpha: float = 0.3, *, generator: torch.Generator,
                          device="cuda"):

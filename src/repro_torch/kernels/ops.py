@@ -11,7 +11,9 @@ plain version and exists for the tests and for ``chip_smoke.py``'s
 comparisons; the model's main path never passes it.
 
 A ``meta`` tensor (or a DTensor of meta shards) takes the plain version
-too: it has shapes and no data, as in ``launch.specs``.  Under a
+too: it has shapes and no data, as in ``launch.specs``.  A CUDA DTensor
+runs the kernel on the shard each device holds: ``rmsnorm`` with the
+rows whole (the launch steps' serve step on a laid-out cache).  Under a
 ``launch.hlo_cost`` counter a plain version is one kernel call, charged
 with the card kernel's costs (``kernels.costs``) and its own operations
 left out; the differentiable ones then run as ``_Plain*`` functions whose
@@ -172,8 +174,25 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                                sliding_window=sliding_window)
 
 
+def _rmsnorm_shards(x, g, eps: float):
+    """The kernel on the shard of a CUDA DTensor ``x`` that a device
+    holds, with its rows whole (the last dim gathered where it is
+    sharded, a Partial sum reduced) and ``g`` whole; the result laid out
+    as ``x`` then is."""
+    from torch.distributed.tensor import Replicate
+    last = x.ndim - 1
+    x = x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() or p.is_shard(last) else p
+        for p in x.placements))
+    g = g.full_tensor() if hasattr(g, "full_tensor") else g
+    xl, wrap = _local(x)
+    return wrap(_rn.rmsnorm(xl.contiguous(), g, eps))
+
+
 def rmsnorm(x, g, eps: float = 1e-5, *, use_kernel: bool = True):
     if _kernel(x, use_kernel):
+        if hasattr(x, "to_local"):
+            return _rmsnorm_shards(x, g, eps)
         return _rn.rmsnorm(x, g, eps)
     if costs.counting():
         return _PlainRMSNorm.apply(x, g, eps)

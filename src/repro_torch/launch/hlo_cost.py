@@ -15,7 +15,9 @@ device runs, with the reference's conventions:
   bytes  : operands + results of every operation but the views and the
            allocations; an in-place update (index_copy_, index_put_,
            copy_ into a slice, slice_scatter) counts twice its update,
-           not the buffer it writes into
+           not the buffer it writes into, and a slice at a tensor
+           position (index_select, the reference's dynamic-slice) twice
+           what it takes
   coll   : operand bytes of all-reduce / all-gather / reduce-scatter /
            all-to-all / broadcast, by kind, and by the mesh dims of the
            group it runs over
@@ -44,8 +46,8 @@ import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute", "broadcast")
@@ -86,6 +88,9 @@ _NO_FLOPS = {"_to_copy", "clone", "copy", "copy_", "cat", "stack",
 _UPDATES = {"copy_", "index_copy", "index_copy_", "index_put",
             "index_put_", "slice_scatter", "select_scatter", "scatter_",
             "index_add_"}
+# slices at a position given by a tensor (the reference's dynamic-slice):
+# twice what they take, not the buffer they take it from
+_SLICES = {"index_select"}
 # allocations, host reads and bookkeeping: nothing
 _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided", "_local_scalar_dense", "detach", "alias",
@@ -94,6 +99,95 @@ _FREE = {"empty", "empty_like", "empty_strided", "new_empty",
 
 
 _FAKE = torch._C._TorchDispatchModeKey.FAKE
+_SCALARS = (int, float, bool, str, type(None), torch.dtype, torch.device,
+            torch.layout, torch.memory_format, slice, type(Ellipsis))
+
+
+def _leaves(x, out: list) -> list:
+    """The leaves of an operation's arguments (lists, tuples and dicts of
+    them), in order: what ``torch.utils._pytree.tree_leaves`` gives for
+    them, at a fraction of its cost (the counter walks every
+    operation's)."""
+    if isinstance(x, (list, tuple)):
+        for y in x:
+            _leaves(y, out)
+    elif isinstance(x, dict):
+        for k, y in x.items():
+            out.append(k)
+            _leaves(y, out)
+    else:
+        out.append(x)
+    return out
+
+
+def tree_leaves(tree) -> list:
+    return _leaves(tree, [])
+
+
+def _dtensor_key(func, args, kwargs):
+    """The operation and its operands' specs and metadata (a DTensor's
+    spec and its shard's metadata), or None where an operand is not on
+    ``meta`` or cannot be named."""
+    key = [func]
+    for leaf in tree_leaves((args, kwargs)):
+        if isinstance(leaf, DTensor):
+            local = leaf._local_tensor
+            if local.device.type != "meta":
+                return None
+            key.append((leaf._spec, tuple(local.shape), local.stride(),
+                        local.dtype))
+        elif isinstance(leaf, torch.Tensor):
+            if type(leaf) is not torch.Tensor:
+                return None
+            key.append((tuple(leaf.shape), leaf.stride(), leaf.dtype,
+                        leaf.device))
+        elif isinstance(leaf, _SCALARS):
+            key.append((type(leaf), leaf))
+        else:
+            return None
+    return tuple(key)
+
+
+# operations whose outputs' layouts and costs do not depend on the
+# position they select (a recurrence's step t): the argument left out of
+# their key
+_POSITION_FREE = {torch.ops.aten.select.int: 2,
+                  torch.ops.aten.select_backward.default: 3}
+_FUNCTIONAL: dict = {}
+
+
+def _functional(func) -> bool:
+    """Whether ``func`` returns new tensors and writes none of its
+    operands."""
+    out = _FUNCTIONAL.get(func)
+    if out is None:
+        schema = func._schema
+        out = _FUNCTIONAL[func] = (
+            bool(schema.returns)
+            and all(r.alias_info is None and str(r.type) == "Tensor"
+                    for r in schema.returns)
+            and not any(a.alias_info is not None and a.alias_info.is_write
+                        for a in schema.arguments))
+    return out
+
+
+_VIEWS: dict = {}
+
+
+def _view(func) -> bool:
+    """Whether ``func`` returns views of its operands and writes none."""
+    out = _VIEWS.get(func)
+    if out is None:
+        schema = func._schema
+        out = _VIEWS[func] = (
+            bool(schema.returns)
+            and all(r.alias_info is not None and not r.alias_info.is_write
+                    and str(r.type) == "Tensor" for r in schema.returns)
+            and not any(a.alias_info is not None and a.alias_info.is_write
+                        for a in schema.arguments))
+    return out
+
+
 
 
 def _nbytes(t) -> int:
@@ -127,6 +221,11 @@ class CostCounter(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self._live = {}               # storage key -> [bytes, refs]
+        self._below = False           # a DTensor operation runs below
+        # DTensor operations and rules recorded by ``_memo``: key ->
+        # outputs' specs and shards, what they counted, bytes held (one
+        # counter's: a spec names the mesh of its pair)
+        self._records = {}
         self._dims = {}               # group name -> mesh dims
         if mesh is not None:
             for name in mesh.mesh_dim_names:
@@ -205,6 +304,9 @@ class CostCounter(TorchDispatchMode):
         if name in _UPDATES:
             self.bytes += 2 * sum(_nbytes(t) for t in ins[1:])
             return
+        if name in _SLICES:
+            self.bytes += 2 * sum(_nbytes(t) for t in outs)
+            return
         self.bytes += sum(_nbytes(t) for t in ins)
         if not any(r.alias_info is not None for r in rets):
             self.bytes += sum(_nbytes(t) for t in outs)
@@ -224,10 +326,119 @@ class CostCounter(TorchDispatchMode):
             self.flops += flops
             self.flops_by_op[name] = self.flops_by_op.get(name, 0) + flops
 
+    # ------------------------------------------------ DTensor operations
+    def _totals(self) -> tuple:
+        return (self.flops, self.bytes,
+                {k: dict(v) for k, v in self.collectives.items()},
+                {d: {k: dict(v) for k, v in kinds.items()}
+                 for d, kinds in self.collectives_by_dim.items()},
+                dict(self.flops_by_op), dict(self.kernels))
+
+    def _delta(self, before: tuple) -> tuple:
+        """What was counted since ``_totals()`` returned ``before``:
+        (flops, bytes, ((mesh dims, kind, count, bytes), ...), ((op,
+        flops), ...), ((kernel, calls), ...))."""
+        now = self._totals()
+        colls = tuple(
+            (dim, kind, v["count"] - was.get("count", 0),
+             v["bytes"] - was.get("bytes", 0))
+            for dim, kinds in now[3].items() for kind, v in kinds.items()
+            for was in (before[3].get(dim, {}).get(kind, {}),)
+            if v["count"] != was.get("count", 0))
+        return (now[0] - before[0], now[1] - before[1], colls,
+                tuple((k, v - before[4].get(k, 0)) for k, v in now[4].items()
+                      if v != before[4].get(k, 0)),
+                tuple((k, v - before[5].get(k, 0)) for k, v in now[5].items()
+                      if v != before[5].get(k, 0)))
+
+    def _add(self, delta: tuple) -> None:
+        flops, n_bytes, colls, by_op, kernels = delta
+        self.flops += flops
+        self.bytes += n_bytes
+        for dim, kind, count, n in colls:
+            for rec in (self.collectives[kind],
+                        self.collectives_by_dim.setdefault(dim, {})
+                        .setdefault(kind, {"count": 0, "bytes": 0})):
+                rec["count"] += count
+                rec["bytes"] += n
+        for table, pairs in ((self.flops_by_op, by_op),
+                             (self.kernels, kernels)):
+            for k, v in pairs:
+                table[k] = table.get(k, 0) + v
+
+    def _memo(self, key, run, args):
+        """``run()``, which returns DTensors on meta shards computed from
+        ``args``: run under this counter once for each key, which records
+        what it counted, the tracked bytes it held at its peak and its
+        outputs' specs, shards' metadata and whether each shard is new
+        storage; later calls with the key add the record and return new
+        DTensors of empty meta shards (new storage tracked).  A recurrence
+        of thousands of steps (the sLSTM's) repeats a few dozen keys, and
+        DTensor's dispatch with its redistributions is what such a step
+        costs the host."""
+        entry = self._records.get(key)
+        if entry is not None:
+            specs, delta, held = entry
+            self._add(delta)
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes + held)
+            outs = []
+            for spec, (shape, stride, dtype), new in specs:
+                local = torch.empty_strided(shape, stride, dtype=dtype,
+                                            device="meta")
+                if new:
+                    self._track(local)
+                outs.append(DTensor(local, spec, requires_grad=False))
+            return outs[0] if len(outs) == 1 else tuple(outs)
+        before, live, peak = self._totals(), self.live_bytes, self.peak_bytes
+        self.peak_bytes = live
+        try:
+            out = run()
+        finally:
+            held = self.peak_bytes - live
+            self.peak_bytes = max(peak, self.peak_bytes)
+        if out is None:
+            return None
+        outs = [out] if isinstance(out, torch.Tensor) else list(out)
+        if all(isinstance(t, DTensor) and t._local_tensor.device.type
+               == "meta" for t in outs):
+            held_by_args = {_storage_key(a._local_tensor)
+                            for a in tree_leaves(args)
+                            if isinstance(a, DTensor)}
+            self._records[key] = (
+                [(t._spec, (tuple(t._local_tensor.shape),
+                            t._local_tensor.stride(), t._local_tensor.dtype),
+                  _storage_key(t._local_tensor) not in held_by_args)
+                 for t in outs], self._delta(before), held)
+        return out
+
+    def _dtensor_op(self, func, args, kwargs):
+        """A functional DTensor operation, or a view without autograd
+        (where nothing reads a meta view's aliasing), through ``_memo``;
+        anything else: None."""
+        at = _POSITION_FREE.get(func)
+        named = args if at is None else args[:at] + (None,) + args[at + 1:]
+        key = (_dtensor_key(func, named, kwargs) if _functional(func)
+               or (_view(func) and not torch.is_grad_enabled()) else None)
+        if key is None:
+            return None
+
+        def run():
+            self._below = True
+            try:
+                with self:
+                    return func(*args, **kwargs)
+            finally:
+                self._below = False
+        return self._memo(key, run, (args, kwargs))
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
-            return NotImplemented          # count its local operations
+            if self._below:                # the one ``_dtensor_op`` runs
+                self._below = False
+                return NotImplemented      # count its local operations
+            out = self._dtensor_op(func, args, kwargs)
+            return NotImplemented if out is None else out
         if (torch._C._get_dispatch_mode(_FAKE) is not None
                 or any(issubclass(t, FakeTensor) for t in types)):
             return func(*args, **kwargs)   # sharding propagation's shapes
@@ -262,6 +473,22 @@ class CostCounter(TorchDispatchMode):
                 "flops_by_op": dict(sorted(self.flops_by_op.items(),
                                            key=lambda kv: -kv[1])),
                 "peak_bytes": self.peak_bytes}
+
+
+def memoized(tag: str, fn, *args):
+    """``fn(*args)`` for a layout rule of ``launch.rules`` (DTensors in,
+    DTensors out): with one ``CostCounter`` open and no gradient
+    recorded, through the counter's record of the rule on these
+    operands (``CostCounter._memo``), else as it is."""
+    stack = (_get_current_dispatch_mode_stack()
+             if torch._C._len_torch_dispatch_stack() else [])
+    counters = [m for m in stack if isinstance(m, CostCounter)]
+    if len(counters) != 1 or torch.is_grad_enabled():
+        return fn(*args)
+    key = _dtensor_key(tag, args, {})
+    if key is None:
+        return fn(*args)
+    return counters[0]._memo(key, lambda: fn(*args), args)
 
 
 def analyze(fn, *args, mesh=None, groups=None, **kwargs) -> dict:

@@ -176,28 +176,47 @@ def param_shardings(tree, mesh, *, extra_leading: int = 0,
     return tree_map_with_path(one, tree)
 
 
-def head_split_shardings(cfg: ModelConfig, shardings):
-    """``shardings`` with the wq/wk/wv weights replicated on 'model' where
-    the KV heads do not divide by their 'model' shards.
+def _viewed_heads(cfg: ModelConfig, names) -> int:
+    """The head count by which the model views the output of the
+    projection at ``names`` (its first factor), 0 for any other leaf."""
+    if len(names) < 2 or names[-1] != "w":
+        return 0
+    if names[-2] in ("wq", "wk", "wv"):
+        # attention's q, k, v, the decode step grouped by the KV heads;
+        # the mLSTM's q, k, v (H = Hkv)
+        return cfg.n_kv_heads
+    if names[-2] == "w":
+        # the sLSTM's input projection, whose gate pre-activations meet
+        # the per-head recurrent projection (H, d/H) and its regrouping
+        return cfg.n_heads
+    return 0
 
-    The model views a projection's output (..., H * Dh) as (..., H, Dh),
-    and the decode step groups the query heads by the KV heads (Hkv, G).
-    DTensor takes such a view of a tensor sharded on the split dim only
-    when its first factor divides by the shards; GSPMD, which the
-    reference runs, reshards instead.  So where Hkv does not divide
-    (llama-3.2-1b: 8 KV heads over 16 cards) the port's programs run the
-    three projections whole on every card of the axis, which costs their
-    FLOPs that many times and no collective.  The reference's specs
+
+def head_split_shardings(cfg: ModelConfig, shardings):
+    """``shardings`` with the projections that the model views per head
+    replicated on 'model' where the heads do not divide by their 'model'
+    shards.
+
+    The model views a projection's output (..., H * Dh) as (..., H, Dh):
+    attention's wq/wk/wv (the decode step groups the query heads by the
+    KV heads, (Hkv, G)), the mLSTM's wq/wk/wv, and the sLSTM's input
+    projection ``w``, whose gates feed a state that the recurrent
+    projection views as (H, d / H).  DTensor takes such a view of a
+    tensor sharded on the split dim only when its first factor divides by
+    the shards; GSPMD, which the reference runs, reshards instead.  So
+    where the heads do not divide (llama-3.2-1b: 8 KV heads over 16
+    cards; xlstm-125m: 4 heads) the port's programs run these
+    projections whole on every card of the axis, which costs their FLOPs
+    that many times and no collective.  The reference's specs
     (``param_spec``) stay as they are.
     """
     def one(names, s):
-        if len(names) < 2 or names[-1] != "w" or names[-2] not in (
-                "wq", "wk", "wv"):
+        heads = _viewed_heads(cfg, names)
+        if not heads:
             return s
         out = list(s.spec)
         entry = _names(out[-1])
-        if "model" not in entry or cfg.n_kv_heads % _axes_size(
-                s.mesh, entry) == 0:
+        if "model" not in entry or heads % _axes_size(s.mesh, entry) == 0:
             return s
         rest = tuple(n for n in entry if n != "model")
         out[-1] = (rest if len(rest) > 1 else rest[0]) if rest else None

@@ -14,21 +14,24 @@ Counterpart of ``repro.launch.steps``:
 
 The steps take plain tensors or DTensors.  On DTensors (the dry-run's
 ``meta`` shards on a fake mesh) every operation runs under DTensor's
-sharding rules, and plain tensors made inside the step (masks, positions)
-count as replicated (``implicit_replication``).
+sharding rules, less the few that ``launch.rules.StepRules`` lays out
+itself (the serve step's write into a sequence-sharded cache and the
+softmax over its slots among them), and plain tensors made inside the
+step (masks, positions) count as replicated (``implicit_replication``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.distributed as dist
-import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import FIRMConfig, ModelConfig
-from repro_torch.launch import sharding as sh
+from repro_torch.core import fedavg as fedavg_lib
+from repro_torch.launch import rules, sharding as sh
 from repro_torch.models import transformer
 from repro_torch.rlhf import local as local_lib
 from repro_torch.rlhf.ppo import PPOBatch
@@ -41,9 +44,19 @@ def _small_metrics(m: dict) -> dict:
     return {k: m[k] for k in keep if k in m}
 
 
+def _rules(*trees, decode: bool = False):
+    """``rules.StepRules`` where an input is a DTensor; nothing for plain
+    tensors, which need none of its layouts (and would pay its Python at
+    every call)."""
+    if any(isinstance(t, DTensor) for tree in trees
+           for t in sh.tree_leaves(tree)):
+        return rules.StepRules(decode=decode)
+    return contextlib.nullcontext()
+
+
 def make_train_step(cfg: ModelConfig, fc: FIRMConfig):
     def train_step(state, frozen, batch: PPOBatch, aux=None):
-        with implicit_replication():
+        with implicit_replication(), _rules(state, frozen, batch, aux):
             new_state, metrics = local_lib.firm_local_step(
                 cfg, fc, state, frozen, batch, aux)
         return new_state, _small_metrics(metrics)
@@ -75,7 +88,7 @@ def _cache_layout(tokens):
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(params, tokens, aux=None):
-        with implicit_replication():
+        with implicit_replication(), _rules(params, tokens, aux):
             logits, cache = transformer.prefill(
                 cfg, params, tokens, aux,
                 lay_out=_cache_layout(tokens))
@@ -83,31 +96,10 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def _refuse_sharded_slots(cache):
-    """Raise for a DTensor cache whose K/V slots are sharded.
-
-    The decode step writes the new token's K/V into one slot with
-    ``index_copy_``.  DTensor's ``index_copy_`` on a tensor sharded on the
-    index dim returns it relabelled ``Replicate()`` with its shard
-    unchanged (torch 2.13; the reference's GSPMD program writes the shard
-    that holds the slot), and the step then fails far from the cause.  So
-    ``cache_shardings``' context-parallel layout (slots on 'model') is
-    refused here, before the write.
-    """
-    def one(names, t):
-        if (names[-1] in ("k", "v") and isinstance(t, DTensor)
-                and any(p.is_shard(t.ndim - 3) for p in t.placements)):
-            raise NotImplementedError(
-                f"aten.index_copy_ on the decode cache's {'/'.join(names)}, "
-                f"sharded on its slot dim ({t.placements}): DTensor "
-                "relabels the tensor Replicate() without gathering it")
-    sh.tree_map_with_path(one, cache)
-
-
 def make_serve_step(cfg: ModelConfig):
     def serve_step(params, cache, token):
-        _refuse_sharded_slots(cache)
-        with implicit_replication():
+        with implicit_replication(), _rules(params, cache, token,
+                                            decode=True):
             return transformer.decode_step(cfg, params, cache, token)
     return serve_step
 
@@ -190,20 +182,23 @@ def _from_local(local, mesh, placements, shape):
 
 
 def _fedavg(trees: list, pods: _Pods, n_pods: int):
-    """The mean of every pod's tree, all pods: this rank's sum, one
-    all-reduce of it over the pod group, divided by n_pods."""
-    def one(*leaves):
-        total = leaves[0]
+    """The mean of every pod's tree, all pods: this rank's sum, then
+    ``core.fedavg.fedavg_collective`` over the pod group (one all-reduce
+    a leaf) with the count of every pod; a DTensor leaf hands its shard
+    and is rewrapped as it was laid out."""
+    def total(*leaves):
+        out = leaves[0]
         for t in leaves[1:]:
-            total = total + t
-        if isinstance(total, DTensor):
-            summed = funcol.all_reduce(total.to_local(), "sum", pods.group)
-            total = _from_local(summed, total.device_mesh, total.placements,
-                                tuple(total.shape))
-        else:
-            total = funcol.all_reduce(total, "sum", pods.group)
-        return total / n_pods
-    return sh.tree_map(one, *trees)
+            out = out + t
+        return out
+    summed = sh.tree_map(total, *trees)
+    mean = fedavg_lib.fedavg_collective(
+        sh.tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t,
+                    summed), pods.group, count=n_pods)
+    return sh.tree_map(
+        lambda m, t: _from_local(m, t.device_mesh, t.placements,
+                                 tuple(t.shape))
+        if isinstance(t, DTensor) else m, mean, summed)
 
 
 def make_federated_round(cfg: ModelConfig, fc: FIRMConfig, n_pods: int):
@@ -225,7 +220,8 @@ def make_federated_round(cfg: ModelConfig, fc: FIRMConfig, n_pods: int):
     def federated_round(stacked_state, frozen, stacked_batches, aux=None):
         # aux (modality stubs) is stacked (pods, K, ...) like the batches
         pods = _Pods(stacked_state, n_pods)
-        with implicit_replication():
+        with implicit_replication(), _rules(stacked_state, frozen,
+                                            stacked_batches, aux):
             frozen = sh.tree_map(pods.shared, frozen)
             outs = []
             for i in range(pods.local):

@@ -125,6 +125,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 LORA_KEYS = ("lora_A", "lora_B")
 
 
+def tree_bytes(tree) -> int:
+    """Bytes of a tree's leaves."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def is_lora_path(path) -> bool:
+    """Whether a leaf's path (its dict keys, or key objects with a
+    ``key``, as JAX's paths hold) runs through a LoRA factor."""
+    return any(getattr(k, "key", k) in LORA_KEYS for k in path)
+
+
 def _split(tree, keep_lora: bool, under_lora: bool = False):
     if isinstance(tree, dict):
         return {k: _split(v, keep_lora, under_lora or k in LORA_KEYS)

@@ -128,6 +128,14 @@ def _init_block(kind: str, cfg: ModelConfig, lead: tuple, **kw):
     return p
 
 
+def init_block(kind: str, cfg: ModelConfig, *, generator: torch.Generator,
+               device="cuda", dtype=torch.bfloat16):
+    """One block of ``kind``'s parameters, unstacked, drawn from
+    ``generator`` on ``device`` (the reference's ``init_block``)."""
+    return _init_block(kind, cfg, (), generator=generator,
+                       device=device_lib.resolve(device), dtype=dtype)
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda", dtype=torch.bfloat16):
     """Random parameters drawn from ``generator`` on ``device``.

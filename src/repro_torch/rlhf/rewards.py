@@ -3,14 +3,17 @@
 Helpfulness rewards response tokens inside a "helpful" id band that
 overlaps a "harmful" band, so pushing helpfulness up drags harmlessness
 down; conciseness penalises length beyond a tolerance and rewards distinct
-tokens.  All rewards lie in [0, 1].  The learned reward model arrives with
-a later slice.
+tokens.  All rewards lie in [0, 1].  ``init_learned_rm`` and
+``learned_rm_score`` are the stand-in learned reward model: a frozen mean
+embedding scored by a fixed direction.
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence, Tuple
 
 import torch
+
+from repro_torch import device as device_lib
 
 Band = Tuple[int, int]
 
@@ -87,3 +90,26 @@ def score_batch_banded(helpful, harmful, tokens: torch.Tensor,
             harmlessness_reward(tokens, mask, harmful),
             conciseness_reward(tokens, mask, length_tolerance)]
     return torch.stack(cols[:n_objectives], dim=-1)
+
+
+# ---------------------------------------------------------------- learned RM
+def init_learned_rm(vocab: int, d: int = 64, *, generator: torch.Generator,
+                    device="cuda") -> dict:
+    """A tiny fixed (frozen) scoring head: mean embedding -> scalar, with
+    an arbitrary preference direction (robustness experiments).  f32
+    ``embed`` (vocab, d) ~ N(0, 0.05^2) and ``w`` (d,) ~ N(0, 0.3^2),
+    drawn in that order from ``generator`` on ``device``."""
+    dev = device_lib.resolve(device)
+    embed = torch.randn((vocab, d), generator=generator, device=dev) * 0.05
+    w = torch.randn((d,), generator=generator, device=dev) * 0.3
+    return {"embed": embed, "w": w}
+
+
+def learned_rm_score(p: dict, tokens: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """(B, S) tokens and mask -> (B,) scores in [0, 1]: the sigmoid of the
+    masked mean embedding's product with ``w``."""
+    e = p["embed"][tokens]                                   # (B, S, d)
+    m = mask[..., None]
+    pooled = (e * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+    return torch.sigmoid(pooled @ p["w"])

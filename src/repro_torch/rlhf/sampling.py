@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trees
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import counters
 from repro_torch.models import transformer
@@ -123,6 +124,30 @@ def _generate(cfg: ModelConfig, params, prompt: torch.Tensor, *,
 
 
 generate = jitwatch.wrap("generate", _generate)
+
+
+def generate_stacked(cfg: ModelConfig, params, prompts: torch.Tensor, *,
+                     max_new: int = 32, temperature: float = 1.0,
+                     generators=None, gumbel: Optional[torch.Tensor] = None,
+                     aux: Optional[dict] = None):
+    """C clients' generation over a (C, B, P) block: ``params`` holds the
+    clients' parameters stacked on a leading axis, and client c's rollout
+    is ``generate`` with its parameters, its prompts and its draws (one
+    generator each in ``generators``, or its slice of ``gumbel``, (C,
+    max_new, B, V)).  Returns stacked (C, B, P + max_new) tokens,
+    logprobs and mask.  The reference vmaps one program over the
+    clients; here each client's rollout is its own ``generate`` call (a
+    decode graph of its own on the card).
+    """
+    c = prompts.shape[0]
+    if (generators is None) == (gumbel is None):
+        raise ValueError("pass exactly one of generators= and gumbel=")
+    outs = [generate(cfg, trees.tree_map(lambda t, i=i: t[i], params),
+                     prompts[i], max_new=max_new, temperature=temperature,
+                     generator=None if generators is None else generators[i],
+                     gumbel=None if gumbel is None else gumbel[i], aux=aux)
+            for i in range(c)]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
 
 
 @torch.no_grad()

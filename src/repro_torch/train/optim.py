@@ -1,5 +1,5 @@
-"""Adam with global-norm clipping over parameter trees (counterpart of
-``repro.train.optim``).
+"""Adam with global-norm clipping over parameter trees, plain SGD and a
+cosine learning-rate schedule (counterpart of ``repro.train.optim``).
 
 The state mirrors the parameters: ``mu`` and ``nu`` are f32 trees of the
 same structure (None slots included) and ``count`` an int32 scalar.  The
@@ -8,6 +8,7 @@ its inputs alone.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -70,3 +71,22 @@ def adam_update(grads, state: AdamState, params, *, lr,
     nu = tree_map(lambda t: t[1], flat)
     new_params = tree_map(lambda t: t[2], flat)
     return new_params, AdamState(mu, nu, count), gn
+
+
+def sgd_update(grads, params, *, lr):
+    """theta <- theta - lr g (the update TFIRM analyses), in f32, cast
+    back to each parameter's dtype."""
+    return tree_map(lambda p, g: (p.float() - lr * g.float()).to(p.dtype),
+                    params, grads)
+
+
+def cosine_lr(base_lr: float, warmup: int, total: int):
+    """A function of a step tensor: linear warm-up over ``warmup`` steps,
+    then a cosine decay to 0 at ``total``, in f32."""
+    def fn(step: torch.Tensor) -> torch.Tensor:
+        s = step.float()
+        warm = s / max(warmup, 1)
+        prog = torch.clamp((s - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = 0.5 * (1 + torch.cos(math.pi * prog))
+        return base_lr * torch.where(s < warmup, warm, cos)
+    return fn

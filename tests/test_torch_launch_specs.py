@@ -209,9 +209,10 @@ def test_shardings_equal_the_references(arch, shape_name, mesh_name):
 def test_head_split_shardings_replicate_only_unsplittable_heads(arch,
                                                                mesh_name):
     """``head_split_shardings`` over the train pair's shardings: a wq, wk
-    or wv weight sharded on 'model' loses 'model' exactly when the KV
-    heads do not divide by its shards; every other leaf keeps the
-    reference's spec."""
+    or wv weight, or the sLSTM's input projection ``w``, sharded on
+    'model' loses 'model' exactly when the heads its output is viewed by
+    (the KV heads; the sLSTM's heads) do not divide by its shards; every
+    other leaf keeps the reference's spec."""
     cfg = get_config(arch)
     got, _ = _pair_specs(arch, "train_4k", mesh_name)
     mesh = TMESH[mesh_name]
@@ -220,11 +221,13 @@ def test_head_split_shardings_replicate_only_unsplittable_heads(arch,
                                  mesh, got, mesh_name == "2x16x16",
                                  FIRMConfig())
 
+    viewed = {"wq": cfg.n_kv_heads, "wk": cfg.n_kv_heads,
+              "wv": cfg.n_kv_heads, "w": cfg.n_heads}
+
     def one(names, old, s):
-        head = (len(names) >= 2 and names[-1] == "w"
-                and names[-2] in ("wq", "wk", "wv")
-                and old.spec and old.spec[-1] == "model")
-        if head and cfg.n_kv_heads % msize:
+        heads = (viewed.get(names[-2], 0) if len(names) >= 2
+                 and names[-1] == "w" else 0)
+        if heads and old.spec and old.spec[-1] == "model" and heads % msize:
             assert s.spec == old.spec[:-1] + (None,), names
         else:
             assert s.spec == old.spec, names
