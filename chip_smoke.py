@@ -4526,14 +4526,19 @@ def run(torch, stop_after, children: list) -> int:
     # config runs the SSD kernels forward and backward (hd 64, ds 16).
     def parity_rounds(cfg_p, algorithm="firm", up="int8+ef", n_rounds=3,
                       vectorized=True, het_steps=None, down="identity",
-                      fused=False):
+                      fused=False, clients=2):
         """n_rounds carried rounds on both sides; ``vectorized=False`` asks
         for the loop executor, ``het_steps`` for heterogeneous
         client_local_steps (cohorts), one entry a client; ``fused`` runs
-        the rounds as one chunk of the fused executor on each side."""
+        the rounds as one chunk of the fused executor on each side;
+        ``clients`` the clients of a round without cohorts.  A low-rank
+        uplink is also held as the codecs phase holds it: the CPU codec
+        on the card's own inputs of the round (rows, residuals, omega)
+        against the card's decoded rows and residuals, within max(1e-4,
+        2 F32_ERROR_K 2**-24 cond(P)) of max |flat + state|."""
         pb, pp, pnew = 2, 8, 12
         pc, k_max = ((len(het_steps), max(het_steps)) if het_steps
-                     else (2, 1))
+                     else (clients, 1))
         fc_p = dataclasses.replace(FIRMConfig(), n_clients=pc, local_steps=1,
                                    batch_size=pb, n_objectives=N_OBJ,
                                    client_local_steps=het_steps)
@@ -4555,6 +4560,9 @@ def run(torch, stop_after, children: list) -> int:
                          lambda t: t.to(dev), p_cpu))}
         alg = sides["cpu"].algorithm
         exchange = not alg.caps.traced_server_exchange
+        up_inner = getattr(sides["cpu"].uplink_codec, "inner", None)
+        low_rank = isinstance(up_inner, lowrank.LowRankCodec)
+        top_k = isinstance(up_inner, sparsify.TopKCodec)
         beta = alg.resolve_config(fc_p).beta
         # the MGDA problems solved: the clients' Gram matrices (firm,
         # firm_unreg) or the server's average matrices (fedcmoo); linear
@@ -4581,12 +4589,23 @@ def run(torch, stop_after, children: list) -> int:
             avg = sum(m_.detach().double().cpu() for m_ in mats) / len(mats)
             grams[side_of["now"]].append((avg @ avg.T).numpy())
             return solve_fn(mats, *a, **kw)
+        # the card's uplink calls of a low-rank codec: (rows, spec,
+        # residuals, omega) in, (residuals, decoded) out
+        lr_calls, rt_of = [], {}
         for side, tr in sides.items():
             # the host boundary, which both executors' rounds run
-            def spy_up(flats, *a, _rt=tr.uplink_codec.roundtrip_stacked,
-                       _side=side, **kw):
+            rt_of[side] = tr.uplink_codec.roundtrip_stacked
+
+            def spy_up(flats, *a, _rt=rt_of[side], _side=side, **kw):
+                if low_rank and _side == "cuda":
+                    inputs = (flats.detach().clone(), a[0], [
+                        None if t is None else t.clone()
+                        for t in (a[1] if len(a) > 1 else kw["states"])],
+                        kw["bits"].clone())
                 out = _rt(flats, *a, **kw)
                 uplinks[_side].append(flats.detach().cpu().clone())
+                if low_rank and _side == "cuda":
+                    lr_calls.append((inputs, out[1], out[2]))
                 return out
             tr.uplink_codec.roundtrip_stacked = spy_up
 
@@ -4611,9 +4630,15 @@ def run(torch, stop_after, children: list) -> int:
                 "gumbel": -torch.log(-torch.log(torch.rand(
                     (k_max, pc, pnew, pb, cfg_p.vocab),
                     generator=g_cpu).clamp(1e-12, 1 - 1e-7))),
-                "up_bits": torch.randint(-2 ** 31, 2 ** 31 - 1,
-                                         (pc, rows, 1024), dtype=torch.int32,
-                                         generator=g_cpu)}
+                # the uplink's draws: omega for a low-rank codec, none
+                # for top-k, else the rounding bits
+                "up_bits": (torch.randn(
+                    (pc, lowrank._matrix_shape(sides["cpu"].d_trainable)[1],
+                     up_inner.rank), generator=g_cpu) if low_rank else
+                    torch.randint(-2 ** 31, 2 ** 31 - 1, (pc, rows, 1024),
+                                  dtype=torch.int32, generator=g_cpu))}
+            if top_k:
+                del draws["up_bits"]
             if down != "identity":
                 draws["down_bits"] = torch.randint(
                     -2 ** 31, 2 ** 31 - 1, (rows, 1024), dtype=torch.int32,
@@ -4690,6 +4715,32 @@ def run(torch, stop_after, children: list) -> int:
                 **{k: of_scale(*v) for k, v in steps.items()}}
             ok = (rec["exact"] and rec["drift"] <= 1e-4
                   and rec["kl_abs"] <= 1e-6 and rec["lam"] <= 1e-4 * slack)
+            if low_rank:
+                (flats_c, spec_c, states_c, omega_c), res_c, dec_c = \
+                    lr_calls[r]
+                _, cpu_res, cpu_dec = rt_of["cpu"](
+                    flats_c.cpu(), spec_c,
+                    [None if t is None else t.cpu() for t in states_c],
+                    bits=omega_c.cpu())
+                rec["lowrank"] = []
+                for c in range(pc):
+                    adj = flats_c[c] + (0 if states_c[c] is None
+                                        else states_c[c])
+                    scale = float(adj.abs().max())
+                    _, p_c = up_inner.range_sample(adj, omega_c[c])
+                    sv = torch.linalg.svdvals(p_c.double().cpu())
+                    cond = float(sv[0] / sv[-1])
+                    lr_rec = {
+                        "cond_P": cond,
+                        "decoded_err": float((dec_c[c].cpu() - cpu_dec[c])
+                                             .abs().max()) / scale,
+                        "residual_err": float((res_c[c].cpu() - cpu_res[c])
+                                              .abs().max()) / scale,
+                        "limit": max(1e-4, 2 * lowrank.F32_ERROR_K
+                                     * 2.0 ** -24 * cond)}
+                    rec["lowrank"].append(lr_rec)
+                    ok = ok and max(lr_rec["decoded_err"],
+                                    lr_rec["residual_err"]) <= lr_rec["limit"]
             if algorithm == "firm":
                 ok = ok and all(rec[k] <= 1e-2 * slack for k in steps)
             else:
@@ -4790,14 +4841,34 @@ def run(torch, stop_after, children: list) -> int:
           and f_launches["wan up, delta+int8 down"]["quantize"] == 6
           and all(v["gram"] == 3 * 2 for v in f_launches.values()),
           f"round_parity fused launches {f_launches}")
+    # C = 4 clients on the tiny llama, R = 2 carried rounds each: the
+    # extreme preset (the top-k uplink, whose abs_threshold_count counts
+    # over the four clients' rows; the int8 downlink) and the powersgd
+    # preset (lowrank:4+ef up, omega injected)
+    parity_clients, c4_start = {}, time.perf_counter()
+    for preset in ("extreme", "powersgd"):
+        up_p, down_p = CODEC_PRESETS[preset]
+        zero_counts()
+        parity_clients[f"{preset} C=4"] = {
+            "rounds": parity_rounds(tiny_llama, "firm", up_p, 2,
+                                    down=down_p, clients=4),
+            "card_launches": read_counts()}
+    c4_s = time.perf_counter() - c4_start
+    c_launches = {k: v["card_launches"] for k, v in parity_clients.items()}
+    check(c_launches["extreme C=4"]["abs_threshold_count"] > 0
+          and all(v["gram"] == 2 * 4 for v in c_launches.values()),
+          f"round_parity C = 4 launches {c_launches}")
     emit(phase="round_parity", models=parity,
          algorithms=parity_algorithms, executors=parity_executors,
-         fused=parity_fused,
+         fused=parity_fused, clients=parity_clients,
+         clients_seconds=c4_s,
          tolerance="exact bytes, participants, dispatches and rewards; "
          "drift 1e-4 of its scale; KL 1e-6 absolute; lambda 1e-4 and the "
          "steps over actor_lr 1e-2 of their scale, each over min(1, D); "
          "firm_unreg, linear and fedcmoo: at most 0.2% of a step's "
-         "entries past 1e-2, each within 0.25")
+         "entries past 1e-2, each within 0.25; the low-rank uplink: the "
+         "CPU codec on the card's inputs within max(1e-4, 2 F32_ERROR_K "
+         "2**-24 cond(P)) of max |flat + state|")
     done("round_parity")
 
     # ---------------------------------------------------------- 22. algorithms

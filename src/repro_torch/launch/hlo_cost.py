@@ -190,6 +190,76 @@ def _view(func) -> bool:
 
 
 
+# what the plain branch does with an operation, by ``id(func)`` (an
+# operation is one object for the life of the process, and its own hash
+# is a Python call): run it alone (a view: neither counted nor tracked),
+# record and replay it (functional), or run and count it (anything else,
+# and an operation found to return an alias of an operand although its
+# schema names none, as ``_unsafe_view``)
+_RUN, _VIEW, _RECORD, _IN_PLACE = 0, 1, 2, 3
+_KINDS: dict = {}
+# element-wise updates of their first operand, which they return (the
+# engine sums gradients with ``add_``): recorded as their counts alone
+_IN_PLACE_NAMES = {"add_", "sub_", "mul_", "div_", "copy_", "masked_fill_"}
+
+
+def _kind(func) -> int:
+    kind = _KINDS.get(id(func))
+    if kind is None:
+        kind = _KINDS[id(func)] = (
+            _RUN if func.namespace in ("_c10d_functional", "c10d")
+            else _VIEW if _view(func) else _RECORD if _functional(func)
+            else _IN_PLACE if func._schema.name.split("::")[-1]
+            in _IN_PLACE_NAMES else _RUN)
+    return kind
+
+
+_PLAIN_SCALARS = frozenset(_SCALARS)
+
+
+def _meta_key_of(x, key: list) -> int:
+    """Append the metadata of ``x`` (an operand, or a list or tuple of
+    them) to ``key``: the plain ``meta`` tensors it holds, or -1 where a
+    tensor is not one or an operand cannot be named."""
+    t = type(x)
+    if t is torch.Tensor:
+        if not x.is_meta:
+            return -1
+        key.append((x.shape, x.stride(), x.dtype))
+        return 1
+    if t in _PLAIN_SCALARS:
+        key.append(t)
+        key.append(x)
+        return 0
+    if t is list or t is tuple:
+        key.append(len(x))
+        n = 0
+        for y in x:
+            m = _meta_key_of(y, key)
+            if m < 0:
+                return -1
+            n += m
+        return n
+    return -1
+
+
+def _meta_key(func, args, kwargs):
+    """The operation and its operands' metadata where every tensor
+    operand is a plain ``meta`` tensor (at least one), else None."""
+    at = _POSITION_FREE.get(func)
+    if at is not None:
+        args = args[:at] + (None,) + args[at + 1:]
+    key = [id(func)]
+    n = _meta_key_of(args, key)
+    for k, v in kwargs.items():
+        if n < 0:
+            break
+        key.append(k)
+        m = _meta_key_of(v, key)
+        n = -1 if m < 0 else n + m
+    return tuple(key) if n > 0 else None
+
+
 def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
@@ -221,11 +291,16 @@ class CostCounter(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self._live = {}               # storage key -> [bytes, refs]
+        self._refs = {}               # id -> (weak reference of a tracked
+        #                               tensor, storage key) until it dies
         self._below = False           # a DTensor operation runs below
         # DTensor operations and rules recorded by ``_memo``: key ->
         # outputs' specs and shards, what they counted, bytes held (one
         # counter's: a spec names the mesh of its pair)
         self._records = {}
+        # plain meta operations recorded by ``_plain_op``: key ->
+        # outputs' metadata, what they counted
+        self._plain = {}
         self._dims = {}               # group name -> mesh dims
         if mesh is not None:
             for name in mesh.mesh_dim_names:
@@ -256,7 +331,15 @@ class CostCounter(TorchDispatchMode):
             self.live_bytes += entry[0]
             self.peak_bytes = max(self.peak_bytes, self.live_bytes)
         entry[1] += 1
-        weakref.finalize(t, self._release, key)
+        # a weak reference whose callback releases the storage's count,
+        # kept until then (cheaper than ``weakref.finalize``)
+        ref = weakref.ref(t, self._freed)
+        self._refs[id(ref)] = (ref, key)
+
+    def _freed(self, ref) -> None:
+        entry = self._refs.pop(id(ref), None)
+        if entry is not None:
+            self._release(entry[1])
 
     def _release(self, key) -> None:
         entry = self._live.get(key)
@@ -431,6 +514,44 @@ class CostCounter(TorchDispatchMode):
                 self._below = False
         return self._memo(key, run, (args, kwargs))
 
+    def _plain_op(self, key, func, args, kwargs):
+        """A functional operation on plain ``meta`` tensors: run and
+        counted once for each key, which records its outputs' metadata
+        and what it counted; later calls with the key add the record and
+        return new meta outputs (tracked), without the meta kernel,
+        whose Python shape rules cost a recurrence's step more than the
+        rest of its operations."""
+        entry = self._plain.get(key)
+        if entry is not None:
+            metas, delta = entry
+            self._add(delta)
+            outs = []
+            for shape, stride, dtype, offset, size in metas:
+                t = torch.empty_strided(shape, stride, dtype=dtype,
+                                        device="meta")
+                if offset or t.untyped_storage().nbytes() != size:
+                    t = torch.empty(size, dtype=torch.uint8, device="meta"
+                                    ).view(dtype).as_strided(shape, stride,
+                                                             offset)
+                self._track(t)
+                outs.append(t)
+            return outs[0] if len(outs) == 1 else tuple(outs)
+        before = self._totals()
+        out = func(*args, **kwargs)
+        self._op(func, args, kwargs, out)
+        outs = [out] if isinstance(out, torch.Tensor) else list(out)
+        for t in outs:
+            self._track(t)
+        ins = {_storage_key(t) for t in _tensors((args, kwargs))}
+        if any(_storage_key(t) in ins for t in outs):
+            _KINDS[id(func)] = _RUN   # an output aliases an operand
+            return out
+        self._plain[key] = (
+            [(tuple(t.shape), t.stride(), t.dtype, t.storage_offset(),
+              t.untyped_storage().nbytes()) for t in outs],
+            self._delta(before))
+        return out
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
@@ -442,6 +563,23 @@ class CostCounter(TorchDispatchMode):
         if (torch._C._get_dispatch_mode(_FAKE) is not None
                 or any(issubclass(t, FakeTensor) for t in types)):
             return func(*args, **kwargs)   # sharding propagation's shapes
+        kind = _kind(func)
+        if kind == _VIEW:
+            return func(*args, **kwargs)   # neither counted nor tracked
+        if kind >= _RECORD and not self.paused:
+            key = _meta_key(func, args, kwargs)
+            if key is not None:
+                if kind == _RECORD:
+                    return self._plain_op(key, func, args, kwargs)
+                delta = self._plain.get(key)
+                if delta is not None:
+                    self._add(delta)
+                    return args[0]
+                before = self._totals()
+                out = func(*args, **kwargs)
+                self._op(func, args, kwargs, out)
+                self._plain[key] = self._delta(before)
+                return out
         out = func(*args, **kwargs)
         ns = func.namespace
         name = func._schema.name.split("::")[-1]
@@ -475,20 +613,26 @@ class CostCounter(TorchDispatchMode):
                 "peak_bytes": self.peak_bytes}
 
 
+def open_counter():
+    """The ``CostCounter`` open, where exactly one is; else None."""
+    stack = (_get_current_dispatch_mode_stack()
+             if torch._C._len_torch_dispatch_stack() else [])
+    counters = [m for m in stack if isinstance(m, CostCounter)]
+    return counters[0] if len(counters) == 1 else None
+
+
 def memoized(tag: str, fn, *args):
     """``fn(*args)`` for a layout rule of ``launch.rules`` (DTensors in,
     DTensors out): with one ``CostCounter`` open and no gradient
     recorded, through the counter's record of the rule on these
     operands (``CostCounter._memo``), else as it is."""
-    stack = (_get_current_dispatch_mode_stack()
-             if torch._C._len_torch_dispatch_stack() else [])
-    counters = [m for m in stack if isinstance(m, CostCounter)]
-    if len(counters) != 1 or torch.is_grad_enabled():
+    counter = open_counter()
+    if counter is None or torch.is_grad_enabled():
         return fn(*args)
     key = _dtensor_key(tag, args, {})
     if key is None:
         return fn(*args)
-    return counters[0]._memo(key, lambda: fn(*args), args)
+    return counter._memo(key, lambda: fn(*args), args)
 
 
 def analyze(fn, *args, mesh=None, groups=None, **kwargs) -> dict:

@@ -24,9 +24,12 @@ that no rule names, runs as it would without it.
       1: the plain softmax bit for bit.
   einsum: its operands laid out by ``plan_einsum`` (each mesh dim shards
       the index letter that costs least to lay out), then one einsum on
-      the shards.  DTensor's own views shards that are not contiguous
-      (and fails: the MoE experts' products) and plans strided shards
-      for longer than a pair's time limit.
+      the shards; an operand whole on a mesh dim that shards another's
+      letter gets its gradient Partial there (the sum over that letter's
+      shards), as the lookup's table does where the indices are
+      sharded.  DTensor's own views shards that are not contiguous (and
+      fails: the MoE experts' products) and plans strided shards for
+      longer than a pair's time limit.
   reshape and view: a dim gathered first where a split or merge would
       break its shards' blocks (DTensor refuses the uneven split of 4
       heads over 16 cards, 2.11 the flatten of a sharded dim, and 2.13
@@ -43,15 +46,26 @@ that no rule names, runs as it would without it.
   ``torch.cat`` that DTensor's rule fails on (operands Partial by a mean
       and by a sum): the operands laid out alike first, then one cat on
       the shards.
+  ``common.scan`` (the xLSTM's recurrences): its operands laid out once
+      before the loop (Partial sums reduced, dims but the batch
+      gathered), then, where only the batch is sharded and the weights
+      the body binds are replicated, its steps on the local shards, as
+      GSPMD partitions a while loop over a batch-sharded carry; under a
+      ``hlo_cost.CostCounter`` the middle steps are replayed
+      (``launch.replay``).  Any other layout runs as the loop of DTensor
+      operations.
 
 Importing the module also registers a pointwise sharding strategy for
 ``aten.log_sigmoid_backward`` (the sLSTM forget gate's gradient), which
-DTensor lacks, with ``torch.distributed.tensor.experimental.
-register_sharding``.  Under a ``hlo_cost.CostCounter`` the rules are
+DTensor lacks, and one for ``aten.flip`` where the torch in use has none
+(2.11; the mLSTM's ``cumsum`` flips in its backward), with
+``torch.distributed.tensor.experimental.register_sharding``.  Under a
+``hlo_cost.CostCounter`` the rules are
 recorded once per key and replayed (``hlo_cost.memoized``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -59,10 +73,12 @@ import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+from torch.distributed.tensor._utils import compute_global_tensor_info
 from torch.distributed.tensor.experimental import register_sharding
 from torch.overrides import TorchFunctionMode
 
-from repro_torch.launch import hlo_cost
+from repro_torch.launch import hlo_cost, replay
+from repro_torch.models import common
 
 aten = torch.ops.aten
 # the functional all-gathers, by the names of the torch in use (2.13
@@ -84,6 +100,29 @@ def _log_sigmoid_backward(grad_output, self, buffer):
         out.append(([Shard(d)], [Shard(d), Shard(d),
                                  Shard(d) if same else Replicate()]))
     return out
+
+
+def _flip_sharding(self, dims):
+    """``aten.flip``: the shards of every dim it does not flip, a Partial
+    sum as it is (torch 2.11 has no strategy; the backward of the
+    mLSTM's ``cumsum`` flips)."""
+    flipped = {d % len(self.shape) for d in dims}
+    out = [([Replicate()], [Replicate(), None]),
+           ([Partial()], [Partial(), None])]
+    for d in range(len(self.shape)):
+        if d not in flipped:
+            out.append(([Shard(d)], [Shard(d), None]))
+    return out
+
+
+def _has_strategy(op) -> bool:
+    prop = DTensor._op_dispatcher.sharding_propagator
+    return any(op in getattr(prop, name, {}) for name in (
+        "op_strategy_funcs", "op_single_dim_strategy_funcs", "op_to_rules"))
+
+
+if not _has_strategy(aten.flip.default):
+    register_sharding(aten.flip.default)(_flip_sharding)
 
 
 def contiguous_strides(shape) -> tuple:
@@ -228,8 +267,12 @@ def lookup(weight: DTensor, idx: DTensor) -> DTensor:
     table = weight.redistribute(mesh, whole).redistribute(mesh, sliced)
     pl = tuple(q if q.is_shard() else Shard(idx.ndim) if w.is_shard(1)
                else Replicate() for q, w in zip(idx.placements, sliced))
-    return _wrap(table.to_local()[idx.to_local()], mesh, pl,
-                 tuple(idx.shape) + tuple(weight.shape[1:]))
+    # a table whole on a mesh dim that shards the indices gathers its
+    # gradient from this rank's rows only: Partial there
+    grad_pl = tuple(Partial() if q.is_shard() and w.is_replicate() else w
+                    for q, w in zip(idx.placements, sliced))
+    return _wrap(table.to_local(grad_placements=grad_pl)[idx.to_local()],
+                 mesh, pl, tuple(idx.shape) + tuple(weight.shape[1:]))
 
 
 def _groups(ins, outs) -> list:
@@ -290,9 +333,10 @@ def local_reshape(x: DTensor, shape, view: bool = False):
     placement is Partial.  Its gradient is reshaped on the shard too
     (DTensor would view a gradient laid out otherwise than the forward,
     which it may refuse), and DTensor's view propagation costs a step of
-    a recurrence more than the rest of its operations.  A reshape whose
-    shard comes out as a strided view is copied.  None where it does not
-    apply, or where a view's shard is not contiguous."""
+    a recurrence more than the rest of its operations.  The shard is
+    what ``reshape`` (``view``) makes of the local tensor, a strided view
+    where it is one, as on plain tensors.  None where it does not
+    apply."""
     shape = _target(x, shape)
     mesh = x.device_mesh
     if any(type(p) not in (Shard, Replicate) for p in x.placements):
@@ -312,13 +356,10 @@ def local_reshape(x: DTensor, shape, view: bool = False):
         return None                       # a sharded dim of size 1
     local = x.to_local()
     out = local.view(local_shape) if view else local.reshape(local_shape)
-    if not out.is_contiguous():
-        if view:
-            return None
-        out = out.contiguous()            # a view of a slice: copied
     pl = tuple(Shard(new_dim[p.dim]) if p.is_shard() else p
                for p in x.placements)
-    return _from_local(out, mesh, pl, shape, contiguous_strides(shape))
+    return _from_local(out, mesh, pl, shape,
+                       compute_global_tensor_info(out, mesh, pl)[1])
 
 
 def _local_bytes(x: DTensor) -> int:
@@ -390,17 +431,26 @@ def planned_einsum(equation: str, ops):
         return None
     targets, out_pl, shape = plan
     mesh = next(o.device_mesh for o in ops if isinstance(o, DTensor))
+    letters = equation.replace(" ", "").split("->")[0].split(",")
+    # the letter each mesh dim shards: an operand without it holds it
+    # whole, and its gradient, summed over that letter's shards, is Partial
+    chosen = [next((x[p.dim] for x, p in zip(letters, (t[i] for t in targets))
+                    if p.is_shard()), None) for i in range(mesh.ndim)]
     local = []
-    for o, pl in zip(ops, targets):
+    for o, pl, x in zip(ops, targets, letters):
         if not isinstance(o, DTensor):
             o = _from_local(o, mesh, (Replicate(),) * mesh.ndim, o.shape,
                             o.stride())
         if tuple(o.placements) != pl:
             o = o.redistribute(mesh, pl)
-        local.append(o.to_local())
+        grad_pl = tuple(Partial() if c is not None and c not in x else p
+                        for c, p in zip(chosen, pl))
+        local.append(o.to_local(grad_placements=grad_pl))
     out = torch.einsum(equation, *local)
-    return _from_local(out.contiguous(), mesh, out_pl, shape,
-                       contiguous_strides(shape))
+    # the shard as torch.einsum leaves it (a permuted view of its product
+    # where it is one), uncopied, as on plain tensors
+    return _from_local(out, mesh, out_pl, shape,
+                       compute_global_tensor_info(out, mesh, out_pl)[1])
 
 
 def _reshape(x: DTensor, shape, view: bool):
@@ -499,6 +549,149 @@ def cat_dtensors(tensors, dim: int = 0) -> DTensor:
     return _wrap(torch.cat(local, dim), mesh, pl, shape)
 
 
+def _collectives(counter) -> int:
+    return sum(c["count"] for c in counter.collectives.values())
+
+
+def _batch_laid_out(t):
+    """``t`` with each Partial placement reduced and each tensor dim but
+    the batch (dim 0) gathered: Replicate where a placement is either."""
+    if not isinstance(t, DTensor) or all(
+            p.is_replicate() or type(p) is Shard and p.dim == 0
+            for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, tuple(
+        p if type(p) is Shard and p.dim == 0 else Replicate()
+        for p in t.placements))
+
+
+def scan_layout(body, carry, xs):
+    """The operands of a ``common.scan`` (the tensors ``body`` binds, the
+    carry, the xs) laid out once, before the loop, as a scan on the
+    shards takes them: each Partial placement reduced, each dim but the
+    batch gathered, and the carry and the xs sharded alike (each mesh
+    dim shards the batch of all of them or of none).  A projection whose
+    contracted dim is sharded (the xLSTM's gate pre-activations over
+    'model') would otherwise enter every step as partial sums, each step
+    reducing its slice, and a gate DTensor sharded otherwise than the
+    rest (an mLSTM forget gate, at some widths) would be laid out a step
+    at a time; GSPMD reduces a dot's partial sums where the dot is, and
+    lays a while loop's operands out before it."""
+    if isinstance(body, functools.partial):
+        body = functools.partial(
+            body.func, *common.map_tensors(_batch_laid_out, body.args),
+            **common.map_tensors(_batch_laid_out, body.keywords))
+    carry = common.map_tensors(_batch_laid_out, carry)
+    xs = common.map_tensors(_batch_laid_out, xs)
+    dts = [t for t in common.tensor_leaves((carry, xs))
+           if isinstance(t, DTensor)]
+    if dts and all(t.device_mesh == dts[0].device_mesh for t in dts):
+        mesh = dts[0].device_mesh
+        common_pl = tuple(Shard(0) if all(t.placements[i] == Shard(0)
+                                          for t in dts) else Replicate()
+                          for i in range(mesh.ndim))
+
+        def alike(t):
+            if (not isinstance(t, DTensor)
+                    or tuple(t.placements) == common_pl):
+                return t
+            return t.redistribute(mesh, common_pl)
+        carry = common.map_tensors(alike, carry)
+        xs = common.map_tensors(alike, xs)
+    return body, carry, xs
+
+
+def grad_as_laid_out(t):
+    """``t``, whose gradient is laid out as ``t`` is (a Partial one
+    reduced, once): an identity through ``DTensor.from_local``, whose
+    backward redistributes.  A scan's outputs pass it, so that, as in
+    the forward, no partial sum enters the loop's backward steps."""
+    if not isinstance(t, DTensor) or not t.requires_grad:
+        return t
+    return DTensor.from_local(t.to_local(), t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def scan_on_shards(mode, body, carry, xs, dim: int = 0):
+    """``common.scan(body, carry, xs, dim)`` over DTensors, its steps run
+    on the local shards, as GSPMD partitions a while loop over a
+    batch-sharded carry (a shard map); None, having run nothing, where it
+    does not apply.
+
+    It applies where every DTensor operand is laid out by Shard and
+    Replicate only (no Partial), the tensors ``body`` binds are
+    replicated, and the xs (all DTensors, scanned along ``dim`` >= 1)
+    and the DTensor carries share one layout that shards at most their
+    batch dim 0, evenly.  Step 0 runs as DTensor's own rules run it, in
+    ``mode``: it lays out a plain carry (replicated, as the steps'
+    ``implicit_replication`` reads it).  Where that step's carry and
+    output are laid out as the xs are, and (under a ``CostCounter``) it
+    ran no collective, the other steps run on the shards: the bound
+    tensors' shards with a gradient Partial over the batch's mesh dims
+    (each shard's rows add to it), the carry's and the xs' shards; the
+    stacked outputs and the last carry are wrapped back with
+    ``DTensor.from_local``.  ``to_local`` and ``from_local`` are
+    differentiable, so the gradients flow through.  Otherwise the other
+    steps too run under DTensor's rules, in ``mode``.
+
+    ``body`` must keep the rows of its batch apart, as the xLSTM's cells
+    do: row i of its outputs reads row i of its carry and slice only.
+    """
+    if dim < 1:
+        return None
+    bound = ((body.args, body.keywords)
+             if isinstance(body, functools.partial) else ())
+    consts, carries, seqs = (common.tensor_leaves(t)
+                             for t in (bound, carry, xs))
+    dts = [t for t in consts + carries + seqs if isinstance(t, DTensor)]
+    if not dts or not all(isinstance(t, DTensor) for t in seqs):
+        return None
+    mesh, pl = seqs[0].device_mesh, tuple(seqs[0].placements)
+    if any(t.device_mesh != mesh
+           or any(type(p) not in (Shard, Replicate) for p in t.placements)
+           for t in dts):
+        return None
+    if any(isinstance(t, DTensor) and any(p.is_shard() for p in t.placements)
+           for t in consts):
+        return None
+    if any(p.is_shard() and p.dim != 0 for p in pl) or any(
+            tuple(t.placements) != pl for t in seqs + carries
+            if isinstance(t, DTensor)):
+        return None
+    batch = [i for i, p in enumerate(pl) if p.is_shard()]
+    shards = math.prod(mesh.size(i) for i in batch)
+    if any(t.shape[0] % shards for t in seqs + carries) or \
+            seqs[0].shape[dim] < 2:
+        return None
+    counter = hlo_cost.open_counter()
+    ran = counter and _collectives(counter)
+    with mode:
+        carry, y = body(carry, common.scan_slice(xs, 0, dim))
+    outs = common.tensor_leaves((carry, y))
+    if not all(isinstance(t, DTensor) and tuple(t.placements) == pl
+               for t in outs) or (counter and _collectives(counter) != ran):
+        with mode:
+            return common.map_tensors(grad_as_laid_out, common.scan_loop(
+                body, carry, xs, dim, start=1, ys=[y]))
+    grad_pl = tuple(Partial() if i in batch else p
+                    for i, p in enumerate(pl))
+    if bound:
+        local = common.map_tensors(
+            lambda t: t.to_local(grad_placements=grad_pl)
+            if isinstance(t, DTensor) else t, bound)
+        body = functools.partial(body.func, *local[0], **local[1])
+    loop = (common.scan_loop if counter is None else
+            functools.partial(replay.counted_scan, counter))
+    carry, ys = loop(body, common.map_tensors(DTensor.to_local, carry),
+                     common.map_tensors(DTensor.to_local, xs), dim, 1,
+                     [common.map_tensors(DTensor.to_local, y)])
+
+    def wrap(t):
+        return DTensor.from_local(t, mesh, pl, run_check=False)
+    return common.map_tensors(wrap, carry), common.map_tensors(wrap, ys)
+
+
 _SOFTMAX = {torch.softmax, torch.Tensor.softmax, F.softmax}
 _RESHAPE = {torch.Tensor.reshape, torch.Tensor.view, torch.reshape}
 _PAD = {F.pad, torch._C._nn.pad}
@@ -517,6 +710,14 @@ class StepRules(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func is common.scan:
+            args = scan_layout(*args)
+            out = scan_on_shards(self, *args, **kwargs)
+            if out is None:
+                with self:
+                    out = common.map_tensors(
+                        grad_as_laid_out, common.scan_loop(*args, **kwargs))
+            return out
         if func not in _RULED:
             return func(*args, **kwargs)
         x = args[0] if args else None

@@ -8,6 +8,7 @@ matches the JAX reference.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -95,6 +96,82 @@ def swiglu(p: Param, x: torch.Tensor) -> torch.Tensor:
     u = linear(p["w_up"], x)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return linear(p["w_down"], h)
+
+
+# ---------------------------------------------------------------------- scan
+def tensor_leaves(tree) -> list:
+    """The tensors of a tree of dicts, lists and tuples, in order."""
+    out = []
+    map_tensors(out.append, tree)
+    return out
+
+
+def map_tensors(fn, tree):
+    """``tree`` with ``fn`` applied to each tensor (dicts, lists and
+    tuples walked, anything else kept)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return tree
+
+
+def scan_operands(body, carry, xs) -> tuple:
+    """The tensors a ``scan`` reads: those bound in ``body`` when it is a
+    ``functools.partial`` (its arguments and keywords), then the carry's,
+    then the xs'."""
+    bound = ((body.args, body.keywords)
+             if isinstance(body, functools.partial) else ())
+    return tuple(tensor_leaves((bound, carry, xs)))
+
+
+def scan_slice(xs, t: int, dim: int):
+    """Slice ``t`` of ``xs`` (a tensor or a tuple of tensors) along
+    ``dim``."""
+    at = (slice(None),) * dim + (t,)
+    if isinstance(xs, torch.Tensor):
+        return xs[at]
+    return tuple(x[at] for x in xs)
+
+
+def scan_stack(ys: list, dim: int):
+    """Per-step outputs (tensors, or tuples of them) stacked on ``dim``."""
+    if isinstance(ys[0], torch.Tensor):
+        return torch.stack(ys, dim=dim)
+    return tuple(torch.stack(list(y), dim=dim) for y in zip(*ys))
+
+
+def scan_loop(body, carry, xs, dim: int = 0, start: int = 0, ys=None):
+    """``scan``'s Python loop from step ``start`` on, ``ys`` the outputs
+    of the steps before it."""
+    ys = list(ys or [])
+    first = xs if isinstance(xs, torch.Tensor) else xs[0]
+    for t in range(start, first.shape[dim]):
+        carry, y = body(carry, scan_slice(xs, t, dim))
+        ys.append(y)
+    return carry, scan_stack(ys, dim)
+
+
+def scan(body, carry, xs, dim: int = 0):
+    """The counterpart of ``jax.lax.scan``: ``carry, y = body(carry, x)``
+    for each slice ``x`` of ``xs`` (a tensor, or a tuple of tensors of
+    one length) along ``dim``, in order; returns the final carry and the
+    ``y``s stacked on ``dim``.  ``body`` takes any other tensor it reads
+    bound in a ``functools.partial``.
+
+    On plain tensors it is the Python loop (``scan_loop``), operation for
+    operation.  It takes part in torch's function protocol on its tensor
+    operands (``scan_operands``), so that a ``TorchFunctionMode`` sees the
+    whole recurrence as one call (``launch.rules`` runs one over DTensors
+    on their shards); a CUDA-graph capture pays only the protocol's check.
+    """
+    operands = scan_operands(body, carry, xs)
+    if torch.overrides.has_torch_function(operands):
+        return torch.overrides.handle_torch_function(
+            scan, operands, body, carry, xs, dim=dim)
+    return scan_loop(body, carry, xs, dim)
 
 
 # ---------------------------------------------------------------------- RoPE

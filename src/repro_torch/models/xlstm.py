@@ -5,11 +5,11 @@ state C a head, with exponential input and forget gates and a
 max-stabiliser m (arXiv:2405.04517 Eq. 19-27); sLSTM is the scalar-memory
 cell with block-diagonal (per-head) recurrent weights.  Neither has a
 Pallas kernel in the reference, which computes both in XLA (``lax.scan``
-and einsums): the port computes them in PyTorch, the scans as Python
-loops over time (sLSTM, and mLSTM's exact recurrence) or over chunks
-(mLSTM's chunkwise-parallel form, ``mlstm_chunk > 0``), and differentiates
-them with autograd.  Only the blocks' RMSNorm goes through a kernel
-(``kernels.ops.rmsnorm``).
+and einsums): the port computes them in PyTorch, each ``lax.scan`` as a
+``common.scan`` (a Python loop) over time (sLSTM, and mLSTM's exact
+recurrence) or over chunks (mLSTM's chunkwise-parallel form,
+``mlstm_chunk > 0``), and differentiates them with autograd.  Only the
+blocks' RMSNorm goes through a kernel (``kernels.ops.rmsnorm``).
 
 Dtypes are the reference's: the gate projections ``w_if`` (mLSTM) and
 ``w`` (sLSTM) are f32 and the rest of the block's weights the model's
@@ -20,6 +20,7 @@ to the host, so a captured decode step holds them.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -62,6 +63,12 @@ def _mlstm_step(state, q, k, v, i_log, f_log):
     h_den = torch.clamp(torch.abs(torch.einsum("bhi,bhi->bh", n, q)),
                         min=1.0)
     return (C, n, m_new), h_num / h_den[..., None]
+
+
+def _mlstm_scan_step(state, xs):
+    """``_mlstm_step`` as a ``common.scan`` body: xs = (q, k, v, i_log,
+    f_log) of one step."""
+    return _mlstm_step(state, *xs)
 
 
 def _mlstm_qkvg(p, cfg: ModelConfig, x, use_kernel: bool = True):
@@ -110,13 +117,48 @@ def mlstm_seq_recurrent(p, cfg: ModelConfig, x: torch.Tensor,
     """The exact per-token recurrence (the reference's ``lax.scan``)."""
     b, s, _ = x.shape
     q, k, v, i_log, f_log, o = _mlstm_qkvg(p, cfg, x, use_kernel)
-    state = _zero_state(b, cfg.n_heads, cfg.head_dim, x.device)
-    hs = []
-    for t in range(s):
-        state, h = _mlstm_step(state, q[:, t], k[:, t], v[:, t],
-                               i_log[:, t], f_log[:, t])
-        hs.append(h)
-    return _mlstm_out(p, x, torch.stack(hs, dim=1), o, state, return_state)
+    state, hs = common.scan(_mlstm_scan_step,
+                            _zero_state(b, cfg.n_heads, cfg.head_dim,
+                                        x.device),
+                            (q, k, v, i_log, f_log), dim=1)
+    return _mlstm_out(p, x, hs, o, state, return_state)
+
+
+def _mlstm_chunk_step(causal, state, xs):
+    """One chunk of ``mlstm_seq_chunked`` as a ``common.scan`` body: the
+    chunk's outputs (B, chunk, H, Dh) from the state at its start, and the
+    state at its end.  xs = (q, k, v, i_log, f_log) of the chunk."""
+    C, n, m = state
+    qk, kk, vk, ik, fk = xs
+    F_ = torch.cumsum(fk, dim=1)                       # (B, chunk, H)
+    # log-weights: intra a[i, j] = F_i - F_j + i_j (j <= i); inter F_i + m
+    a_intra = F_[:, :, None, :] - F_[:, None, :, :] + ik[:, None, :, :]
+    a_intra = torch.where(causal, a_intra, -math.inf)
+    m_intra = a_intra.amax(dim=2)                      # (B, chunk, H)
+    m_inter = F_ + m[:, None, :]
+    m_comb = torch.clamp(torch.maximum(m_intra, m_inter), min=-1e30)
+    # intra-chunk numerator and denominator
+    w = torch.exp(a_intra - m_comb[:, :, None, :])              # (B,i,j,H)
+    qkd = torch.einsum("bihe,bjhe->bijh", qk, kk)
+    h_num = torch.einsum("bijh,bjhe->bihe", w * qkd, vk)
+    n_dot = torch.einsum("bijh,bjhe,bihe->bih", w, kk, qk)
+    # inter-chunk
+    scale_i = torch.exp(m_inter - m_comb)                       # (B,chunk,H)
+    h_num = h_num + torch.einsum("bihe,bhed->bihd", qk, C) * \
+        scale_i[..., None]
+    n_dot = n_dot + torch.einsum("bihe,bhe->bih", qk, n) * scale_i
+    # the recurrent cell's floor: max(|n . q|, 1)
+    h = h_num / torch.clamp(torch.abs(n_dot), min=1.0)[..., None]
+    # the state at the chunk's end
+    F_last = F_[:, -1:, :]                                      # (B, 1, H)
+    g = F_last - F_ + ik
+    m_state = torch.maximum(F_last[:, 0] + m, g.amax(dim=1))    # (B, H)
+    wS = torch.exp(g - m_state[:, None, :])
+    decay = torch.exp(F_last[:, 0] + m - m_state)
+    C = C * decay[..., None, None] + \
+        torch.einsum("bjh,bjhe,bjhd->bhed", wS, kk, vk)
+    n = n * decay[..., None] + torch.einsum("bjh,bjhe->bhe", wS, kk)
+    return (C, n, m_state), h
 
 
 def mlstm_seq_chunked(p, cfg: ModelConfig, x: torch.Tensor,
@@ -142,43 +184,13 @@ def mlstm_seq_chunked(p, cfg: ModelConfig, x: torch.Tensor,
         f_log = F.pad(f_log, (0, 0, 0, pad))
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=x.device).tril()[None, :, :, None]
-    C, n, m = _zero_state(b, hh, dh, x.device)
-    hs = []
-    for c in range(nc):
-        sl = slice(c * chunk, (c + 1) * chunk)
-        qk, kk, vk, ik, fk = q[:, sl], k[:, sl], v[:, sl], i_log[:, sl], \
-            f_log[:, sl]
-        F_ = torch.cumsum(fk, dim=1)                   # (B, chunk, H)
-        # log-weights: intra a[i, j] = F_i - F_j + i_j (j <= i); inter F_i + m
-        a_intra = F_[:, :, None, :] - F_[:, None, :, :] + ik[:, None, :, :]
-        a_intra = torch.where(causal, a_intra, -math.inf)
-        m_intra = a_intra.amax(dim=2)                  # (B, chunk, H)
-        m_inter = F_ + m[:, None, :]
-        m_comb = torch.clamp(torch.maximum(m_intra, m_inter), min=-1e30)
-        # intra-chunk numerator and denominator
-        w = torch.exp(a_intra - m_comb[:, :, None, :])          # (B,i,j,H)
-        qkd = torch.einsum("bihe,bjhe->bijh", qk, kk)
-        h_num = torch.einsum("bijh,bjhe->bihe", w * qkd, vk)
-        n_dot = torch.einsum("bijh,bjhe,bihe->bih", w, kk, qk)
-        # inter-chunk
-        scale_i = torch.exp(m_inter - m_comb)                   # (B,chunk,H)
-        h_num = h_num + torch.einsum("bihe,bhed->bihd", qk, C) * \
-            scale_i[..., None]
-        n_dot = n_dot + torch.einsum("bihe,bhe->bih", qk, n) * scale_i
-        # the recurrent cell's floor: max(|n . q|, 1)
-        hs.append(h_num / torch.clamp(torch.abs(n_dot), min=1.0)[..., None])
-        # the state at the chunk's end
-        F_last = F_[:, -1:, :]                                  # (B, 1, H)
-        g = F_last - F_ + ik
-        m_state = torch.maximum(F_last[:, 0] + m, g.amax(dim=1))  # (B, H)
-        wS = torch.exp(g - m_state[:, None, :])
-        decay = torch.exp(F_last[:, 0] + m - m_state)
-        C = C * decay[..., None, None] + \
-            torch.einsum("bjh,bjhe,bjhd->bhed", wS, kk, vk)
-        n = n * decay[..., None] + torch.einsum("bjh,bjhe->bhe", wS, kk)
-        m = m_state
-    hs = torch.cat(hs, dim=1)[:, :s]
-    return _mlstm_out(p, x, hs, o, (C, n, m), return_state)
+    xs = (q.reshape(b, nc, chunk, hh, dh), k.reshape(b, nc, chunk, hh, dh),
+          v.reshape(b, nc, chunk, hh, dh), i_log.reshape(b, nc, chunk, hh),
+          f_log.reshape(b, nc, chunk, hh))
+    state, hs = common.scan(functools.partial(_mlstm_chunk_step, causal),
+                            _zero_state(b, hh, dh, x.device), xs, dim=1)
+    hs = hs.reshape(b, nc * chunk, hh, dh)[:, :s]
+    return _mlstm_out(p, x, hs, o, state, return_state)
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, *, device,
@@ -264,12 +276,11 @@ def slstm_seq(p, cfg: ModelConfig, x: torch.Tensor,
     b, s, d = x.shape
     wx = _slstm_in(p, cfg, x, use_kernel)
     z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-    state, hs = (z, z, z, z), []
-    for t in range(s):
-        state, h = _slstm_step(p, d, state, wx[:, t])
-        hs.append(h)
-    out = x + common.linear(p["out_proj"],
-                            torch.stack(hs, dim=1).to(x.dtype))
+    # the body binds what it reads of the block: the recurrent weights
+    state, hs = common.scan(
+        functools.partial(_slstm_step, {"r": p["r"], "b": p["b"]}, d),
+        (z, z, z, z), wx, dim=1)
+    out = x + common.linear(p["out_proj"], hs.to(x.dtype))
     if return_state:
         return out, dict(zip(("c", "n", "h", "m"), state))
     return out
